@@ -1,0 +1,197 @@
+"""Model configs, parameter specs and the port's initializer (dense family).
+
+PyTorch counterpart of ``repro.models.base``.  ``ModelConfig`` is the JAX
+package's dataclass field for field, so configs read the same.  Parameters
+are nested dicts of tensors with the JAX tree's keys and layouts: decoder
+layers stacked along a leading ``layers`` dimension under
+``params["blocks"]["0"]`` (the dense family's block period is 1), weights
+stored ``(in, out)``.  ``models.convert.params_from_numpy`` turns the JAX
+package's tree into this one; ``init_params`` makes random weights without
+JAX.
+
+The other families (MoE, SSM, hybrid, enc-dec, multimodal) wait for later
+slices; ``param_specs`` raises on them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // num_heads
+    # attention
+    attn_kind: str = "full"  # full | sliding
+    window: int = 4096
+    rope_theta: float = 10000.0
+    use_bias: bool = False
+    logit_softcap: float = 0.0
+    # MoE
+    num_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    first_k_dense: int = 0
+    moe_every: int = 1
+    moe_offset: int = 0
+    # hybrid (jamba)
+    attn_every: int = 0
+    # mamba
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    # rwkv6
+    rwkv_head_dim: int = 64
+    # encoder-decoder
+    num_encoder_layers: int = 0
+    encoder_seq_len: int = 0
+    # multimodal frontend stub
+    num_prefix_embeds: int = 0
+    # misc
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = True
+    max_seq_len: int = 8192
+    dtype: str = "float32"
+    source: str = ""
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.num_heads)
+
+    def param_count(self) -> int:
+        """Total parameter count."""
+        return sum(math.prod(s.shape) for _, s in iter_specs(param_specs(self)))
+
+
+class ParamSpec:
+    """Shape + logical axes + initializer for one parameter tensor."""
+
+    __slots__ = ("shape", "axes", "init", "scale")
+
+    def __init__(self, shape, axes, init="normal", scale=None):
+        if len(shape) != len(axes):
+            raise ValueError(f"shape {shape} and axes {axes} differ in rank")
+        self.shape = tuple(int(s) for s in shape)
+        self.axes = tuple(axes)
+        self.init = init
+        self.scale = scale
+
+    def __repr__(self):
+        return f"ParamSpec({self.shape}, {self.axes})"
+
+
+def dense_supported(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is the dense full-attention family this slice
+    of the port covers."""
+    if (cfg.family != "dense" or cfg.attn_kind != "full" or cfg.num_experts
+            or cfg.num_prefix_embeds or cfg.use_bias or cfg.first_k_dense):
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense full-attention family is ported so far")
+
+
+def attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    return {
+        "wq": ParamSpec((d, h * hd), ("embed", "heads")),
+        "wk": ParamSpec((d, kv * hd), ("embed", "kv")),
+        "wv": ParamSpec((d, kv * hd), ("embed", "kv")),
+        "wo": ParamSpec((h * hd, d), ("heads", "embed")),
+    }
+
+
+def dense_ffn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "wi_gate": ParamSpec((d, f), ("embed", "ffn")),
+        "wi_up": ParamSpec((d, f), ("embed", "ffn")),
+        "wo": ParamSpec((f, d), ("ffn", "embed")),
+    }
+
+
+def layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    specs: Dict[str, Any] = {"attn": attn_specs(cfg)}
+    specs.update({f"norm{i}": ParamSpec((cfg.d_model,), ("embed",), init="ones")
+                  for i in range(2)})
+    specs["ffn"] = dense_ffn_specs(cfg)
+    return specs
+
+
+def _stack(tree: Any, n: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _stack(v, n) for k, v in tree.items()}
+    return ParamSpec((n,) + tree.shape, ("layers",) + tree.axes, tree.init, tree.scale)
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The dense family's parameter spec tree (the JAX tree's keys)."""
+    dense_supported(cfg)
+    specs: Dict[str, Any] = {
+        "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), scale=0.02),
+        "final_norm": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = ParamSpec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+    specs["blocks"] = {"0": _stack(layer_specs(cfg), cfg.num_layers)}
+    return specs
+
+
+def iter_specs(tree: Any, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], ParamSpec]]:
+    """(path, spec) leaves in sorted-key order (the order JAX flattens)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from iter_specs(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def _fill(out: torch.Tensor, spec: ParamSpec, generator: torch.Generator) -> None:
+    if spec.init == "zeros":
+        out.zero_()
+        return
+    if spec.init == "ones":
+        out.fill_(1.0)
+        return
+    # One matrix at a time, so no f32 copy of a whole stacked leaf exists.
+    # The scale is the matrix's own fan-in (its row count); the JAX spec
+    # reads the stacked leading dimension instead, which is the layer count.
+    mats = out.reshape(-1, *out.shape[-2:]) if out.dim() >= 2 else out[None]
+    fan_in = mats.shape[-2] if out.dim() >= 2 else max(out.shape[-1], 1)
+    scale = spec.scale if spec.scale is not None else fan_in ** -0.5
+    for m in mats:
+        noise = torch.randn(m.shape, generator=generator, device=m.device,
+                            dtype=torch.float32)
+        m.copy_(noise.mul_(scale))
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: Optional[torch.device] = None) -> Dict[str, Any]:
+    """Random weights for ``cfg`` on ``device`` (default ``cuda``), drawn
+    from ``generator`` (which must live on that device) leaf by leaf in
+    sorted-key order, normal * fan_in^-0.5 (``embed``: * 0.02), norms ones.
+    Not the JAX package's bits: parity tests share weights through
+    ``models.convert.params_from_numpy`` instead."""
+    from repro_torch import resolve_device
+
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    params: Dict[str, Any] = {}
+    for path, spec in iter_specs(param_specs(cfg)):
+        t = torch.empty(spec.shape, dtype=dtype, device=dev)
+        _fill(t, spec, generator)
+        node = params
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t
+    return params
