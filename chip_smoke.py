@@ -58,8 +58,7 @@ CAPACITY = 2048
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 
-#: the device every phase runs on (a CPU rehearsal sets "cpu": the
-#: wrappers then run their plain versions, and no time is a device time)
+#: the device every phase runs on
 DEV = "cuda"
 
 KERNELS = {
@@ -92,8 +91,7 @@ def require(cond: bool, msg: str) -> None:
 
 
 def sync(torch) -> None:
-    if DEV == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
 
 
 def card_line() -> str:
@@ -339,7 +337,7 @@ def phase_serve(torch, cfg, params, capacity, results, summary) -> None:
             require(len(r.committed) == max_new, f"{mode.value}: rid {r.rid} short")
             require(all(0 <= t < cfg.vocab_size for t in r.committed),
                     f"{mode.value}: token out of range")
-        tps = res["committed"] / res["device_s"] if DEV == "cuda" else None
+        tps = res["committed"] / res["device_s"]
         summary[mode.value] = dict(
             committed=res["committed"], rollbacks=res["rollbacks"],
             recomputed=res["recomputed"], iterations=res["iterations"],
@@ -352,7 +350,7 @@ def phase_serve(torch, cfg, params, capacity, results, summary) -> None:
     log(f"[serve] kernel launches over the three runs: {counts}")
     for name, n in counts.items():
         results[name]["launches"] = n
-        require(n > 0 or DEV != "cuda", f"{name} was never launched on the main path")
+        require(n > 0, f"{name} was never launched on the main path")
 
 
 def phase_reference(torch, cfg, params) -> None:
@@ -629,8 +627,7 @@ def main() -> int:
         if "profile" in phases:
             phase_profile(torch, cfg, params, CAPACITY, summary)
         del params
-        if DEV == "cuda":
-            torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     if "timings" in phases:
         phase_timings(torch, cfg, results)
     log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f} s")
