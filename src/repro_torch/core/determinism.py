@@ -13,7 +13,9 @@ package's; the arithmetic lives in ``repro_torch.kernels``:
   and split-K from M, the batch-dependent reduction this system exists to
   control.
 * ``segment_reduce_sum`` (the norms' feature reduction) and ``tree_combine``
-  are plain tensor code, as in the reference.
+  are plain tensor code, as in the reference; the one-pass reduction is a
+  fixed tree of elementwise adds, so each row's sum is independent of the
+  row count on the card too.
 
 Fast-path schedules with ``tp_shards > 1`` (a tensor-parallel mesh) wait
 for the port of ``distributed/``; ``matmul`` raises on them.
@@ -128,15 +130,31 @@ def matmul(x: torch.Tensor, w: torch.Tensor, schedule: Schedule) -> torch.Tensor
     return ops.matmul(x, w, schedule)
 
 
+def _pairwise_sum(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Sum over ``axis`` by a fixed halving tree of elementwise adds: element
+    i meets element i + n//2 at each level (an odd tail joins the next level
+    as is).  Every output element's bits depend on its own row alone, on
+    any device and at any row count."""
+    while x.shape[axis] > 1:
+        n = x.shape[axis]
+        h = n // 2
+        head = x.narrow(axis, 0, h) + x.narrow(axis, h, h)
+        x = torch.cat([head, x.narrow(axis, 2 * h, 1)], dim=axis) if n % 2 else head
+    return x.squeeze(axis)
+
+
 def segment_reduce_sum(x: torch.Tensor, axis: int, schedule: Schedule) -> torch.Tensor:
     """Sum-reduction with a schedule-dependent tree (for norms).
 
-    splits==1 reduces in f32 in one pass; otherwise the axis is chunked and
-    partials combine sequentially in combine_dtype.
+    splits==1 reduces in f32 in one pass, through ``_pairwise_sum``: a
+    library reduction (``torch.sum`` on CUDA) picks its thread split from
+    the row count, which would make the commit path's norms batch-variant.
+    Otherwise the axis is chunked and partials combine sequentially in
+    combine_dtype (the fast path may vary with the batch).
     """
     n = x.shape[axis]
     if schedule.splits <= 1 or schedule.splits > n:
-        return x.float().sum(dim=axis)
+        return _pairwise_sum(x.float(), axis)
     cd = torch_dtype(schedule.combine_dtype)
     acc = None
     for xc in torch.split(x, _split_sizes(n, schedule.splits), dim=axis):

@@ -8,8 +8,8 @@
   reported, not asserted.
 * Within the port, bitwise: committed streams identical across {pause,
   overlap, adaptive} x spec_depth {1, 4}, across co-traffic mixes, across
-  chunked and exclusive prefill; NONDET diverges under the divergence demo's
-  bf16 policy.
+  chunked and exclusive prefill; BATCH_INVARIANT streams identical across
+  co-traffic mixes; NONDET diverges under the divergence demo's bf16 policy.
 """
 
 from __future__ import annotations
@@ -137,6 +137,15 @@ def test_llm42_rolls_back_under_demo_policy(port_params):
     rejects, so the reference stream above went through rollbacks."""
     r = _run(port_params, Mode.LLM42)
     assert r.num_rollbacks > 0 and r.num_recomputed_tokens > 0
+
+
+@pytest.mark.parametrize("neighbours", [3, 6])
+def test_batch_invariant_streams_identical_across_traffic(port_params, neighbours):
+    """BATCH_INVARIANT runs every pass under the commit schedule, so the
+    stream cannot depend on the decode batch's size."""
+    alone = _run(port_params, Mode.BATCH_INVARIANT, max_new=16).committed
+    assert _run(port_params, Mode.BATCH_INVARIANT, neighbours=neighbours,
+                max_new=16).committed == alone
 
 
 def test_nondet_diverges_across_traffic(port_params):

@@ -146,6 +146,21 @@ def test_rms_norm_and_rope_match_jax():
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
 
 
+@pytest.mark.parametrize("width", [256, 4096, 77])
+def test_one_pass_norm_sum_is_row_invariant(width):
+    """The commit schedule's feature sum: each row's bits are the same at
+    every row count, and the fixed tree is as accurate as an f32 sum."""
+    from repro_torch.core.determinism import segment_reduce_sum
+
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((40, width))
+                         .astype(np.float32)) ** 2
+    full = segment_reduce_sum(x, -1, VERIFY_SCHEDULE)
+    for m in (1, 3, 17, 40):
+        assert torch.equal(segment_reduce_sum(x[:m], -1, VERIFY_SCHEDULE), full[:m])
+    exact = x.double().sum(-1)
+    assert float(((full.double() - exact) / exact).abs().max()) < 4 * 2.0 ** -24 * np.log2(width)
+
+
 def test_param_specs_match_jax():
     """Same keys, shapes and parameter count as the JAX tree, full config."""
     jax = pytest.importorskip("jax")
