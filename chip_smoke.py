@@ -3,33 +3,39 @@
 
 Drives ``repro_torch`` (never JAX, never the JAX package) at the full width
 of Llama-3-8B (``repro_torch/configs/llama3_8b.py::config``), random weights
-from a seed:
+from a seed, on both memory lanes: the paged lane (``paged_attention=True``,
+the main path) and the gathered lane (``paged_attention=False``):
 
-1. build   compile the four Hopper kernels from ``src/repro_torch/kernels/
+1. build   compile the six Hopper kernels from ``src/repro_torch/kernels/
            csrc`` (nvcc, in parallel) and print the card's name and power
            limit;
 2. kernels hold each kernel against its plain PyTorch version at the main
            path's shapes (tolerance printed), plus row invariance across M
            and B, bitwise repeatability of the commit kernels, and split
-           sensitivity of the fast kernels;
+           and combine sensitivity of the fast kernels;
 3. serve   serve requests through ``launch/serve.py``'s request builder in
-           LLM42, BATCH_INVARIANT and NONDET mode (the main path), each
-           run with every kernel's launch count reset just before it and
-           read just after; the counts must equal what the engine's passes
-           imply, and each mode must reach exactly its kernels; then a
-           2-layer cut's logits on the card against the CPU;
-4. determinism  the divergence demo's experiment: the deterministic
-           request's LLM42 and BATCH_INVARIANT streams must be bitwise
-           identical alone and beside 3 and 6 neighbours (NONDET divergence
-           is printed);
-5. profile ``torch.profiler`` over a repeat of the LLM42 run: device time
-           by kernel and the device's busy share;
+           LLM42, BATCH_INVARIANT and NONDET mode on each lane, each run
+           with every kernel's launch count reset just before it and read
+           just after; the counts must equal what the engine's passes
+           imply, and each run must reach exactly its kernels; ``rmsnorm``
+           is on no serve path (its contract is not the model's norm), so
+           its own path is its entry point ``kernels.ops.rmsnorm``, driven
+           with counts reset the same way; then a 2-layer cut's logits on
+           the card against the CPU, on each lane;
+4. determinism  the divergence demo's experiment on each lane, with
+           greedy and seeded deterministic requests: LLM42 and
+           BATCH_INVARIANT streams must be bitwise identical alone and
+           beside 3 and 6 neighbours, and the gathered lane's LLM42 streams
+           equal to the paged lane's (NONDET divergence is printed);
+5. profile ``torch.profiler`` over a window of 4 iterations of the paged
+           LLM42 run: device time by kernel and the device's busy share;
 6. timings each kernel against its plain version and one PyTorch call,
            beside the least time the card could take.
 
 The line before the last is a JSON object describing every kernel
-(``launches`` sums the three serve runs, ``launches_by_mode`` splits them);
-the last line is ``{"ok": true, "device": {...}}``.  Any failed check
+(``launches`` sums the serve runs and the rmsnorm entry-point run,
+``launches_by_mode`` splits them by lane and mode); the last line is
+``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the script exits non-zero without a result when no CUDA device
 is visible or when it runs outside a checkout of the repository.
 
@@ -41,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -73,6 +80,16 @@ DEV = "cuda"
 #: which e values round across a bf16 boundary (2.1e-5 measured)
 ATTN_TOL = 2e-6
 FAST_ATTN_TOL = {"float32": 2e-6, "bfloat16": 1e-4}
+#: dense decode attention (bf16 in and out) against its plain version, in
+#: bf16 ulps of max|ref|: the two sum the same f32 terms in another order,
+#: so an output may round one ulp apart, and with the bf16 combine a
+#: running d or o may also round across a bf16 boundary (at most 0.12 ulps
+#: measured on an H100, D 64 and 128, kv_splits 1 and 4)
+DECODE_ULPS = {"float32": 1, "bfloat16": 2}
+#: rmsnorm against its plain version, in ulps of max|ref| in the output
+#: dtype: the sum of squares is taken in another order (0.25 bf16 ulps at
+#: D = 4096, 2 f32 ulps at D = 300 measured on an H100)
+RMSNORM_ULPS = {"bfloat16": 1, "float32": 4}
 #: mean |card - CPU| of the reference logits, in bf16 ulps of max|ref|
 #: (0.13 measured on an H100: 30 % of the logits agree bitwise, the rest
 #: mostly one ulp apart)
@@ -95,7 +112,18 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:190",
     },
+    "decode_attention": {
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:76",
+    },
+    "rmsnorm": {
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:43",
+    },
 }
+
+#: the two memory lanes the serve and determinism phases drive
+LANES = {"paged": True, "gathered": False}
 
 
 def log(msg: str) -> None:
@@ -115,6 +143,12 @@ def timed(name, phase, *args) -> None:
 
 def sync(torch) -> None:
     torch.cuda.synchronize()
+
+
+def ulp_of(x_max: float, mant: int) -> float:
+    """One ulp at magnitude ``x_max`` for a float type with ``mant``
+    fraction bits (bf16 7, f32 23)."""
+    return 2.0 ** (math.floor(math.log2(max(x_max, 2.0 ** -126))) - mant)
 
 
 def card_line() -> str:
@@ -173,6 +207,28 @@ def paged_inputs(torch, cfg, B, capacity, block_size, seed, min_ctx, max_ctx):
     q = torch.randn((B, H, D), generator=g, device=DEV).to(dt)
     q_pos = (ctx - 1).to(torch.int32)
     return q, k, v, pos, tables, q_pos, ctx
+
+
+def decode_inputs(torch, B, S, H, KV, D, seed, min_len, max_len, dt=None):
+    """q (B,H,D), dense k/v (B,S,KV,D) and lengths in [min_len, max_len)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    dt = dt or torch.bfloat16
+    q = torch.randn((B, H, D), generator=g, device=DEV).to(dt)
+    k = torch.randn((B, S, KV, D), generator=g, device=DEV).to(dt)
+    v = torch.randn((B, S, KV, D), generator=g, device=DEV).to(dt)
+    lengths = torch.randint(min_len, max_len, (B,), generator=g, device=DEV,
+                            dtype=torch.int32)
+    return q, k, v, lengths
+
+
+def decode_bound(q, k, lengths):
+    """Bytes a dense decode must move: q, every valid key and value row, the
+    lengths, the output in q's dtype."""
+    B, H, D = q.shape
+    KV, elt = k.shape[2], k.element_size()
+    n_valid = int(lengths.clamp(0, k.shape[1]).sum())
+    nbytes = 2 * q.numel() * elt + n_valid * KV * D * elt * 2 + B * 4
+    return bound(nbytes, 4.0 * n_valid * H * D)
 
 
 def gemm_bound(M, K, N, elt=2):
@@ -335,6 +391,115 @@ def phase_kernels(torch, cfg, results) -> None:
     log(f"[kernels] paged_attention_fast kv_splits 1 vs 4 (bf16 combine) differ "
         f"at {int((one != four).sum())} of {one.numel()} outputs")
 
+    check_decode_attention(torch, cfg, results)
+    check_rmsnorm(torch, cfg, results)
+
+
+def rows_invariant(torch, fn, inputs, name):
+    """Row 0 of ``inputs`` (each (N, ...), N = 200) alone, then at position
+    p of batches of n rows drawn from the others: its output bits must not
+    change."""
+    alone = fn(*(t[:1].contiguous() for t in inputs))[0]
+    for n, p in ((1, 0), (7, 5), (32, 17), (200, 199)):
+        idx = list(range(1, n))
+        idx.insert(p, 0)
+        sel = torch.tensor(idx, device=DEV)
+        out = fn(*(t.index_select(0, sel).contiguous() for t in inputs))
+        require(torch.equal(out[p], alone), f"{name}: row bits change at B={n}, place {p}")
+    log(f"[kernels] {name}: a row's bits identical alone and at places 5/17/199 "
+        f"of batches of 7/32/200")
+
+
+def check_decode_attention(torch, cfg, results) -> None:
+    """Kernel 5: the gathered lane's W == 1 attention, at its view shape
+    (B = 8, S = 2048) for Llama-3-8B's heads and for D = 64."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    worst = 0.0
+    for H, KV, D in ((cfg.num_heads, cfg.num_kv_heads, cfg.hd), (16, 4, 64)):
+        q, k, v, lens = decode_inputs(torch, 8, 2048, H, KV, D, seed=4,
+                                      min_len=1, max_len=2048)
+        lens[0], lens[1] = 0, 2048
+        for splits in (1, 4):
+            for cd in ("float32", "bfloat16"):
+                out = decode_attention(q, k, v, lens, kv_splits=splits, combine_dtype=cd)
+                want = ref.decode_attention(q, k, v, lens, splits, cd)
+                sync(torch)
+                err = float((out.float() - want.float()).abs().max())
+                ulp = ulp_of(float(want.float().abs().max()), 7)
+                log(f"[kernels] decode_attention B=8 S=2048 H={H} KV={KV} D={D} "
+                    f"kv_splits={splits} {cd}: max_abs_err {err:.3e} = "
+                    f"{err / ulp:.2f} bf16 ulps (tol {DECODE_ULPS[cd]})")
+                require(err <= DECODE_ULPS[cd] * ulp,
+                        "decode_attention disagrees with its plain version")
+                require(not bool(out[0].float().abs().max()), "length 0 must give 0")
+                worst = max(worst, err)
+    results["decode_attention"]["max_abs_err"] = worst
+    # f32 operands: the combine rounding is the kernel's only bf16 step, so
+    # its bf16-combine output must sit far closer to the plain bf16
+    # version than the plain bf16 and f32 versions sit apart (means per
+    # row: a reordered f32 sum may flip the odd rounding of d or o)
+    q, k, v, lens = decode_inputs(torch, 8, 2048, cfg.num_heads, cfg.num_kv_heads,
+                                  cfg.hd, seed=5, min_len=600, max_len=2048,
+                                  dt=torch.float32)
+    out = decode_attention(q, k, v, lens, kv_splits=4, combine_dtype="bfloat16")
+    want = ref.decode_attention(q, k, v, lens, 4, "bfloat16")
+    want32 = ref.decode_attention(q, k, v, lens, 4, "float32")
+    err_row = (out - want).abs().mean(dim=(1, 2))
+    gap_row = (want - want32).abs().mean(dim=(1, 2))
+    ratio = float((err_row / gap_row.clamp_min(1e-30)).max())
+    log(f"[kernels] decode_attention f32 operands, kv_splits=4: plain bf16 and "
+        f"f32 combine {float(gap_row.min()):.3e}..{float(gap_row.max()):.3e} "
+        f"apart per row (mean |diff|); kernel-to-plain mean error at most "
+        f"{ratio:.3f} of that gap (limit 0.25)")
+    require(bool((gap_row > 0).all()) and ratio <= 0.25,
+            "decode_attention does not round d and o through the combine dtype")
+    one = decode_attention(q, k, v, lens, kv_splits=1, combine_dtype="bfloat16")
+    require(not torch.equal(one, out), "decode_attention: kv_splits 1 and 4 agree")
+    # the commit-grade single pass is batch-invariant
+    q, k, v, lens = decode_inputs(torch, 200, 512, cfg.num_heads, cfg.num_kv_heads,
+                                  cfg.hd, seed=6, min_len=1, max_len=513)
+    rows_invariant(torch, lambda *t: decode_attention(*t, kv_splits=1),
+                   (q, k, v, lens), "decode_attention kv_splits=1")
+    require(torch.equal(decode_attention(q, k, v, lens), decode_attention(q, k, v, lens)),
+            "decode_attention is not repeatable")
+
+
+def check_rmsnorm(torch, cfg, results) -> None:
+    """Kernel 6: the fused norm through its entry point, at the model's
+    width in bf16 and at D = 300 in f32 (the JAX test's odd width)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    g = torch.Generator(device=DEV).manual_seed(7)
+    worst = 0.0
+    for M, D, dt, mant in ((32, cfg.d_model, torch.bfloat16, 7),
+                           (256, cfg.d_model, torch.bfloat16, 7),
+                           (32, 300, torch.float32, 23)):
+        x = torch.randn((M, D), generator=g, device=DEV).to(dt)
+        r = torch.randn((M, D), generator=g, device=DEV).to(dt)
+        sc = (1 + 0.1 * torch.randn((D,), generator=g, device=DEV)).to(dt)
+        for res in (None, r):
+            out = ops.rmsnorm(x, sc, res, eps=cfg.norm_eps)
+            want = ref.rmsnorm(x, sc, cfg.norm_eps, res)
+            sync(torch)
+            err = float((out.float() - want.float()).abs().max())
+            ulp = ulp_of(float(want.float().abs().max()), mant)
+            tol = RMSNORM_ULPS[str(dt)[6:]]
+            log(f"[kernels] rmsnorm ({M},{D}) {str(dt)[6:]} "
+                f"{'with' if res is not None else 'without'} residual: max_abs_err "
+                f"{err:.3e} = {err / ulp:.2f} ulps (tol {tol}); "
+                f"{int((out != want).sum())} of {out.numel()} outputs differ")
+            require(err <= tol * ulp, "rmsnorm disagrees with its plain version")
+            worst = max(worst, err)
+    results["rmsnorm"]["max_abs_err"] = worst
+    x = torch.randn((200, cfg.d_model), generator=g, device=DEV).to(torch.bfloat16)
+    r = torch.randn((200, cfg.d_model), generator=g, device=DEV).to(torch.bfloat16)
+    sc = torch.randn((1, cfg.d_model), generator=g, device=DEV).to(torch.bfloat16)
+    rows_invariant(torch, lambda x, r, sc: rmsnorm(x, sc[0], r, eps=cfg.norm_eps),
+                   (x, r, sc.expand(200, -1)), "rmsnorm with residual")
+
 
 # ---------------------------------------------------------------------------
 # phases 3 and 4: serve, determinism
@@ -342,13 +507,17 @@ def phase_kernels(torch, cfg, results) -> None:
 
 
 def reset_launches():
-    from repro_torch.kernels import gemm_batch_invariant, gemm_splitk, paged_attention
+    from repro_torch.kernels import (
+        decode_attention, gemm_batch_invariant, gemm_splitk, paged_attention, rmsnorm,
+    )
 
     fns = {
         "gemm_batch_invariant": gemm_batch_invariant.gemm_batch_invariant,
         "gemm_splitk": gemm_splitk.gemm_splitk,
         "paged_attention": paged_attention.paged_attention,
         "paged_attention_fast": paged_attention.paged_attention_fast,
+        "decode_attention": decode_attention.decode_attention,
+        "rmsnorm": rmsnorm.rmsnorm,
     }
     for fn in fns.values():
         fn.launches = 0
@@ -365,72 +534,129 @@ def phase_serve(torch, cfg, params, capacity, results, summary) -> None:
         f"heads {cfg.num_heads}/{cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}, {cfg.dtype}; capacity {capacity}; {n_req} requests "
         f"x {max_new} new tokens, window 8, group 4, max_batch 8")
-    # a short warm-up run first: the first run in a process pays lazy CUDA
-    # module loading and allocator growth, which the timed runs should not
-    serve(Engine(cfg, params, mode=Mode.LLM42, capacity=capacity),
-          build_requests(cfg, 2, det_ratio=1.0, max_out=8, seed=1))
-    for mode in (Mode.LLM42, Mode.BATCH_INVARIANT, Mode.NONDET):
-        eng = Engine(cfg, params, mode=mode, capacity=capacity)
-        reqs = build_requests(cfg, n_req, det_ratio=0.5, max_out=max_new, seed=0)
-        fns = reset_launches()
-        res = serve(eng, reqs)
-        counts = {name: fn.launches for name, fn in fns.items()}
-        want = expected_launches(cfg, eng)
-        log(f"[serve] {mode.value}: kernel launches {counts}; from the engine's "
-            f"passes {want}")
-        require(counts == want, f"{mode.value}: launches do not match the passes run")
-        for name, n in counts.items():
-            on_path = name in PATH_KERNELS[mode.value]
-            require((n > 0) == on_path, f"{mode.value}: {name} launched {n} times")
-        for name, n in counts.items():
-            results[name]["launches_by_mode"][mode.value] = n
-            results[name]["launches"] += n
-        require(res["finished"] == n_req, f"{mode.value}: {res['finished']} finished")
-        for r in res["done"]:
-            require(len(r.committed) == max_new, f"{mode.value}: rid {r.rid} short")
-            require(all(0 <= t < cfg.vocab_size for t in r.committed),
-                    f"{mode.value}: token out of range")
-        tps = res["committed"] / res["device_s"]
-        summary[mode.value] = dict(
-            committed=res["committed"], rollbacks=res["rollbacks"],
-            recomputed=res["recomputed"], iterations=res["iterations"],
-            device_s=res["device_s"], committed_tok_per_s=tps, launches=counts)
-        log(f"[serve] {mode.value}: {res['committed']} tokens committed in "
-            f"{res['iterations']} iterations, rollbacks {res['rollbacks']}, "
-            f"recomputed {res['recomputed']}, device time {res['device_s']} s "
-            f"-> {tps} committed tok/s")
+    # a short warm-up run per lane first: the first run in a process pays
+    # lazy CUDA module loading and allocator growth, which the timed runs
+    # should not
+    for paged in LANES.values():
+        serve(Engine(cfg, params, mode=Mode.LLM42, capacity=capacity,
+                     paged_attention=paged),
+              build_requests(cfg, 2, det_ratio=1.0, max_out=8, seed=1))
+    for lane, paged in LANES.items():
+        for mode in (Mode.LLM42, Mode.BATCH_INVARIANT, Mode.NONDET):
+            run = f"{lane}/{mode.value}"
+            gc.collect()  # earlier engines' pools (the engine holds cycles)
+            eng = Engine(cfg, params, mode=mode, capacity=capacity,
+                         paged_attention=paged)
+            reqs = build_requests(cfg, n_req, det_ratio=0.5, max_out=max_new, seed=0)
+            sync(torch)
+            torch.cuda.reset_peak_memory_stats()
+            fns = reset_launches()
+            res = serve(eng, reqs)
+            counts = {name: fn.launches for name, fn in fns.items()}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            want = expected_launches(cfg, eng, paged)
+            log(f"[serve] {run}: kernel launches {counts}; from the engine's "
+                f"passes {want}")
+            require(counts == want, f"{run}: launches do not match the passes run")
+            for name, n in counts.items():
+                on_path = name in PATH_KERNELS[lane, mode.value]
+                require((n > 0) == on_path, f"{run}: {name} launched {n} times")
+            for name, n in counts.items():
+                results[name]["launches_by_mode"][run] = n
+                results[name]["launches"] += n
+            require(res["finished"] == n_req, f"{run}: {res['finished']} finished")
+            for r in res["done"]:
+                require(len(r.committed) == max_new, f"{run}: rid {r.rid} short")
+                require(all(0 <= t < cfg.vocab_size for t in r.committed),
+                        f"{run}: token out of range")
+            tps = res["committed"] / res["device_s"]
+            summary[run] = dict(
+                committed=res["committed"], rollbacks=res["rollbacks"],
+                recomputed=res["recomputed"], iterations=res["iterations"],
+                device_s=res["device_s"], committed_tok_per_s=tps,
+                peak_mem_gib=peak, launches=counts)
+            log(f"[serve] {run}: {res['committed']} tokens committed in "
+                f"{res['iterations']} iterations, rollbacks {res['rollbacks']}, "
+                f"recomputed {res['recomputed']}, device time {res['device_s']} s "
+                f"-> {tps} committed tok/s; peak device memory {peak:.3f} GiB")
+            del eng
+    run_rmsnorm_entry_point(torch, cfg, params, results)
     for name, r in results.items():
-        require(r["launches"] > 0, f"{name} was never launched on the main path")
+        require(r["launches"] > 0, f"{name} was never launched on its path")
 
 
-#: the kernels each mode's serve run must reach at the serve phase's
-#: capacity: its 128-block tables divide every kv_splits of
+def run_rmsnorm_entry_point(torch, cfg, params, results) -> None:
+    """rmsnorm's own path, as in the JAX package: its entry point
+    ``kernels.ops.rmsnorm``, here over a decode pass's 8 and a verify
+    pass's 32 rows of hidden states with a residual, scaled by the served
+    weights' final-norm scale.  Counters reset just before, read just
+    after."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=DEV).manual_seed(10)
+    fns = reset_launches()
+    for M in (8, 32):
+        x = torch.randn((M, cfg.d_model), generator=g, device=DEV).to(torch.bfloat16)
+        r = torch.randn((M, cfg.d_model), generator=g, device=DEV).to(torch.bfloat16)
+        out = ops.rmsnorm(x, params["final_norm"], r, eps=cfg.norm_eps)
+        require(out.shape == x.shape and bool(torch.isfinite(out.float()).all()),
+                "rmsnorm entry point: bad shape or non-finite output")
+    counts = {name: fn.launches for name, fn in fns.items()}
+    want = {name: 2 if name == "rmsnorm" else 0 for name in counts}
+    log(f"[serve] ops/rmsnorm (the entry point, 8 and 32 rows): kernel "
+        f"launches {counts}")
+    require(counts == want, "rmsnorm entry point: launches do not match its calls")
+    for name, n in counts.items():
+        results[name]["launches_by_mode"]["ops/rmsnorm"] = n
+        results[name]["launches"] += n
+
+
+#: the kernels each (lane, mode) serve run must reach at the serve phase's
+#: capacity.  Paged lane: its 128-block tables divide every kv_splits of
 #: FAST_PATH_POLICY, so only BATCH_INVARIANT decode takes the commit
-#: attention kernel (LLM42 and NONDET prefill under the commit GEMM)
+#: attention kernel.  Gathered lane: every W == 1 pass takes the dense
+#: decode kernel (kv_splits 1 under the commit schedule).  Prefill and
+#: verify run the commit GEMM in every mode.  rmsnorm is on no serve path
+#: (``run_rmsnorm_entry_point`` drives it).
+_FAST = ("gemm_batch_invariant", "gemm_splitk")
 PATH_KERNELS = {
-    "llm42": ("gemm_batch_invariant", "gemm_splitk", "paged_attention_fast"),
-    "batch_invariant": ("gemm_batch_invariant", "paged_attention"),
-    "nondet": ("gemm_batch_invariant", "gemm_splitk", "paged_attention_fast"),
+    ("paged", "llm42"): _FAST + ("paged_attention_fast",),
+    ("paged", "batch_invariant"): ("gemm_batch_invariant", "paged_attention"),
+    ("paged", "nondet"): _FAST + ("paged_attention_fast",),
+    ("gathered", "llm42"): _FAST + ("decode_attention",),
+    ("gathered", "batch_invariant"): ("gemm_batch_invariant", "decode_attention"),
+    ("gathered", "nondet"): _FAST + ("decode_attention",),
 }
 
 
-def expected_launches(cfg, eng):
+def expected_launches(cfg, eng, paged):
     """Kernel launches implied by the passes the engine reports: every
     forward runs 7 GEMMs per layer plus the unembedding in the kernel its
-    schedule selects, and every decode pass one paged attention launch per
-    layer, the fast kernel where its kv_splits divides the table reach."""
+    schedule selects, and every single-token forward (a decode pass, or a
+    one-token prefill chunk) one attention launch per layer: on the paged
+    lane the fast paged kernel where its kv_splits divides the table reach,
+    else the commit one; on the gathered lane the dense decode kernel."""
     from repro_torch.core.determinism import Schedule
 
     gemms = 7 * cfg.num_layers + 1
     nblk = eng.pool.layout.blocks_per_table
+    commit = eng._commit_schedule()
     want = dict.fromkeys(KERNELS, 0)
     for ev in engine_events(eng):
         if ev["kind"] in ("prefill", "prefill_chunk", "verify"):
             want["gemm_batch_invariant"] += gemms
+            if ev["kind"] == "verify" or ev["padded"] > 1:
+                continue
+            s = commit
         elif ev["kind"] == "decode":
             s = Schedule(*ev["schedule"])
             split = s.splits > 1 and s.tp_shards == 1
             want["gemm_splitk" if split else "gemm_batch_invariant"] += gemms
+        else:
+            continue
+        if not paged:
+            want["decode_attention"] += cfg.num_layers
+        else:
             fast = s.kv_splits > 1 and nblk % s.kv_splits == 0
             want["paged_attention_fast" if fast else "paged_attention"] += cfg.num_layers
     return want
@@ -438,7 +664,10 @@ def expected_launches(cfg, eng):
 
 def phase_reference(torch, cfg, params) -> None:
     """Logits of a 2-layer cut of the served weights, on the card (kernels)
-    against the CPU (plain versions), for one 16-token prompt."""
+    against the CPU (plain versions): a 16-token prefill and one decode
+    token after it, on each lane (the decode token runs the paged commit
+    kernel on the paged lane and the dense decode kernel on the gathered
+    one)."""
     from repro_torch.core.determinism import VERIFY_SCHEDULE
     from repro_torch.models.layers import PagedView
     from repro_torch.models.transformer import forward
@@ -451,45 +680,59 @@ def phase_reference(torch, cfg, params) -> None:
         return tree[:2].to(dev) if tree.dim() >= 2 and tree.shape[0] == cfg.num_layers \
             else tree.to(dev)
 
-    def run(dev):
+    def run(dev, paged):
         p = {k: (cut(v, dev) if k == "blocks" else v.to(dev)) for k, v in params.items()}
+        kv = (2, 4, 16) if paged else (2, 1, 32)  # (layers, blocks, 16) or (layers, B, C)
+        dt = p["embed"].dtype
         pool = {"blocks": {"0": {
-            "k": torch.zeros((2, 4, 16, cfg.num_kv_heads, cfg.hd), dtype=p["embed"].dtype, device=dev),
-            "v": torch.zeros((2, 4, 16, cfg.num_kv_heads, cfg.hd), dtype=p["embed"].dtype, device=dev),
-            "pos": torch.full((2, 4, 16), -1, dtype=torch.int32, device=dev)}}}
-        toks = torch.arange(1, 17, dtype=torch.int32, device=dev)[None] * 997 % cfg.vocab_size
-        tables = torch.tensor([[0, -1]], dtype=torch.int32, device=dev)
-        logits, _, _ = forward(p, small, toks, cache=pool,
+            "k": torch.zeros(kv + (cfg.num_kv_heads, cfg.hd), dtype=dt, device=dev),
+            "v": torch.zeros(kv + (cfg.num_kv_heads, cfg.hd), dtype=dt, device=dev),
+            "pos": torch.full(kv, -1, dtype=torch.int32, device=dev)}}}
+        where = dict(tables=torch.tensor([[0, 1]], dtype=torch.int32, device=dev),
+                     paged=PagedView(16, 2, 3)) if paged else {}
+        toks = torch.arange(1, 18, dtype=torch.int32, device=dev)[None] * 997 % cfg.vocab_size
+        logits, _, _ = forward(p, small, toks[:, :16], cache=pool,
                                start_pos=torch.zeros(1, dtype=torch.int32, device=dev),
-                               schedule=VERIFY_SCHEDULE, tables=tables,
-                               paged=PagedView(16, 2, 3))
-        return logits.float().cpu()
+                               schedule=VERIFY_SCHEDULE, **where)
+        step, _, _ = forward(p, small, toks[:, 16:], cache=pool,
+                             start_pos=torch.full((1,), 16, dtype=torch.int32, device=dev),
+                             schedule=VERIFY_SCHEDULE, **where)
+        return torch.cat([logits, step], dim=1).float().cpu()
 
-    got, want = run(DEV), run("cpu")
-    require(got.shape == (1, 16, cfg.vocab_size) and bool(torch.isfinite(got).all()),
-            "reference forward: bad shape or non-finite logits")
-    diff = (got - want).abs()
-    err, mean_err = float(diff.max()), float(diff.mean())
-    # the logits are bf16: both sides' f32 sums differ in order only, so a
-    # logit may round one bf16 ulp apart (one ulp of max|ref| measured)
-    ulp = 2.0 ** (math.floor(math.log2(float(want.abs().max()))) - 7)
-    tol, mean_tol = 2 * ulp, REF_MEAN_ULPS * ulp
-    top2 = want.topk(2, dim=-1).values
-    clear = (top2[..., 0] - top2[..., 1]) > 2 * tol  # no error within tol flips these
-    agree = bool((got.argmax(-1) == want.argmax(-1))[clear].all())
-    log(f"[serve] reference: 2-layer cut, 16-token prompt, card vs CPU plain "
-        f"versions: logits max_abs_err {err:.3e} (tol {tol:.3e} = 2 bf16 ulps of "
-        f"max|ref|), mean_abs_err {mean_err:.3e} (tol {mean_tol:.3e}), "
-        f"{float((diff == 0).float().mean()):.4f} of logits bitwise equal; argmax "
-        f"equal at all {int(clear.sum())}/16 positions whose top-2 margin exceeds "
-        f"2 tol: {agree}")
-    require(err <= tol and mean_err <= mean_tol, "card logits disagree with the CPU reference")
-    # 6 of the 16 positions are clear of near-ties with the seed-0 weights
-    require(agree and int(clear.sum()) >= 4, "card argmax disagrees with the CPU reference")
+    for lane, paged in LANES.items():
+        got, want = run(DEV, paged), run("cpu", paged)
+        require(got.shape == (1, 17, cfg.vocab_size) and bool(torch.isfinite(got).all()),
+                "reference forward: bad shape or non-finite logits")
+        diff = (got - want).abs()
+        err, mean_err = float(diff.max()), float(diff.mean())
+        # the logits are bf16: both sides' f32 sums differ in order only, so
+        # a logit may round one bf16 ulp apart (one ulp of max|ref| measured)
+        ulp = ulp_of(float(want.abs().max()), 7)
+        tol, mean_tol = 2 * ulp, REF_MEAN_ULPS * ulp
+        top2 = want.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 2 * tol  # no error within tol flips these
+        agree = bool((got.argmax(-1) == want.argmax(-1))[clear].all())
+        step_err = float(diff[0, 16].max())
+        log(f"[serve] reference ({lane} lane): 2-layer cut, 16-token prompt + 1 "
+            f"decode token, card vs CPU plain versions: logits max_abs_err "
+            f"{err:.3e} (tol {tol:.3e} = 2 bf16 ulps of max|ref|), decode token "
+            f"{step_err:.3e}, mean_abs_err {mean_err:.3e} (tol {mean_tol:.3e}), "
+            f"{float((diff == 0).float().mean()):.4f} of logits bitwise equal; "
+            f"argmax equal at all {int(clear.sum())}/17 positions whose top-2 "
+            f"margin exceeds 2 tol: {agree}")
+        require(err <= tol and mean_err <= mean_tol,
+                f"{lane}: card logits disagree with the CPU reference")
+        # 6 of the 16 prefill positions are clear of near-ties with the
+        # seed-0 weights
+        require(agree and int(clear.sum()) >= 4,
+                f"{lane}: card argmax disagrees with the CPU reference")
 
 
 def phase_determinism(torch, cfg, params, summary) -> None:
-    """The divergence demo's experiment (examples/dvr_divergence_demo.py)."""
+    """The divergence demo's experiment (examples/dvr_divergence_demo.py)
+    on each lane, with three tracked requests (one greedy, two seeded at
+    temperature 0.8 with top-k 0 and 50) beside 0, 3 and 6 greedy
+    neighbours."""
     from repro_torch.core.determinism import Mode, ReductionPolicy
     from repro_torch.core.spans import consistent_spans
     from repro_torch.serving.engine import Engine
@@ -497,76 +740,106 @@ def phase_determinism(torch, cfg, params, summary) -> None:
 
     policy = ReductionPolicy(thresholds=((2, 16), (4, 8), (8, 4)),
                              combine_dtype="bfloat16")
-    prompt = list(range(1, 11))
+    max_new = 32
+    tracked = {0: dict(seed=7), 1: dict(seed=8, temperature=0.8),
+               2: dict(seed=9, temperature=0.8, top_k=50)}
 
-    def run(n_neighbours, mode):
+    def run(lane, mode, n_neighbours):
         eng = Engine(cfg, params, mode=mode, policy=policy, window=6, group=2,
-                     max_batch=8, capacity=256)
-        eng.submit(Request(rid=0, prompt=prompt, sampling=SamplingParams(
-            max_new_tokens=48, is_deterministic=mode != Mode.NONDET, seed=7)))
+                     max_batch=12, capacity=256, paged_attention=LANES[lane])
+        for rid, kw in tracked.items():
+            eng.submit(Request(rid=rid, prompt=[rid * 11 + k for k in range(1, 11)],
+                               sampling=SamplingParams(
+                                   max_new_tokens=max_new,
+                                   is_deterministic=mode != Mode.NONDET, **kw)))
         for i in range(n_neighbours):
-            eng.submit(Request(rid=1 + i, prompt=[3 * i + k for k in range(6)],
-                               sampling=SamplingParams(max_new_tokens=48)))
-        return {r.rid: r for r in eng.run()}[0]
+            eng.submit(Request(rid=10 + i, prompt=[3 * i + k for k in range(6)],
+                               sampling=SamplingParams(max_new_tokens=max_new)))
+        done = {r.rid: r for r in eng.run()}
+        return {rid: done[rid] for rid in tracked}
 
-    alone = run(0, Mode.NONDET).committed
-    nondet = {}
-    for n in (3, 6):
-        other = run(n, Mode.NONDET).committed
-        s = consistent_spans(alone, other)
-        nondet[n] = {"diverged": alone != other, "first_span": s.first_span}
-        log(f"[determinism] NONDET vs {n} neighbours: first consistent span "
-            f"{s.first_span}/{s.total} (diverged: {alone != other})")
-    summary["determinism"] = {"nondet": nondet}
-    # both deterministic modes must commit the same stream whatever the
-    # decode batch: LLM42 by verification, BATCH_INVARIANT by running every
-    # pass under the commit schedule
-    for mode in (Mode.LLM42, Mode.BATCH_INVARIANT):
-        a = run(0, mode)
+    summary["determinism"] = {}
+    streams = {}
+    for lane in LANES:
         seen = {}
+        alone = run(lane, Mode.NONDET, 0)
         for n in (3, 6):
-            b = run(n, mode)
-            same = a.committed == b.committed
-            seen[n] = {"identical": same, "rollbacks": b.num_rollbacks}
-            log(f"[determinism] {mode.value} vs {n} neighbours: identical={same} "
-                f"rollbacks={b.num_rollbacks} recomputed={b.num_recomputed_tokens}")
-            require(same, f"{mode.value} stream changed beside {n} neighbours")
-        summary["determinism"][mode.value] = seen
+            other = run(lane, Mode.NONDET, n)
+            s = consistent_spans(alone[0].committed, other[0].committed)
+            diverged = [rid for rid in tracked if alone[rid].committed != other[rid].committed]
+            seen[f"nondet_{n}"] = {"diverged": diverged, "first_span_rid0": s.first_span}
+            log(f"[determinism] {lane} NONDET vs {n} neighbours: rid 0 first "
+                f"consistent span {s.first_span}/{s.total}; diverged rids {diverged}")
+        # both deterministic modes must commit the same streams whatever the
+        # decode batch: LLM42 by verification, BATCH_INVARIANT by running
+        # every pass under the commit schedule
+        for mode in (Mode.LLM42, Mode.BATCH_INVARIANT):
+            a = run(lane, mode, 0)
+            streams[lane, mode] = {rid: r.committed for rid, r in a.items()}
+            for n in (3, 6):
+                b = run(lane, mode, n)
+                same = all(a[rid].committed == b[rid].committed for rid in tracked)
+                rb = sum(r.num_rollbacks for r in b.values())
+                seen[f"{mode.value}_{n}"] = {"identical": same, "rollbacks": rb}
+                log(f"[determinism] {lane} {mode.value} vs {n} neighbours: "
+                    f"identical={same} (greedy + 2 seeded) rollbacks={rb} "
+                    f"recomputed={sum(r.num_recomputed_tokens for r in b.values())}")
+                require(same, f"{lane} {mode.value} streams changed beside {n} neighbours")
+        summary["determinism"][lane] = seen
+    same = streams["gathered", Mode.LLM42] == streams["paged", Mode.LLM42]
+    log(f"[determinism] LLM42 streams of the gathered lane equal the paged "
+        f"lane's: {same}")
+    require(same, "LLM42 streams differ between the gathered and paged lanes")
 
 
-def phase_profile(torch, cfg, params, capacity, summary) -> None:
+def phase_profile(torch, cfg, params, capacity, summary, warm=4, active=4) -> None:
     """Where an LLM42 serve run's time goes: ``torch.profiler`` over a
-    repeat of the serve phase's LLM42 run (the timed run itself goes
-    unprofiled), device time by kernel and the device's busy share of the
-    run (sum of kernel times over the profiled wall time)."""
+    window of ``active`` iterations of the serve phase's paged LLM42 run,
+    after ``warm`` unprofiled ones (the timed run itself goes unprofiled):
+    device time by kernel and the device's busy share of the window (sum of
+    kernel times over the window's wall time).  Iterations 5..8 hold four
+    decode passes and the run's first grouped verify; summing the trace
+    costs about 5 s an iteration, which bounds the window."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.determinism import Mode
-    from repro_torch.launch.serve import build_requests, serve
+    from repro_torch.launch.serve import build_requests
     from repro_torch.serving.engine import Engine
 
     eng = Engine(cfg, params, mode=Mode.LLM42, capacity=capacity)
-    reqs = build_requests(cfg, 8, det_ratio=0.5, max_out=16, seed=0)
+    for r in build_requests(cfg, 8, det_ratio=0.5, max_out=16, seed=0):
+        eng.submit(r)
+    for _ in range(warm):
+        eng.step()
+    first = eng._now + 1
+    sync(torch)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = serve(eng, reqs)
+        for _ in range(active):
+            eng.step()
+        sync(torch)
         wall = time.perf_counter() - t0
+    eng.run()
     t0 = time.perf_counter()
     averages = prof.key_averages()
     rows = sorted((e for e in averages if e.device_time_total > 0),
                   key=lambda e: e.device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in averages) / 1e6
-    log(f"[profile] llm42 run: host wall {wall:.3f} s under the profiler, device "
-        f"busy {busy:.3f} s ({100 * busy / wall:.1f}%), {res['iterations']} "
-        f"iterations; trace summed in {time.perf_counter() - t0:.1f} s")
-    for e in rows[:25]:
+    log(f"[profile] llm42 iterations {first}..{first + active - 1}: host wall "
+        f"{wall:.3f} s under the profiler, device busy {busy:.3f} s "
+        f"({100 * busy / wall:.1f}%); trace summed in {time.perf_counter() - t0:.1f} s")
+    for e in rows[:20]:
         log(f"[profile] {e.device_time_total / 1e3:10.1f} ms device "
             f"{e.cpu_time_total / 1e3:10.1f} ms cpu {e.count:7d}x  {e.key[:90]}")
-    events = [e for e in engine_events(eng)]
+    top_cpu = sorted(averages, key=lambda e: e.self_cpu_time_total, reverse=True)
+    for e in top_cpu[:8]:
+        log(f"[profile] host self {e.self_cpu_time_total / 1e3:10.1f} ms "
+            f"{e.count:7d}x  {e.key[:90]}")
+    events = [ev for ev in engine_events(eng) if first <= ev["iter"] < first + active]
     for kind in ("prefill", "decode", "verify"):
         walls = [ev["wall"] for ev in events if ev["kind"] == kind]
         log(f"[profile] engine {kind}: {len(walls)} passes, {sum(walls):.3f} s wall")
-    summary["profile"] = {"wall_s": wall, "device_busy_s": busy}
+    summary["profile"] = {"iterations": active, "wall_s": wall, "device_busy_s": busy}
 
 
 def engine_events(eng):
@@ -667,6 +940,68 @@ def phase_timings(torch, cfg, results) -> None:
         log(f"[timings] {name} B=8, {int(ctx.sum())} keys {extra}: {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no single "
             f"PyTorch call reads K/V through a block table (library_ms null)")
+    time_decode_attention(torch, cfg, results, flush)
+    time_rmsnorm(torch, cfg, results, flush)
+
+
+def time_decode_attention(torch, cfg, results, flush) -> None:
+    """Kernel 5 at the gathered lane's decode shape: B = 8 rows over a
+    2048-slot view with the serve phase's lengths (32 prompt tokens plus
+    up to 16 committed and 7 speculated), kv_splits 4 (FAST_PATH_POLICY at
+    B = 8, bf16 combine) and 1 (the commit schedule).  The yardstick is
+    ``scaled_dot_product_attention`` with a length mask and GQA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q, k, v, lens = decode_inputs(torch, 8, 2048, H, KV, D, seed=8,
+                                  min_len=33, max_len=56)
+    b_ms, b_by = decode_bound(q, k, lens)
+    mask = (torch.arange(2048, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, enable_gqa=True), flush=flush)
+    rows = {}
+    for splits, cd in ((4, "bfloat16"), (1, "float32")):
+        ms = time_ms(torch, lambda: decode_attention(
+            q, k, v, lens, kv_splits=splits, combine_dtype=cd), flush=flush)
+        plain_ms = time_ms(torch, lambda: ref.decode_attention(
+            q, k, v, lens, splits, cd), reps=5, flush=flush)
+        rows[splits] = (ms, plain_ms)
+        log(f"[timings] decode_attention B=8 S=2048, {int(lens.sum())} valid keys, "
+            f"kv_splits={splits} {cd}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    results["decode_attention"].update(
+        ms=rows[4][0], plain_ms=rows[4][1], library_ms=lib_ms, bound_ms=b_ms,
+        bound_by=b_by, ms_kv_splits_1=rows[1][0], plain_ms_kv_splits_1=rows[1][1])
+
+
+def time_rmsnorm(torch, cfg, results, flush) -> None:
+    """Kernel 6 at (32, 4096) and (256, 4096) bf16 with a residual; the
+    yardstick is ``F.rms_norm`` on the same x (no residual add)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    g = torch.Generator(device=DEV).manual_seed(9)
+    D = cfg.d_model
+    by_m = {}
+    for M in (32, 256):
+        x = torch.randn((M, D), generator=g, device=DEV).to(torch.bfloat16)
+        r = torch.randn((M, D), generator=g, device=DEV).to(torch.bfloat16)
+        sc = torch.randn((D,), generator=g, device=DEV).to(torch.bfloat16)
+        ms = time_ms(torch, lambda: rmsnorm(x, sc, r, eps=cfg.norm_eps), flush=flush)
+        plain_ms = time_ms(torch, lambda: ref.rmsnorm(x, sc, cfg.norm_eps, r), flush=flush)
+        lib_ms = time_ms(torch, lambda: F.rms_norm(x, (D,), sc, cfg.norm_eps), flush=flush)
+        b_ms, b_by = bound(3 * M * D * 2 + D * 2, 4.0 * M * D)
+        by_m[M] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                       bound_by=b_by)
+        log(f"[timings] rmsnorm ({M},{D}) bf16 with residual: {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    results["rmsnorm"].update(**by_m[32], ms_256_rows=by_m[256]["ms"])
 
 
 # ---------------------------------------------------------------------------
@@ -740,8 +1075,9 @@ def main() -> int:
     log(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
                            "launches_by_mode", "max_abs_err", "ms", "plain_ms",
-                           "bound_ms", "bound_by", "library_ms")}
-        for r in results.values()
+                           "bound_ms", "bound_by", "library_ms", "ms_kv_splits_1",
+                           "plain_ms_kv_splits_1", "ms_256_rows")
+         if k in r} for r in results.values()
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ A second package beside ``repro`` (the JAX reference, never imported here).
 Module paths and names follow ``repro``: ``repro/x/y.py`` has its
 counterpart at ``repro_torch/x/y.py``.  Entry points run on ``cuda`` unless
 the caller passes ``device="cpu"`` (``resolve_device``); on the card every
-model GEMM and every single-token paged attention runs in a hand-written
+model GEMM and every single-token attention (paged kernels on the paged
+lane, the dense decode kernel on the gathered lane) runs in a hand-written
 Hopper kernel (``repro_torch.kernels``).
 """
 

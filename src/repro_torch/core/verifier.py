@@ -19,9 +19,13 @@ The verifier's own KV writes overwrite the fast path's entries for all W
 window positions (pointer-free rollback).  Unlike the JAX body, which
 returns a new pool, the pool leaves are repaired in place.  Padding rows
 carry an all-empty block table: their reads hit the null block and their
-writes land in the scratch block.  Recurrent-state verification
-(``verify_recurrent``) and the gathered-view variant (``paged=False``) wait
-for later slices.
+writes land in the scratch block.  ``paged=True`` reads and writes the
+pool through the block tables; ``paged=False`` gathers per-row views,
+replays on them and scatters them back (``serving.kv_cache.pool_forward``).
+Both run the same universal schedule over views whose content is
+position-for-position identical, so committed streams are bitwise equal
+between them.  Recurrent-state verification (``verify_recurrent``) waits
+for a later slice.
 """
 
 from __future__ import annotations
@@ -34,10 +38,9 @@ from repro_torch.core.determinism import (
     CANONICAL_MESH_SCHEDULE, CANONICAL_TP_SHARDS, VERIFY_SCHEDULE,
 )
 from repro_torch.models.base import ModelConfig
-from repro_torch.models.layers import PagedView
-from repro_torch.models.transformer import forward
 from repro_torch.serving import statepool
 from repro_torch.serving.blockpool import Layout
+from repro_torch.serving.kv_cache import pool_forward
 from repro_torch.serving.sampler import sample_window, top2_margin
 
 # The commit path replays under the canonical mesh-reduction schedule.
@@ -64,23 +67,21 @@ def _match_and_commit(v_tokens: torch.Tensor, cand: torch.Tensor,
 def make_verify_body(
     cfg: ModelConfig, G: int, W: int, layout: Layout, paged: bool = True
 ):
-    """The grouped-verification body for fixed (G, W), paged variant.
+    """The grouped-verification body for fixed (G, W).
 
     Returns ``verify_attn(params, pool, slots, tables, start_pos, inputs,
     cand, cand_len, seeds, temps, out_base, top_ks) -> (pool, n_match,
     commit_tok, v_tokens, margins)``: ``tables`` (G, nblk), ``start_pos``
     (G,), ``inputs`` (G, W), ``cand`` (G, W-1) with -1 pads and
     ``cand_len`` (G,) are device tensors; ``seeds``, ``temps``, ``out_base``
-    and ``top_ks`` are host sequences (sampling is greedy).  ``slots`` names
-    each row's slot, which the dense family's pool does not index.
+    and ``top_ks`` are host sequences (each window position samples with
+    its own counter).  ``slots`` names each row's slot, which the dense
+    family's pool does not index.
     ``margins`` (G, W) is the audit log's top-1/top-2 margin per position,
     computed unconditionally so the device program does not depend on
     auditing."""
-    if not paged:
-        raise NotImplementedError("the gathered-view verify waits; paged=True")
     if statepool.has_recurrent_state(cfg):
         raise NotImplementedError(f"{cfg.name}: recurrent verify is not ported")
-    pview = PagedView(layout.block_size, layout.null_bid, layout.scratch_bid)
 
     def verify_attn(
         params: Dict,
@@ -96,9 +97,9 @@ def make_verify_body(
         out_base: Sequence[int],
         top_ks: Sequence[int],
     ):
-        logits, pool, _ = forward(
-            params, cfg, inputs, cache=pool, start_pos=start_pos,
-            schedule=VERIFY_SCHEDULE, tables=tables, paged=pview,
+        logits, pool = pool_forward(
+            params, cfg, layout, pool, tables, start_pos, VERIFY_SCHEDULE,
+            paged=paged, tokens=inputs,
         )
         v_tokens = sample_window(logits, seeds, out_base, temps, top_ks)
         n_match, commit_tok = _match_and_commit(v_tokens, cand, cand_len, W)

@@ -47,6 +47,17 @@ ENTRY_POINTS = {
             _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,
         ],
     },
+    "decode_attention": {
+        # q, k, v, lengths, out, B, H, KV, S, D, splits, scale, combine,
+        # dtype, stream
+        "repro_decode_attention": [
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,
+        ],
+    },
+    "rmsnorm": {
+        # x, residual (or NULL), scale (f32), out, M, D, eps, dtype, stream
+        "repro_rmsnorm": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+    },
 }
 
 NVCC_FLAGS = [

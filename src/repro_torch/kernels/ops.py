@@ -1,4 +1,4 @@
-"""Schedule-aware dispatch onto the four kernels.
+"""Schedule-aware dispatch onto the six kernels.
 
 * ``matmul(x, w, schedule)``: the pinned commit schedule (``tp_shards``
   chunks, balanced f32 tree, ``splits == 1``) goes to the batch-invariant
@@ -12,6 +12,11 @@
   kernel; a split count that divides the table reach selects the fast
   kernel; one that does not falls back to the commit kernel, as
   ``repro.kernels.ops.paged_attention`` does on the TPU.
+* ``decode_attention(q, k, v, lengths, schedule)``: dense-cache decode
+  attention with ``schedule.kv_splits`` chunks, one chunk when the split
+  count does not divide the cache length (``repro.kernels.ops``).
+* ``rmsnorm(x, scale, residual, eps=...)``: the fused norm kernel over the
+  rows of x's leading axes.
 
 Each kernel wrapper runs its plain version on a CPU tensor and the Hopper
 kernel on a CUDA tensor, so this module never falls back by itself.
@@ -24,12 +29,14 @@ from typing import Optional
 import torch
 
 from repro_torch.core.determinism import Schedule
+from repro_torch.kernels.decode_attention import decode_attention as _decode_attention
 from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
 from repro_torch.kernels.gemm_splitk import gemm_splitk
 from repro_torch.kernels.paged_attention import (
     paged_attention as _paged_attention,
     paged_attention_fast as _paged_attention_fast,
 )
+from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, schedule: Schedule) -> torch.Tensor:
@@ -73,3 +80,30 @@ def paged_attention(
     return _paged_attention_fast(
         *args, kv_splits=splits, combine_dtype=schedule.combine_dtype,
         null_bid=null_bid)
+
+
+def decode_attention(
+    q: torch.Tensor,        # (B, H, D)
+    k: torch.Tensor,        # (B, S, KV, D)
+    v: torch.Tensor,        # (B, S, KV, D)
+    lengths: torch.Tensor,  # (B,)
+    schedule: Schedule,
+) -> torch.Tensor:
+    """Dense-cache decode attention -> (B, H, D) in q.dtype."""
+    S = k.shape[1]
+    splits = schedule.kv_splits if S % max(schedule.kv_splits, 1) == 0 else 1
+    return _decode_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        lengths.to(torch.int32).contiguous(), kv_splits=max(splits, 1),
+        combine_dtype=schedule.combine_dtype)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            residual: Optional[torch.Tensor] = None, *,
+            eps: float = 1e-5) -> torch.Tensor:
+    """Fused (residual +) RMSNorm over the last axis, any leading shape.
+    The kernel takes one row per block, so rows need no padding."""
+    lead, D = x.shape[:-1], x.shape[-1]
+    res = residual.reshape(-1, D).contiguous() if residual is not None else None
+    out = _rmsnorm(x.reshape(-1, D).contiguous(), scale.contiguous(), res, eps=eps)
+    return out.reshape(*lead, D)

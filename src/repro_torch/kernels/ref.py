@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the port's four Hopper kernels.
+"""Plain PyTorch versions of the port's six Hopper kernels.
 
 One function per kernel, with the JAX kernel's arguments and layouts.  The
 wrappers (``gemm_batch_invariant.py``, ``gemm_splitk.py``,
-``paged_attention.py``) call these for tensors on the CPU; ``chip_smoke.py``
+``paged_attention.py``, ``decode_attention.py``, ``rmsnorm.py``) call these
+for tensors on the CPU; ``chip_smoke.py``
 holds each CUDA kernel against them on the card.  They are the numerical
 contract, written for clarity: matmuls in f32 (TF32 must be off on the
 card), the reduction trees spelled out.
@@ -154,3 +155,61 @@ def paged_attention_fast(
             acc = acc * a_prev[..., None] + o_c * a_c[..., None]
             m = m_new
     return (acc / d.clamp_min(1e-30)[..., None]).reshape(B, H, D)
+
+
+def decode_attention(
+    q: torch.Tensor,        # (B, H, D)
+    k: torch.Tensor,        # (B, S, KV, D)
+    v: torch.Tensor,        # (B, S, KV, D)
+    lengths: torch.Tensor,  # (B,) valid cache positions
+    kv_splits: int,
+    combine_dtype: str = "float32",
+) -> torch.Tensor:
+    """Flash-decode over a dense cache: keys ``s < lengths[b]`` in
+    ``kv_splits`` chunks (``_split_sizes``).  Per chunk an f32 (m, d, o)
+    triple; ``d`` and ``o`` are rounded through ``combine_dtype`` at the
+    first chunk and after every merge, in split order.  Returns (B, H, D) in
+    q.dtype.
+
+    The rounding points are the Pallas kernel's
+    (``repro/kernels/decode_attention.py::_kernel``): q scaled by D^-0.5 in
+    f32 and ``e`` kept in f32.  ``repro.kernels.ref.decode_attention``
+    scales q in q.dtype instead; the two agree bitwise where D^-0.5 is a
+    power of two (D = 64)."""
+    B, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    cd = torch_dtype(combine_dtype)
+    kf, vf = k.to(F32), v.to(F32)
+    qg = _scaled_q(q, KV)
+    valid = torch.arange(S, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+    m = d = o = None
+    start = 0
+    for size in _split_sizes(S, kv_splits):
+        sl = slice(start, start + size)
+        s = _scores(qg, kf[:, sl], valid[:, sl])
+        m_c = s.amax(dim=-1).clamp_min(-1e30)
+        e = torch.exp(s - m_c[..., None])
+        d_c = e.sum(dim=-1)
+        o_c = torch.einsum("bkgs,bskd->bkgd", e, vf[:, sl])
+        if m is None:
+            m, d, o = m_c, d_c.to(cd).to(F32), o_c.to(cd).to(F32)
+        else:
+            m_new = torch.maximum(m, m_c)
+            a1, a2 = torch.exp(m - m_new), torch.exp(m_c - m_new)
+            d = (a1 * d + a2 * d_c).to(cd).to(F32)
+            o = (a1[..., None] * o + a2[..., None] * o_c).to(cd).to(F32)
+            m = m_new
+        start += size
+    return (o / d.clamp_min(1e-30)[..., None]).reshape(B, H, D).to(q.dtype)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
+            residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused (residual-add +) RMSNorm over the last axis: the residual added
+    in f32 and rounded to x.dtype, ``mean(x^2)`` in f32, ``x * rsqrt(var +
+    eps) * scale`` in f32, rounded to x.dtype."""
+    if residual is not None:
+        x = (x.to(F32) + residual.to(F32)).to(x.dtype)
+    xf = x.to(F32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.to(F32)).to(x.dtype)

@@ -1,0 +1,59 @@
+"""Fused (residual +) RMSNorm wrapper: ``csrc/rmsnorm.cu``.
+
+Replaces ``repro/kernels/rmsnorm.py::rmsnorm``.  Its contract is
+``ref.rmsnorm`` (one f32 pass per row, ``scale`` applied in f32 before the
+round), not the model's ``models.layers.rms_norm``, so, as in the JAX
+package, it is reached through ``kernels.ops.rmsnorm`` and not from the
+model.  A CPU tensor runs the plain version; a CUDA tensor launches the
+kernel or raises.  ``rmsnorm.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            residual: Optional[torch.Tensor] = None, *,
+            eps: float = 1e-5) -> torch.Tensor:
+    """x (M, D), scale (D,), residual (M, D) or None -> (M, D) in x.dtype."""
+    if x.device.type == "cpu":
+        return ref.rmsnorm(x, scale, eps, residual)
+    tensors = (x, scale) + ((residual,) if residual is not None else ())
+    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
+        raise ValueError("rmsnorm: every tensor must be on one CUDA device")
+    if x.dtype not in _DTYPES or scale.dtype not in _DTYPES or (
+            residual is not None and residual.dtype != x.dtype):
+        raise TypeError(f"rmsnorm: dtypes x {x.dtype}, scale {scale.dtype}, "
+                        f"residual {None if residual is None else residual.dtype}")
+    if x.dim() != 2 or scale.shape != (x.shape[1],) or (
+            residual is not None and residual.shape != x.shape):
+        raise ValueError(f"rmsnorm: shapes x {tuple(x.shape)}, scale "
+                         f"{tuple(scale.shape)}, residual "
+                         f"{None if residual is None else tuple(residual.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("rmsnorm: every tensor must be contiguous")
+    M, D = x.shape
+    out = torch.empty_like(x)
+    if M == 0:
+        return out
+    sc = scale.to(torch.float32)  # the kernel reads scale in f32, as the TPU one does
+    lib = build.load("rmsnorm")
+    rc = lib.repro_rmsnorm(
+        x.data_ptr(), residual.data_ptr() if residual is not None else None,
+        sc.data_ptr(), out.data_ptr(), M, D, eps,
+        build.DTYPE_CODES[str(x.dtype)[6:]],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(lib, rc, "rmsnorm")
+    rmsnorm.launches += 1
+    return out
+
+
+rmsnorm.launches = 0

@@ -1,5 +1,5 @@
 """Shared layers, dense subset: RMSNorm, RoPE, GQA attention over the paged
-pool, SwiGLU.
+pool or over gathered per-row views, SwiGLU.
 
 PyTorch counterpart of ``repro.models.layers``.  Every matrix multiply goes
 through ``core.determinism.matmul`` with an explicit ``Schedule``, so the
@@ -7,13 +7,18 @@ schedule, not the code, decides the reduction tree of the whole forward
 pass.  On the card that means every projection runs in one of the two
 hand-written GEMMs.
 
-Attention reads and writes K/V through per-row block tables
-(``attention_paged``).  Single-token passes (W == 1) go to the paged
-kernels (``kernels.ops.paged_attention``) on every device, which scale the
-unscaled roped q in f32.  Multi-token passes (verify windows, prefill) use
-the gathered view and plain tensor code (``einsum``) with TF32 off, as the
-JAX package leaves them to XLA.  Unlike the JAX code, which returns a new
-pool, the pool leaves are updated in place.
+Two memory lanes.  ``attention_paged`` reads and writes K/V through
+per-row block tables; its single-token passes (W == 1) go to the paged
+kernels (``kernels.ops.paged_attention``) on every device.
+``attention_cached`` works on dense per-row views ``(B, C, KV, HD)`` that
+the engine gathers from the pool and scatters back (``paged_attention=
+False``); its single-token passes go to the dense-cache decode kernel
+(``kernels.ops.decode_attention``) on every device, masked by ``lengths =
+start_pos + 1``.  Both kernels scale the unscaled roped q in f32.
+Multi-token passes (verify windows, prefill) run the same plain tensor code
+(``einsum``, TF32 off) in both lanes, as the JAX package leaves them to
+XLA, so the commit path is bitwise the same in both.  Unlike the JAX code,
+which returns new caches, the leaves are updated in place.
 """
 
 from __future__ import annotations
@@ -120,6 +125,65 @@ def _softmax_attend(
         start += size
     out = o_acc.to(F32) / d_acc.to(F32).clamp_min(1e-30)[..., None]
     return out.reshape(B, T, H, D)
+
+
+#: above this many query rows the JAX package attends q-chunked
+#: (``_chunked_attend``); that path waits for a later slice
+CHUNK_THRESHOLD = 2048
+
+
+def attention_cached(
+    p: Dict,
+    cfg,
+    x: torch.Tensor,          # (B, W, D)
+    cache: Dict,              # {"k","v": (B, C, KV, HD), "pos": (B, C)}
+    start_pos: torch.Tensor,  # (B,) absolute position of x[:, 0]
+    schedule: Schedule,
+    window: int = 0,
+) -> Tuple[torch.Tensor, Dict]:
+    """Incremental attention over dense per-row views, full attention.
+
+    Writes the W new tokens at slots ``abs_pos % C`` in place, then attends.
+    W == 1 (decode) goes to ``ops.decode_attention`` with the unscaled
+    roped q and ``lengths = start_pos + 1``: that mask equals the ``pos``
+    mask because slot s holds position s (no wrap: ``forward`` asserts that
+    every pass ends inside the view) and every position up to the query
+    has been written.  W > 1 scales q in the activation dtype and runs
+    ``_softmax_attend`` under the ``pos`` mask, exactly as the paged lane
+    does.  Sliding rings (``window > 0``) and the q-chunked path wait."""
+    B, W, _ = x.shape
+    C = cache["k"].shape[1]
+    if window > 0:
+        raise NotImplementedError("sliding-window rings wait for a later slice")
+    if W > CHUNK_THRESHOLD:
+        raise NotImplementedError(
+            f"a {W}-token pass needs the q-chunked attention, not ported yet")
+    q, k_new, v_new = _qkv(p, cfg, x, schedule)
+    abs_pos = start_pos[:, None].to(torch.int32) + torch.arange(
+        W, dtype=torch.int32, device=x.device)[None, :]
+    q = rope(q, abs_pos, cfg.rope_theta)
+    k_new = rope(k_new, abs_pos, cfg.rope_theta)
+
+    slots = (abs_pos % C).long()
+    b_idx = torch.arange(B, device=x.device)[:, None]
+    cache["k"][b_idx, slots] = k_new.to(cache["k"].dtype)
+    cache["v"][b_idx, slots] = v_new.to(cache["v"].dtype)
+    cache["pos"][b_idx, slots] = abs_pos
+
+    if W == 1 and cfg.logit_softcap == 0:
+        # single-token decode: the dense-cache kernel, which scales q by
+        # hd^-0.5 in f32 itself and masks by length
+        out = ops.decode_attention(q[:, 0], cache["k"], cache["v"],
+                                   abs_pos[:, 0] + 1, schedule)
+    else:
+        q = q * (cfg.hd ** -0.5)
+        kp = cache["pos"][:, None, :]
+        qp = abs_pos[:, :, None]
+        mask = (kp >= 0) & (kp <= qp)
+        out = _softmax_attend(q, cache["k"], cache["v"], mask, schedule,
+                              cfg.logit_softcap)
+    out = matmul(out.reshape(B, W, -1).to(x.dtype), p["wo"], schedule)
+    return out, cache
 
 
 class PagedView(NamedTuple):

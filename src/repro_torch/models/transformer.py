@@ -2,11 +2,12 @@
 
 PyTorch counterpart of ``repro.models.transformer``: ``cache_spec``, the
 attention + dense-FFN branch of ``_apply_layer``, ``_embed``, ``_unembed``
-and ``forward`` over the paged pool.  The JAX ``lax.scan`` over the stacked
-layer block is a Python loop over the stacked leaves; the pool leaves are
-updated in place through the block tables.  Every entry point takes an
-explicit reduction ``Schedule``: the schedule, not the code, decides
-between fast-path and verifier-grade numerics.
+and ``forward``, over the paged pool (``tables`` and ``paged`` given) or
+over dense per-row cache views (neither given; the gathered lane).  The
+JAX ``lax.scan`` over the stacked layer block is a Python loop over the
+stacked leaves; cache leaves are updated in place.  Every entry point
+takes an explicit reduction ``Schedule``: the schedule, not the code,
+decides between fast-path and verifier-grade numerics.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 from repro_torch.core.determinism import Schedule, VERIFY_SCHEDULE, matmul
 from repro_torch.models.base import ModelConfig, dense_supported
 from repro_torch.models.layers import (
-    PagedView, attention_paged, rms_norm, swiglu_ffn,
+    PagedView, attention_cached, attention_paged, rms_norm, swiglu_ffn,
 )
 
 F32 = torch.float32
@@ -47,13 +48,17 @@ def _index(tree: Any, i: int) -> Any:
 
 def _apply_layer(
     cfg: ModelConfig, lp: Dict, x: torch.Tensor, lc: Dict,
-    tables: torch.Tensor, start_pos: torch.Tensor, schedule: Schedule,
-    paged: PagedView,
+    tables: Optional[torch.Tensor], start_pos: torch.Tensor,
+    schedule: Schedule, paged: Optional[PagedView],
 ) -> torch.Tensor:
-    """One decoder layer (attention + dense FFN); ``lc`` updated in place."""
+    """One decoder layer (attention + dense FFN); ``lc`` updated in place:
+    through the block tables when ``paged`` is given, else as dense views."""
     h = rms_norm(x, lp["norm0"], cfg.norm_eps, schedule)
-    out, _ = attention_paged(lp["attn"], cfg, h, lc, tables, start_pos,
-                             schedule, paged)
+    if paged is not None:
+        out, _ = attention_paged(lp["attn"], cfg, h, lc, tables, start_pos,
+                                 schedule, paged)
+    else:
+        out, _ = attention_cached(lp["attn"], cfg, h, lc, start_pos, schedule)
     x = x + out
     h = rms_norm(x, lp["norm1"], cfg.norm_eps, schedule)
     return x + swiglu_ffn(lp["ffn"], h, schedule)
@@ -83,18 +88,25 @@ def forward(
     tables: Optional[torch.Tensor] = None,  # (B, nblk) block tables
     paged: Optional[PagedView] = None,
 ) -> Tuple[torch.Tensor, Dict, None]:
-    """Incremental forward over the paged pool.
+    """Incremental forward.
 
-    ``cache`` holds pool-shaped leaves (``blocks/0/{k,v,pos}`` with a
-    leading layer axis, no batch axis); attention reads and writes them in
-    place through ``tables``.  Returns ``(logits (B, W, V) f32, cache,
-    None)``, the JAX signature's ``(logits, new_cache, per_pos)``; this
-    slice has no recurrent state, so ``per_pos`` is None."""
-    if paged is None or tables is None:
-        raise NotImplementedError(
-            "only the paged forward is ported; dense per-row caches wait")
+    With ``tables`` and ``paged``, ``cache`` holds pool-shaped leaves
+    (``blocks/0/{k,v,pos}`` with a leading layer axis, no batch axis) and
+    attention reads and writes them in place through ``tables``.  With
+    neither, ``cache`` holds dense per-row views ``(layers, B, C, ...)``,
+    updated in place; every pass must end inside the view (no ring wrap),
+    which the W == 1 length mask relies on.  Returns ``(logits (B, W, V)
+    f32, cache, None)``, the JAX signature's ``(logits, new_cache,
+    per_pos)``; this slice has no recurrent state, so ``per_pos`` is None."""
+    if (paged is None) != (tables is None):
+        raise ValueError("pass both tables and paged (paged pool) or neither "
+                         "(gathered views)")
     x = _embed(params, cfg, tokens, inputs_embeds)
     blocks, pool = params["blocks"]["0"], cache["blocks"]["0"]
+    if paged is None:
+        C = pool["k"].shape[2]
+        assert int(start_pos.max()) + x.shape[1] <= C, (
+            f"a pass ending past the view capacity {C} would wrap")
     for i in range(cfg.num_layers):
         x = _apply_layer(cfg, _index(blocks, i), x, _index(pool, i), tables,
                          start_pos, schedule, paged)

@@ -8,8 +8,9 @@ close the pool: ``null`` (frozen, ``pos == -1``; ``-1`` table entries read
 it) and ``scratch`` (absorbs writes past a table; never read).
 
 The JAX package threads an immutable pool through every step; here the
-leaves are updated in place (the forward writes through the tables,
-``wipe_blocks`` resets freed blocks' positions).  Slot-shaped leaves
+leaves are updated in place (the paged forward writes through the tables,
+``scatter`` writes gathered views back, ``wipe_blocks`` resets freed
+blocks' positions).  Slot-shaped leaves
 (recurrent state, sliding rings, cross caches) belong to families not yet
 ported, so this pool holds paged leaves only.
 """
@@ -85,6 +86,50 @@ def wipe_blocks(pool: Any, lay: Layout, bids: List[int]) -> Any:
     pos = pool["blocks"]["0"]["pos"]
     pos[:, torch.tensor(bids, dtype=torch.long, device=pos.device)] = -1
     return pool
+
+
+# ---------------------------------------------------------------------------
+# device gather / scatter through block tables (the gathered lane)
+# ---------------------------------------------------------------------------
+
+
+def _map(fn, tree: Any, *rest: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def gather(pool: Any, lay: Layout, tables: torch.Tensor) -> Any:
+    """Per-row cache views: every leaf ``(layers, NB+2, bs, ...)`` becomes
+    ``(layers, B, view_capacity, ...)`` assembled from ``tables`` (B,
+    blocks_per_table); ``-1`` entries read the null block (positions -1,
+    always masked).  The views are copies."""
+    B, nblk = tables.shape
+    flat = torch.where(tables < 0, lay.null_bid, tables).reshape(-1).long()
+
+    def g(leaf):
+        out = leaf[:, flat]  # (layers, B*nblk, bs, ...)
+        return out.reshape(leaf.shape[0], B, nblk * lay.block_size, *leaf.shape[3:])
+
+    return _map(g, pool)
+
+
+def scatter(pool: Any, lay: Layout, tables: torch.Tensor, update: Any) -> Any:
+    """Write per-row views back into the pool in place: ``-1`` entries dump
+    into the scratch block (view tails and pad rows, duplicate indices);
+    duplicate real entries (prefix-shared blocks in one batch) carry
+    bitwise-identical content, so write order is immaterial.  Run under
+    ``core.determinism.deterministic_torch``, as the paged writes are."""
+    B, nblk = tables.shape
+    flat = torch.where(tables < 0, lay.scratch_bid, tables).reshape(-1).long()
+
+    def s(leaf, u):
+        u2 = u.reshape(leaf.shape[0], B * nblk, lay.block_size, *leaf.shape[3:])
+        for i in range(leaf.shape[0]):  # index the block axis of one layer
+            leaf[i][flat] = u2[i].to(leaf.dtype)
+        return leaf
+
+    return _map(s, pool, update)
 
 
 # ---------------------------------------------------------------------------

@@ -17,19 +17,28 @@ memory lanes the engine calls (block-pool admission, preemption with
 restore-by-recompute, the radix prefix cache).  The host protocol is the
 JAX engine's, line for line where it can be.
 
-What differs: the JAX engine jits one function per shape class and threads
-an immutable pool through it; here every step runs eagerly and the paged
-pool is updated in place (``models.layers.attention_paged``), so the "fused"
-step is the prefill-chunk, decode and verify bodies called one after the
-other on the shared pool.  Device work runs under
-``core.determinism.deterministic_torch`` (pad rows write the scratch block
-through duplicate indices).  On the card every GEMM runs in the two
-hand-written GEMMs and single-token attention in the paged kernels.
+Both memory lanes: ``paged_attention=True`` (the default) reads and writes
+the KV pool in place through the block tables
+(``models.layers.attention_paged``); ``paged_attention=False`` is the
+gathered lane, which copies each row's blocks into a dense view, runs the
+forward on it (``models.layers.attention_cached``) and scatters it back
+(``serving.kv_cache.pool_forward``).  Committed LLM42 streams are bitwise
+equal between the lanes.  Greedy and seeded sampling
+(``serving.sampler``).
 
-What waits for later slices: ``paged_attention=False`` (gathered lanes),
-recurrent / enc-dec / prefix-embed / sliding-window archs, the costed clock
-(``verify_latency_ms``, ``bind_cost_model``, the cost model) and ``tp > 1``.
-The constructor raises on each.
+What differs: the JAX engine jits one function per shape class and threads
+an immutable pool through it; here every step runs eagerly and the pool is
+updated in place, so the "fused" step is the prefill-chunk, decode and
+verify bodies called one after the other on the shared pool.  Device work
+runs under ``core.determinism.deterministic_torch`` (pad rows write the
+scratch block through duplicate indices).  On the card every GEMM runs in
+the two hand-written GEMMs and single-token attention in the paged kernels
+(paged lane) or the dense-cache decode kernel (gathered lane).
+
+What waits for later slices: recurrent / enc-dec / prefix-embed /
+sliding-window archs, the costed clock (``verify_latency_ms``,
+``bind_cost_model``, the cost model) and ``tp > 1``.  The constructor
+raises on each.
 """
 
 from __future__ import annotations
@@ -51,8 +60,6 @@ from repro_torch.core.determinism import (
 )
 from repro_torch.core.verifier import make_verify_body
 from repro_torch.models.base import ModelConfig, dense_supported
-from repro_torch.models.layers import PagedView
-from repro_torch.models.transformer import forward
 from repro_torch.obs import Observability, TokenProvenance
 from repro_torch.serving import blockpool, kv_cache, prefixcache, statepool, streams
 from repro_torch.serving import scheduler as sched
@@ -87,14 +94,12 @@ class Engine:
         num_blocks: Optional[int] = None,  # pool size; None = dense parity
         prefix_cache: bool = True,  # share committed-prefix KV blocks
         mem_policy: Optional[sched.BlockMemoryPolicy] = None,
-        paged_attention: bool = True,  # in-place paged forward + fused step
+        paged_attention: bool = True,  # in-place paged forward; False = gathered views
         trace: bool = False,  # dual-stream request tracing (obs.trace)
         audit: bool = False,  # per-token determinism audit (obs.audit)
         tp: int = 1,  # fast-path tensor-parallel width
     ):
         dense_supported(cfg)
-        if not paged_attention:
-            raise NotImplementedError("the gathered (paged_attention=False) lanes wait")
         if tp != 1:
             raise NotImplementedError("tp > 1 waits for the distributed/ port")
         assert spec_depth >= 1, "at least one verify window must be allowed"
@@ -129,9 +134,9 @@ class Engine:
         self.preempted: List[Request] = []  # blocks evicted, restore pending
         self.finished: List[Request] = []
         self.events: List[Dict[str, Any]] = []
-        lay = self.pool.layout
-        self._pview = PagedView(lay.block_size, lay.null_bid, lay.scratch_bid)
-        self._verify_body = make_verify_body(cfg, group, window, lay, paged=True)
+        self._paged_fwd = bool(paged_attention)
+        self._verify_body = make_verify_body(
+            cfg, group, window, self.pool.layout, paged=self._paged_fwd)
         self._pad_row: Optional[torch.Tensor] = None
         self._now = 0  # logical iteration counter
         self.num_preemptions = 0
@@ -344,15 +349,18 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _forward(self, params, pool, tables, start_pos, schedule, **inputs):
+        """One forward over the pool in this engine's memory lane."""
+        return kv_cache.pool_forward(
+            params, self.cfg, self.pool.layout, pool, tables, start_pos,
+            schedule, paged=self._paged_fwd, **inputs)
+
     def _decode_body(self, batch_size: int, schedule: Schedule):
         """One-token decode over the pool through the block tables."""
-        cfg = self.cfg
 
         def step(params, pool, tables, tokens, pos, seeds, temps, out_pos, top_ks):
-            logits, pool, _ = forward(
-                params, cfg, tokens[:, None], cache=pool, start_pos=pos,
-                schedule=schedule, tables=tables, paged=self._pview,
-            )
+            logits, pool = self._forward(params, pool, tables, pos, schedule,
+                                         tokens=tokens[:, None])
             nxt = sample_batch(logits[:, 0], seeds, out_pos, temps, top_ks)
             margins = top2_margin(logits[:, 0])
             return pool, nxt, margins
@@ -363,25 +371,21 @@ class Engine:
     def _prefill_pass(self, table: torch.Tensor, tokens: torch.Tensor):
         """Exclusive whole-prompt pass at the prompt's bucket, verify-grade
         schedule in every mode.  The JAX engine gathers a per-row view and
-        runs the dense attention on it; the paged forward computes the
-        same masked softmax over the same view, reading through the table."""
-        logits, self.pool.data, _ = forward(
-            self.params, self.cfg, tokens, cache=self.pool.data,
-            start_pos=self._ints([0]), schedule=self._commit_schedule(),
-            tables=table[None], paged=self._pview,
-        )
+        runs the dense attention on it (the gathered lane here too); the
+        paged forward computes the same masked softmax over the same view,
+        reading through the table."""
+        logits, self.pool.data = self._forward(
+            self.params, self.pool.data, table[None], self._ints([0]),
+            self._commit_schedule(), tokens=tokens)
         return logits
 
     def _prefill_chunk_body(self, C: int):
         """Fixed-shape C-token prefill chunk, verify-grade schedule."""
-        cfg, schedule = self.cfg, self._commit_schedule()
+        schedule = self._commit_schedule()
 
         def chunk(params, pool, table, embeds, start, last):
-            logits, pool, _ = forward(
-                params, cfg, inputs_embeds=embeds, cache=pool,
-                start_pos=start[None], schedule=schedule,
-                tables=table[None], paged=self._pview,
-            )
+            logits, pool = self._forward(params, pool, table[None], start[None],
+                                         schedule, inputs_embeds=embeds)
             return pool, logits
 
         return chunk

@@ -6,17 +6,53 @@ allocator and the slot free list.  Slots carry no device state for the
 dense family (its only leaves are paged); they still bound concurrency and
 name the scratch row grouped verification pads with.  Pool leaves are
 updated in place.
+
+``pool_forward`` runs one forward pass over the pool in either memory
+lane: the paged lane reads and writes it in place through the block tables
+(``models.layers.attention_paged``); the gathered lane
+(``paged_attention=False``) gathers per-row views, runs the dense forward
+on them and scatters them back, as the JAX engine's legacy path does.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch.core.determinism import Schedule
 from repro_torch.models.base import ModelConfig
+from repro_torch.models.layers import PagedView
+from repro_torch.models.transformer import forward
 from repro_torch.serving import blockpool
 from repro_torch.serving.blockpool import BlockAllocator, Layout  # noqa: F401
+
+#: gathered-lane entry points (block-table addressing)
+gather = blockpool.gather
+scatter = blockpool.scatter
+
+
+def pool_forward(
+    params: Dict, cfg: ModelConfig, lay: Layout, pool: Any,
+    tables: torch.Tensor, start_pos: torch.Tensor, schedule: Schedule, *,
+    paged: bool, tokens: Optional[torch.Tensor] = None,
+    inputs_embeds: Optional[torch.Tensor] = None,
+):
+    """``forward`` over the pool through ``tables``; returns ``(logits,
+    pool)``.  ``paged=True`` passes the pool whole and the forward updates
+    it in place; ``paged=False`` gathers ``(layers, B, view_capacity, ...)``
+    views, runs the dense-cache forward on them and scatters them back."""
+    if paged:
+        pview = PagedView(lay.block_size, lay.null_bid, lay.scratch_bid)
+        logits, pool, _ = forward(
+            params, cfg, tokens, inputs_embeds=inputs_embeds, cache=pool,
+            start_pos=start_pos, schedule=schedule, tables=tables, paged=pview)
+        return logits, pool
+    views = gather(pool, lay, tables)
+    logits, views, _ = forward(
+        params, cfg, tokens, inputs_embeds=inputs_embeds, cache=views,
+        start_pos=start_pos, schedule=schedule)
+    return logits, scatter(pool, lay, tables, views)
 
 
 class CachePool:

@@ -42,6 +42,18 @@ DEMO_POLICY = ReductionPolicy(thresholds=((2, 16), (4, 8), (8, 4)),
 MARGIN_TOL = 1e-3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the smoke shapes gain
+    nothing from more, and the suite runs several workers on one machine,
+    where each worker's spinning torch threads would oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_params():
     jax = pytest.importorskip("jax")
@@ -170,15 +182,19 @@ def test_prefix_cache_hit_keeps_stream(port_params):
 
 
 def test_engine_refuses_unported_options(port_params):
-    with pytest.raises(NotImplementedError):
-        Engine(CFG, port_params, paged_attention=False)
+    """Tensor parallelism and the sliding-window family still wait; the
+    gathered lane and seeded sampling are ported (tests/test_torch_gathered.py,
+    tests/test_torch_sampler.py)."""
+    import dataclasses
+
     with pytest.raises(NotImplementedError):
         Engine(CFG, port_params, tp=2)
-    eng = Engine(CFG, port_params, capacity=64)
+    with pytest.raises(NotImplementedError):
+        Engine(dataclasses.replace(CFG, attn_kind="sliding"), port_params)
+    eng = Engine(CFG, port_params, capacity=64, paged_attention=False)
     eng.submit(Request(rid=0, prompt=[1, 2, 3], sampling=SamplingParams(
         max_new_tokens=4, temperature=0.8)))
-    with pytest.raises(NotImplementedError):
-        eng.run()
+    assert len(eng.run()[0].committed) == 4
 
 
 def test_serve_cli_on_cpu():

@@ -12,7 +12,15 @@ plain version, which these tests hold against the JAX reference:
   f32 combine, 2e-2 with bf16.  The bf16 bound is loose on purpose: the port
   keeps the TPU kernel's rounding points (``e`` rounded to bf16 before it is
   summed, the split merge in f32), while the JAX oracle rounds the merged
-  ``d`` and ``o`` instead.
+  ``d`` and ``o`` instead;
+* dense-cache decode attention against the Pallas kernel in interpret mode
+  (kv_splits 1, 3, 4; f32 and bf16 combine; D = 64; lengths 0 and S
+  included): 1e-6 with f32 combine (two f32 summation orders over at most
+  96 keys, outputs |o| < 3), 2 bf16 ulps of max|o| with bf16 combine (a
+  reordered sum may round the running d or o across a bf16 boundary);
+* the fused RMSNorm against the Pallas kernel in interpret mode (D = 300
+  f32, D = 256 bf16, with and without a residual): 2 ulps of max|out| in
+  the output dtype (the mean over D is summed in another order).
 
 Plus the package-level contracts: no JAX and no ``repro`` import anywhere
 in the port or ``chip_smoke.py``, ``import repro_torch`` with JAX unimportable,
@@ -37,9 +45,11 @@ from repro_torch.core.determinism import (
     FAST_PATH_POLICY, Schedule, VERIFY_SCHEDULE, deterministic_torch,
 )
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
 from repro_torch.kernels.gemm_splitk import gemm_splitk
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_fast
+from repro_torch.kernels.rmsnorm import rmsnorm
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -49,6 +59,17 @@ HOST_COPIES = [
     "serving/streams.py", "serving/scheduler.py", "serving/prefixcache.py",
     "obs/__init__.py", "obs/metrics.py", "obs/trace.py", "obs/audit.py",
 ]
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the smoke shapes gain
+    nothing from more, and the suite runs several workers on one machine,
+    where each worker's spinning torch threads would oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _xw(m, k, n, seed=0):
@@ -164,6 +185,12 @@ def test_wrappers_never_fall_back():
         gemm_batch_invariant(x, w)
     with pytest.raises(ValueError):
         gemm_splitk(x, w, splits=2)
+    q = torch.empty((2, 4, 64), device="meta")
+    kv = torch.empty((2, 16, 2, 64), device="meta")
+    with pytest.raises(ValueError):
+        decode_attention(q, kv, kv, torch.empty(2, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError):
+        rmsnorm(x, torch.empty(8, device="meta"))
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +291,90 @@ def test_ops_paged_routing():
     assert torch.equal(ops.paged_attention(*problem, fast),
                        paged_attention_fast(*problem, kv_splits=4,
                                             combine_dtype="bfloat16"))
+
+
+# ---------------------------------------------------------------------------
+# dense-cache decode attention, fused RMSNorm
+# ---------------------------------------------------------------------------
+
+
+def _decode_problem(seed, B=4, H=8, KV=2, S=96, D=64):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, KV, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, D)).astype(np.float32)
+    lengths = np.array([0, S, 17, 50][:B], np.int32)
+    return q, k, v, lengths
+
+
+@pytest.mark.parametrize("splits", [1, 3, 4])
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_decode_attention_matches_pallas(splits, cd):
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.decode_attention import decode_attention as pallas
+
+    problem = _decode_problem(20 + splits)
+    want = np.asarray(pallas(*(jnp.asarray(a) for a in problem), kv_splits=splits,
+                             combine_dtype=cd, interpret=True))
+    got = decode_attention(*(torch.from_numpy(a) for a in problem),
+                           kv_splits=splits, combine_dtype=cd).numpy()
+    tol = 1e-6 if cd == "float32" else float(np.abs(want).max()) * 2.0 ** -7
+    np.testing.assert_allclose(got, want, atol=tol, rtol=0)
+    assert not np.any(got[0])  # lengths 0: nothing to attend, output 0
+
+
+def test_decode_attention_masked_positions_and_rows():
+    """Keys at s >= lengths never leak, and a row's output does not
+    depend on the other rows of the batch."""
+    q, k, v, lengths = (torch.from_numpy(a) for a in _decode_problem(30))
+    base = decode_attention(q, k, v, lengths, kv_splits=4, combine_dtype="bfloat16")
+    k2, v2 = k.clone(), v.clone()
+    for b, n in enumerate(lengths.tolist()):
+        k2[b, n:] = 1e9
+        v2[b, n:] = -1e9
+    assert torch.equal(base, decode_attention(q, k2, v2, lengths, kv_splits=4,
+                                              combine_dtype="bfloat16"))
+    one = decode_attention(q[2:3], k[2:3], v[2:3], lengths[2:3], kv_splits=4,
+                           combine_dtype="bfloat16")
+    assert torch.equal(one, base[2:3])
+
+
+def test_ops_decode_attention_routing():
+    """A kv_splits that does not divide S (96 keys, 5 splits) falls back to
+    one split, as ``repro.kernels.ops.decode_attention`` does."""
+    q, k, v, lengths = (torch.from_numpy(a) for a in _decode_problem(31))
+    fast = Schedule(splits=4, kv_splits=4, combine_dtype="bfloat16")
+    assert torch.equal(ops.decode_attention(q, k, v, lengths, fast),
+                       decode_attention(q, k, v, lengths, kv_splits=4,
+                                        combine_dtype="bfloat16"))
+    uneven = Schedule(splits=5, kv_splits=5, combine_dtype="bfloat16")
+    assert torch.equal(ops.decode_attention(q, k, v, lengths, uneven),
+                       decode_attention(q, k, v, lengths, kv_splits=1,
+                                        combine_dtype="bfloat16"))
+
+
+@pytest.mark.parametrize("d,dtype", [(300, "float32"), (256, "bfloat16")])
+@pytest.mark.parametrize("with_res", [False, True])
+def test_rmsnorm_matches_pallas(d, dtype, with_res):
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.rmsnorm import rmsnorm as pallas
+
+    rng = np.random.default_rng(d)
+    x, res = rng.standard_normal((2, 5, d)).astype(np.float32)
+    sc = rng.standard_normal(d).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jres = jnp.asarray(res).astype(jdt) if with_res else None
+    want = np.asarray(pallas(jnp.asarray(x).astype(jdt), jnp.asarray(sc), jres,
+                             bm=5, interpret=True).astype(jnp.float32))
+    tres = torch.from_numpy(res).to(tdt) if with_res else None
+    got = ops.rmsnorm(torch.from_numpy(x).to(tdt)[None], torch.from_numpy(sc),
+                      tres[None] if with_res else None, eps=1e-5)[0]
+    assert got.dtype == tdt
+    mant = 23 if dtype == "float32" else 7
+    tol = 2 * float(np.abs(want).max()) * 2.0 ** -mant
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=0)
 
 
 def test_deterministic_torch_restores_flags():

@@ -31,6 +31,18 @@ CAP, BS = 128, 16
 LOGIT_TOL = 2e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the smoke shapes gain
+    nothing from more, and the suite runs several workers on one machine,
+    where each worker's spinning torch threads would oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def shared():
     """(JAX params, port params) from one JAX init."""
@@ -212,8 +224,12 @@ def test_greedy_sampler_and_margin_match_jax():
     np.testing.assert_allclose(top2_margin(torch.from_numpy(logits)).numpy(),
                                np.asarray(js.top2_margin(jnp.asarray(logits))),
                                atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        sample_batch(torch.from_numpy(logits), [0] * 4, [0] * 4, [0.0, 0.7, 0.0, 0.0])
+    # a seeded row beside greedy ones: the same Gumbel-argmax as JAX's
+    temps = [0.0, 0.7, 0.0, 0.0]
+    want = np.asarray(js.sample_batch(jnp.asarray(logits), jnp.arange(4, dtype=jnp.int32),
+                                      jnp.zeros(4, jnp.int32), jnp.asarray(temps)))
+    got = sample_batch(torch.from_numpy(logits), [0, 1, 2, 3], [0] * 4, temps)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_match_and_commit_matches_jax():
