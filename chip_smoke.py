@@ -7,12 +7,16 @@ from a seed, on both memory lanes: the paged lane (``paged_attention=True``,
 the main path) and the gathered lane (``paged_attention=False``):
 
 1. build   compile the six Hopper kernels from ``src/repro_torch/kernels/
-           csrc`` (nvcc, in parallel) and print the card's name and power
-           limit;
+           csrc`` (nvcc, in parallel), print ``ptxas -v``'s registers,
+           shared memory and spills per kernel, and the card's name and
+           power limit;
 2. kernels hold each kernel against its plain PyTorch version at the main
            path's shapes (tolerance printed), plus row invariance across M
-           and B, bitwise repeatability of the commit kernels, and split
-           and combine sensitivity of the fast kernels;
+           (the commit GEMM at all five projection shapes and at an uneven
+           chunk cut) and B, bitwise repeatability of the commit kernels,
+           split and combine sensitivity of the fast kernels, and which
+           GEMM partial tile each operand dtype runs (bf16: tensor cores,
+           f32: CUDA cores; by kernel name in a profiler trace);
 3. serve   serve requests through ``launch/serve.py``'s request builder in
            LLM42, BATCH_INVARIANT and NONDET mode on each lane, each run
            with every kernel's launch count reset just before it and read
@@ -28,9 +32,14 @@ the main path) and the gathered lane (``paged_attention=False``):
            beside 3 and 6 neighbours, and the gathered lane's LLM42 streams
            equal to the paged lane's (NONDET divergence is printed);
 5. profile ``torch.profiler`` over a window of 4 iterations of the paged
-           LLM42 run: device time by kernel and the device's busy share;
+           LLM42 run: device time by kernel, the GEMMs' share, and the
+           device's busy share; then a short run of every lane and mode,
+           whose GEMMs must all run the tensor-core tile (by kernel name);
 6. timings each kernel against its plain version and one PyTorch call,
-           beside the least time the card could take.
+           beside the least time the card could take (100 launches a
+           reading); both GEMMs beside ``torch.matmul`` at every projection
+           shape and serve-run M, their device time per forward, and the
+           host time per GEMM call.
 
 The line before the last is a JSON object describing every kernel
 (``launches`` sums the serve runs and the rmsnorm entry-point run,
@@ -66,6 +75,10 @@ PHASES = ("build", "kernels", "serve", "determinism", "profile", "timings")
 #: per-request KV reach of the serve phase (128 blocks of 16); the engine's
 #: default, max_seq_len, would make every commit-kernel row walk 2056 blocks
 CAPACITY = 2048
+
+#: device clock cycles the timer sleeps before each timed launch (about
+#: 0.1 ms at the H100's 1.98 GHz boost clock)
+SLEEP_CYCLES = 200_000
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -165,16 +178,32 @@ def card_line() -> str:
 
 
 def phase_build() -> None:
+    import re
+
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
     logs = build.build_all()
+    version = subprocess.run([build.nvcc_path(), "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.strip().splitlines()
     log(f"[build] {len(logs)} sources compiled in "
-        f"{time.perf_counter() - t0:.1f} s -> {build.BUILD_DIR}")
+        f"{time.perf_counter() - t0:.1f} s -> {build.BUILD_DIR} "
+        f"({version[-1] if version else 'nvcc version unknown'})")
+    # ptxas -v for the GEMM partial tiles: registers, static shared memory,
+    # spill bytes (the tensor-core tile's ring is dynamic shared memory,
+    # TC_SMEM in gemm_tile.cuh)
     for stem, text in logs.items():
+        kernel, spills = None, ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {stem}: {line.strip()}")
+            if "Compiling entry function" in line:
+                found = re.search(r"(wgmma|fmaf)_partial_kernel", line)
+                kernel = found.group(0) if found else None
+            elif kernel and "spill" in line:
+                spills = line.strip()
+            elif kernel and "Used" in line:
+                log(f"[build] {stem} {kernel}: {line.split(':', 1)[-1].strip()}; "
+                    f"{spills}")
+                kernel = None
     for stem in build.ENTRY_POINTS:
         build.load(stem)
 
@@ -281,9 +310,10 @@ def phase_kernels(torch, cfg, results) -> None:
     def bf16_tol(ref_out, ulps):
         return float(ref_out.float().abs().max()) * 2.0 ** -8 * ulps
 
-    # -- kernel 1: commit GEMM, every projection shape of a verify pass (M=32)
+    # -- kernel 1: commit GEMM, every projection shape of a verify pass (M=32);
+    # at each, a row's bits must not depend on M, and a call must repeat
     worst = 0.0
-    for K, N in ((D, D), (D, 1024), (D, F), (F, D), (D, cfg.vocab_size)):
+    for K, N in projections(cfg):
         x, w = rnd(32, K), rnd(K, N, scale=K ** -0.5)
         out = gemm_batch_invariant(x, w, chunks=CANONICAL_TP_SHARDS)
         want = ref.gemm_batch_invariant(x, w, chunks=CANONICAL_TP_SHARDS)
@@ -294,6 +324,24 @@ def phase_kernels(torch, cfg, results) -> None:
             f"max_abs_err {err:.3e} (tol {tol:.3e}, 2 bf16 ulps of max|ref|)")
         require(err <= tol, "gemm_batch_invariant disagrees with its plain version")
         worst = max(worst, err)
+        commit_rows_invariant(torch, gemm_batch_invariant, rnd(200, K), w,
+                              CANONICAL_TP_SHARDS)
+        del x, w, out, want
+    log(f"[kernels] gemm_batch_invariant rows bitwise identical for M in "
+        f"{ROW_MS} at all {len(projections(cfg))} projection shapes; repeatable")
+    # uneven chunks that are not multiples of the 64-column K step
+    # (4096 = 1366 + 1365 + 1365): steps that cross a chunk bound
+    x, w = rnd(200, D), rnd(D, 1024, scale=D ** -0.5)
+    out = gemm_batch_invariant(x, w, chunks=3)
+    want = ref.gemm_batch_invariant(x, w, chunks=3)
+    err = float((out.float() - want.float()).abs().max())
+    log(f"[kernels] gemm_batch_invariant (200,{D})@({D},1024) chunks=3 (uneven): "
+        f"max_abs_err {err:.3e} (tol {bf16_tol(want, 2):.3e})")
+    require(err <= bf16_tol(want, 2), "gemm_batch_invariant disagrees at an uneven cut")
+    worst = max(worst, err)
+    commit_rows_invariant(torch, gemm_batch_invariant, x, w, 3)
+    log(f"[kernels] gemm_batch_invariant chunks=3: rows bitwise identical for M in "
+        f"{ROW_MS}")
     # f32 operands: the kernel's arithmetic without the output rounding
     x, w = rnd(13, D).float(), rnd(D, 1024, scale=D ** -0.5).float()
     err32 = float((gemm_batch_invariant(x, w, chunks=4)
@@ -302,31 +350,35 @@ def phase_kernels(torch, cfg, results) -> None:
         f"max_abs_err {err32:.3e} (tol 1e-4)")
     require(err32 <= 1e-4, "gemm_batch_invariant f32 disagrees")
     results["gemm_batch_invariant"]["max_abs_err"] = worst
-    # rows bitwise independent of M; bitwise repeatable
-    xb, w = rnd(200, D), rnd(D, F, scale=D ** -0.5)
-    full = gemm_batch_invariant(xb, w, chunks=4)
-    for M in (1, 7, 13, 32, 128, 200):
-        part = gemm_batch_invariant(xb[:M].contiguous(), w, chunks=4)
-        require(torch.equal(part, full[:M]), f"gemm_batch_invariant rows change at M={M}")
-    require(torch.equal(full, gemm_batch_invariant(xb, w, chunks=4)),
-            "gemm_batch_invariant is not repeatable")
-    log("[kernels] gemm_batch_invariant rows bitwise identical for M in "
-        "{1,7,13,32,128,200}; repeatable")
+    check_gemm_tiles(torch, rnd, D)
 
-    # -- kernel 2: fast split-K GEMM at the decode batch
+    # -- kernel 2: fast split-K GEMM at the decode batch, every projection
+    # shape a fast decode pass gives it, at FAST_PATH_POLICY's splits
     worst = 0.0
-    for M, splits in ((1, 8), (4, 4), (8, 4)):
-        for K, N in ((D, D), (D, F), (F, D)):
-            x, w = rnd(M, K), rnd(K, N, scale=K ** -0.5)
+    for K, N in projections(cfg):
+        w = rnd(K, N, scale=K ** -0.5)
+        for M, splits in ((1, 8), (4, 4), (8, 4)):
+            x = rnd(M, K)
             out = gemm_splitk(x, w, splits=splits, combine_dtype="bfloat16")
             want = ref.gemm_splitk(x, w, splits, "bfloat16")
             sync(torch)
             err = float((out.float() - want.float()).abs().max())
             tol = bf16_tol(want, 4)
+            log(f"[kernels] gemm_splitk ({M},{K})@({K},{N}) splits={splits} bf16 "
+                f"combine: max_abs_err {err:.3e} (tol {tol:.3e}, 4 bf16 ulps of max|ref|)")
             require(err <= tol, f"gemm_splitk disagrees at M={M} K={K} N={N}")
             worst = max(worst, err)
-    log(f"[kernels] gemm_splitk M in {{1,4,8}}, splits {{8,4}}, bf16 combine: "
-        f"max_abs_err {worst:.3e} (tol 4 bf16 ulps of max|ref|)")
+        del w, x, out, want
+    # uneven splits that are not multiples of the K step (14336 = 4779 +
+    # 4779 + 4778)
+    x, w = rnd(4, F), rnd(F, 1024, scale=F ** -0.5)
+    out = gemm_splitk(x, w, splits=3, combine_dtype="bfloat16")
+    want = ref.gemm_splitk(x, w, 3, "bfloat16")
+    err = float((out.float() - want.float()).abs().max())
+    log(f"[kernels] gemm_splitk (4,{F})@({F},1024) splits=3 (uneven), bf16 combine: "
+        f"max_abs_err {err:.3e} (tol {bf16_tol(want, 4):.3e})")
+    require(err <= bf16_tol(want, 4), "gemm_splitk disagrees at an uneven cut")
+    worst = max(worst, err)
     x, w = rnd(3, F).float(), rnd(F, 1000, scale=F ** -0.5).float()  # uneven K cut
     for splits in (1, 3, 8):
         err32 = float((gemm_splitk(x, w, splits=splits) - ref.gemm_splitk(x, w, splits)).abs().max())
@@ -393,6 +445,67 @@ def phase_kernels(torch, cfg, results) -> None:
 
     check_decode_attention(torch, cfg, results)
     check_rmsnorm(torch, cfg, results)
+
+
+#: batch sizes at which the commit GEMM's rows must keep their bits
+ROW_MS = (1, 7, 13, 32, 128, 200)
+
+
+def projections(cfg):
+    """(K, N) of every matmul of a forward: wq and wo, wk and wv, the FFN's
+    gate and up, its down projection, the unembedding."""
+    D, F = cfg.d_model, cfg.d_ff
+    return ((D, D), (D, cfg.num_kv_heads * cfg.hd), (D, F), (F, D),
+            (D, cfg.vocab_size))
+
+
+def commit_rows_invariant(torch, gemm, xb, w, chunks) -> None:
+    """The first M rows of ``xb`` (200 rows) alone give the bits they give
+    in the whole batch, for every M in ROW_MS; the call repeats bitwise."""
+    full = gemm(xb, w, chunks=chunks)
+    for M in ROW_MS:
+        part = gemm(xb[:M].contiguous(), w, chunks=chunks)
+        require(torch.equal(part, full[:M]),
+                f"gemm_batch_invariant rows change at M={M}, K={w.shape[0]}, "
+                f"N={w.shape[1]}, chunks={chunks}")
+    require(torch.equal(full, gemm(xb, w, chunks=chunks)),
+            "gemm_batch_invariant is not repeatable")
+
+
+#: the GEMMs' partial tiles by kernel name: tensor cores (bf16 operands),
+#: CUDA cores (f32 operands)
+TENSOR_CORE_TILE, CUDA_CORE_TILE = "wgmma_partial_kernel", "fmaf_partial_kernel"
+
+
+def gemm_tiles_run(torch, fn):
+    """The GEMM partial tiles that ``fn()`` launched, by kernel name in a
+    ``torch.profiler`` trace of the card's activity alone (no host ops, so
+    a short serve run's trace sums in seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(torch)
+    names = [e.key for e in prof.key_averages()]
+    require(names, "the profiler saw no activity on the card")
+    return {tile for tile in (TENSOR_CORE_TILE, CUDA_CORE_TILE)
+            if any(tile in name for name in names)}
+
+
+def check_gemm_tiles(torch, rnd, D) -> None:
+    """bf16 operands launch the tensor-core tile, f32 operands the CUDA-core
+    tile, in both GEMMs."""
+    from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
+    from repro_torch.kernels.gemm_splitk import gemm_splitk
+
+    for dt, tile in ((torch.bfloat16, TENSOR_CORE_TILE), (torch.float32, CUDA_CORE_TILE)):
+        x, w = rnd(8, D).to(dt), rnd(D, 1024).to(dt)
+        for name, fn in (("gemm_batch_invariant", lambda: gemm_batch_invariant(x, w, chunks=4)),
+                         ("gemm_splitk", lambda: gemm_splitk(x, w, splits=4))):
+            ran = gemm_tiles_run(torch, fn)
+            log(f"[kernels] {name}, {str(dt)[6:]} operands: partial tiles run {sorted(ran)}")
+            require(ran == {tile}, f"{name}: {str(dt)[6:]} operands did not run only {tile}")
 
 
 def rows_invariant(torch, fn, inputs, name):
@@ -799,7 +912,9 @@ def phase_profile(torch, cfg, params, capacity, summary, warm=4, active=4) -> No
     device time by kernel and the device's busy share of the window (sum of
     kernel times over the window's wall time).  Iterations 5..8 hold four
     decode passes and the run's first grouped verify; summing the trace
-    costs about 5 s an iteration, which bounds the window."""
+    costs about 5 s an iteration, which bounds the window.  Then a short
+    run of every lane and mode under a trace of the card alone, whose
+    GEMMs must all run the tensor-core tile."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.determinism import Mode
@@ -828,6 +943,21 @@ def phase_profile(torch, cfg, params, capacity, summary, warm=4, active=4) -> No
     log(f"[profile] llm42 iterations {first}..{first + active - 1}: host wall "
         f"{wall:.3f} s under the profiler, device busy {busy:.3f} s "
         f"({100 * busy / wall:.1f}%); trace summed in {time.perf_counter() - t0:.1f} s")
+    # the GEMMs' device time, and proof by kernel name that bf16 GEMMs ran
+    # on the tensor-core tile only
+    gemm = {}
+    for e in averages:
+        for part in ("wgmma_partial_kernel", "fmaf_partial_kernel",
+                     "tree_combine_kernel", "ordered_fold_kernel"):
+            if part in e.key and e.self_device_time_total > 0:
+                ms, n = gemm.get(part, (0.0, 0))
+                gemm[part] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    gemm_ms = sum(ms for ms, _ in gemm.values())
+    log(f"[profile] GEMM device time in the window {gemm_ms:.1f} ms of "
+        f"{busy * 1e3:.1f} ms busy: " + ", ".join(
+            f"{k} {ms:.1f} ms / {n} launches" for k, (ms, n) in gemm.items()))
+    require("wgmma_partial_kernel" in gemm and "fmaf_partial_kernel" not in gemm,
+            "the profiled window's bf16 GEMMs did not run only the tensor-core tile")
     for e in rows[:20]:
         log(f"[profile] {e.device_time_total / 1e3:10.1f} ms device "
             f"{e.cpu_time_total / 1e3:10.1f} ms cpu {e.count:7d}x  {e.key[:90]}")
@@ -839,7 +969,22 @@ def phase_profile(torch, cfg, params, capacity, summary, warm=4, active=4) -> No
     for kind in ("prefill", "decode", "verify"):
         walls = [ev["wall"] for ev in events if ev["kind"] == kind]
         log(f"[profile] engine {kind}: {len(walls)} passes, {sum(walls):.3f} s wall")
-    summary["profile"] = {"iterations": active, "wall_s": wall, "device_busy_s": busy}
+    summary["profile"] = {"iterations": active, "wall_s": wall, "device_busy_s": busy,
+                          "gemm_device_ms": gemm_ms}
+    # every lane and mode: a short run's GEMMs by kernel name, all on the
+    # tensor-core tile (a prefill and a decode pass each; summing a trace
+    # costs seconds an iteration, so the runs are short)
+    for lane, paged in LANES.items():
+        for mode in (Mode.LLM42, Mode.BATCH_INVARIANT, Mode.NONDET):
+            eng = Engine(cfg, params, mode=mode, capacity=capacity, paged_attention=paged)
+            for r in build_requests(cfg, 2, det_ratio=0.5, max_out=2, seed=0):
+                eng.submit(r)
+            ran = gemm_tiles_run(torch, eng.run)
+            log(f"[profile] {lane}/{mode.value}, 2 requests x 2 new tokens: GEMM "
+                f"partial tiles run {sorted(ran)}")
+            require(ran == {TENSOR_CORE_TILE},
+                    f"{lane}/{mode.value}: bf16 GEMMs did not run only the tensor-core tile")
+            del eng
 
 
 def engine_events(eng):
@@ -859,24 +1004,30 @@ def engine_events(eng):
 # ---------------------------------------------------------------------------
 
 
-def time_ms(torch, fn, reps=20, flush=None):
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events around
-    each launch; ``flush`` runs between launches, outside the events)."""
+def time_ms(torch, fn, reps=100, flush=None):
+    """Device time of ``fn``: the median over ``reps`` launches, each timed
+    by CUDA events around it.  ``flush`` runs between launches, outside the
+    events; then the device sleeps about 0.1 ms, so the host has enqueued
+    ``fn`` before the device reaches the first event and a reading holds no
+    host delay (without it, readings of 0.015-0.025 ms moved by up to 30 %
+    between two runs of 100 launches).  The median, because a launch
+    enqueued later than the sleep still carries the host's delay."""
     for _ in range(3):
         fn()
     sync(torch)
-    total = 0.0
+    times = []
     for _ in range(reps):
         if flush is not None:
             flush()
+        torch.cuda._sleep(SLEEP_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
         b.record()
         b.synchronize()
-        total += a.elapsed_time(b)
-    return total / reps
+        times.append(a.elapsed_time(b))
+    return sorted(times)[reps // 2]
 
 
 def phase_timings(torch, cfg, results) -> None:
@@ -899,16 +1050,22 @@ def phase_timings(torch, cfg, results) -> None:
     def gemm_row(name, M, K, N, kernel, plain, extra):
         x = torch.randn((M, K), generator=g, device=DEV).to(bf)
         w = (torch.randn((K, N), generator=g, device=DEV) * K ** -0.5).to(bf)
-        ms = time_ms(torch, lambda: kernel(x, w), flush=flush)
-        plain_ms = time_ms(torch, lambda: plain(x, w), flush=flush)
-        lib_ms = time_ms(torch, lambda: torch.matmul(x, w), flush=flush)
+        # kernel, library, library, kernel: two readings of each in turns
+        k1 = time_ms(torch, lambda: kernel(x, w), flush=flush)
+        l1 = time_ms(torch, lambda: torch.matmul(x, w), flush=flush)
+        l2 = time_ms(torch, lambda: torch.matmul(x, w), flush=flush)
+        k2 = time_ms(torch, lambda: kernel(x, w), flush=flush)
+        plain_ms = time_ms(torch, lambda: plain(x, w), reps=20, flush=flush)
+        ms, lib_ms = (k1 + k2) / 2, (l1 + l2) / 2
         b_ms, b_by = gemm_bound(M, K, N)
         results[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=b_ms, bound_by=b_by,
                              shape=f"({M},{K})@({K},{N}) {extra}")
-        log(f"[timings] {name} ({M},{K})@({K},{N}) {extra}: {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by})")
+        log(f"[timings] {name} ({M},{K})@({K},{N}) {extra}: {ms:.4f} ms "
+            f"(readings {k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms, "
+            f"torch.matmul {lib_ms:.4f} ms ({l1:.4f}, {l2:.4f}), bound "
+            f"{b_ms:.4f} ms ({b_by}): {ms / lib_ms:.2f}x torch.matmul, "
+            f"{100 * b_ms / ms:.0f}% of the bound")
 
     # the verify pass's FFN down-projection and the decode batch's
     gemm_row("gemm_batch_invariant", 32, F, D,
@@ -918,6 +1075,8 @@ def phase_timings(torch, cfg, results) -> None:
              lambda x, w: gemm_splitk(x, w, splits=4, combine_dtype="bfloat16"),
              lambda x, w: ref.gemm_splitk(x, w, 4, "bfloat16"),
              "splits=4 bf16 combine")
+    time_gemm_table(torch, cfg, flush)
+    time_gemm_host(torch, cfg)
     q, k, v, pos, tab, qp, ctx = paged_inputs(
         torch, cfg, 8, 2048, 16, seed=3, min_ctx=512, max_ctx=2048)
     b_ms, b_by = attention_bound(cfg, q, ctx, 16)
@@ -942,6 +1101,120 @@ def phase_timings(torch, cfg, results) -> None:
             f"PyTorch call reads K/V through a block table (library_ms null)")
     time_decode_attention(torch, cfg, results, flush)
     time_rmsnorm(torch, cfg, results, flush)
+
+
+def time_gemm_table(torch, cfg, flush) -> None:
+    """Both GEMMs beside ``torch.matmul`` at every projection shape and at
+    the M the serve runs use (commit: 8 in BATCH_INVARIANT decode, 32 in
+    verify and in the 32-token prompts' prefill; split-K: 1, 4 and 8 with
+    FAST_PATH_POLICY's splits), two readings of each in turns, then the
+    GEMM device time of one forward (7 matmuls a layer and the
+    unembedding, each weighted by its launches) against its bytes bound."""
+    from repro_torch.core.determinism import CANONICAL_TP_SHARDS, FAST_PATH_POLICY
+    from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
+    from repro_torch.kernels.gemm_splitk import gemm_splitk
+    from repro_torch.serving.engine import _bucket
+
+    g = torch.Generator(device=DEV).manual_seed(11)
+    bf, L = torch.bfloat16, cfg.num_layers
+    runs = {("commit", 8): "BATCH_INVARIANT decode at B=8",
+            ("commit", 32): "verify, group 4 x window 8",
+            ("splitk", 1): "fast decode at B=1", ("splitk", 4): "fast decode at B=4",
+            ("splitk", 8): "fast decode at B=8"}
+    prefill = ("commit", _bucket(32))  # one 32-token prompt a pass
+    runs[prefill] = (runs[prefill] + "; " if prefill in runs else "") + \
+        "prefill of a 32-token prompt"
+
+    def kernel(kind, m):
+        if kind == "commit":
+            return lambda x, w: gemm_batch_invariant(x, w, chunks=CANONICAL_TP_SHARDS)
+        s = FAST_PATH_POLICY.schedule_for(m)
+        return lambda x, w: gemm_splitk(x, w, splits=s.splits,
+                                        combine_dtype=s.combine_dtype)
+
+    shapes = projections(cfg)
+    per_forward = dict(zip(shapes, (2 * L, 2 * L, 2 * L, L, 1)))
+    table, spreads = {}, []
+    for K, N in shapes:
+        w = (torch.randn((K, N), generator=g, device=DEV) * K ** -0.5).to(bf)
+        for m in sorted({m for _, m in runs}):
+            x = torch.randn((m, K), generator=g, device=DEV).to(bf)
+            kinds = [kind for kind, mm in runs if mm == m]
+            lib = [time_ms(torch, lambda: torch.matmul(x, w), flush=flush)]
+            first = {kd: time_ms(torch, lambda: kernel(kd, m)(x, w), flush=flush)
+                     for kd in kinds}
+            second = {kd: time_ms(torch, lambda: kernel(kd, m)(x, w), flush=flush)
+                      for kd in reversed(kinds)}
+            lib.append(time_ms(torch, lambda: torch.matmul(x, w), flush=flush))
+            lib_ms = sum(lib) / 2
+            b_ms, _ = gemm_bound(m, K, N)
+            for kd in kinds:
+                ms = (first[kd] + second[kd]) / 2
+                spread = abs(first[kd] - second[kd]) / ms
+                spreads.append(spread)
+                table[kd, m, K, N] = dict(ms=ms, library_ms=lib_ms, bound_ms=b_ms,
+                                          spread=spread)
+                log(f"[timings] gemm table {kd} M={m} ({K},{N}): {ms:.4f} ms "
+                    f"(readings {first[kd]:.4f}, {second[kd]:.4f}), torch.matmul "
+                    f"{lib_ms:.4f} ms ({lib[0]:.4f}, {lib[1]:.4f}): "
+                    f"{ms / lib_ms:.2f}x; bound {b_ms:.4f} ms, "
+                    f"{100 * b_ms / ms:.0f}% of it")
+        del w
+    log(f"[timings] gemm table: two readings of 100 launches each differ by at "
+        f"most {100 * max(spreads):.1f}% (median "
+        f"{100 * sorted(spreads)[len(spreads) // 2]:.1f}%)")
+    forward = {}
+    for (kd, m), what in runs.items():
+        rows = {(K, N): table[kd, m, K, N] for K, N in shapes}
+        tot = {key: sum(per_forward[kn] * r[key] for kn, r in rows.items())
+               for key in ("ms", "library_ms", "bound_ms")}
+        forward[f"{kd} M={m}"] = tot
+        log(f"[timings] GEMM device time per forward, {kd} M={m} ({what}): "
+            f"{tot['ms']:.3f} ms, torch.matmul {tot['library_ms']:.3f} ms "
+            f"({tot['ms'] / tot['library_ms']:.2f}x), bytes bound "
+            f"{tot['bound_ms']:.3f} ms ({100 * tot['bound_ms'] / tot['ms']:.0f}% of it)")
+    log("[timings] gemm_table " + json.dumps({
+        "per_forward": forward,
+        "rows": [dict(kernel=kd, M=m, K=K, N=N, **r) for (kd, m, K, N), r in table.items()],
+    }))
+
+
+def time_gemm_host(torch, cfg, passes=6) -> None:
+    """Host time per GEMM call as a forward issues them: one call on each of
+    a forward's 225 distinct weights ((4096, 1024) bf16, the narrowest
+    projection, so that the device keeps up) at M = 8, with no
+    synchronisation inside a pass, so a pass's host clock reads the
+    wrapper's path (checks, allocations, tensor maps, the ctypes call, the
+    launches) and not the device.  Commit GEMM, split-K GEMM and
+    ``torch.matmul`` take passes in turns; each figure is the median of all
+    passes but the first (which encodes the weights' tensor maps)."""
+    from repro_torch.core.determinism import CANONICAL_TP_SHARDS
+    from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
+    from repro_torch.kernels.gemm_splitk import gemm_splitk
+
+    g = torch.Generator(device=DEV).manual_seed(12)
+    bf, D, n = torch.bfloat16, cfg.d_model, 7 * cfg.num_layers + 1
+    ws = [(torch.randn((D, 1024), generator=g, device=DEV) * D ** -0.5).to(bf)
+          for _ in range(n)]
+    x = torch.randn((8, D), generator=g, device=DEV).to(bf)
+    fns = {"gemm_batch_invariant": lambda w: gemm_batch_invariant(
+               x, w, chunks=CANONICAL_TP_SHARDS),
+           "gemm_splitk": lambda w: gemm_splitk(x, w, splits=4, combine_dtype="bfloat16"),
+           "torch.matmul": lambda w: torch.matmul(x, w)}
+    readings = {name: [] for name in fns}
+    for _ in range(passes):
+        for name, fn in fns.items():
+            sync(torch)
+            t0 = time.perf_counter()
+            for w in ws:
+                fn(w)
+            readings[name].append((time.perf_counter() - t0) / n * 1e6)
+    sync(torch)
+    host_us = {name: sorted(r[1:])[(len(r) - 1) // 2] for name, r in readings.items()}
+    log(f"[timings] host time per GEMM call ({n} weights of ({D},1024) bf16, M=8, "
+        f"median of {passes - 1} passes): " + ", ".join(
+            f"{name} {us:.2f} us" for name, us in host_us.items()))
+    log("[timings] gemm_host_us " + json.dumps(host_us))
 
 
 def time_decode_attention(torch, cfg, results, flush) -> None:

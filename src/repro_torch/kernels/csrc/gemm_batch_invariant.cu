@@ -9,18 +9,22 @@
 // function for any chunk count: `chunks` = 1 is the Pallas kernel,
 // `chunks` = 4 the commit path.
 //
-// Pass 1 (gemm_tile.cuh): one CTA per (N tile, M tile, chunk) writes the
-// chunk's f32 partial; each output element is one sequential fmaf chain
-// over its chunk, so a row's bits do not depend on M or on the other rows.
+// Pass 1 (gemm_tile.cuh): one CTA per (M tile, N tile, chunk) writes the
+// chunk's f32 partial.  bf16 operands run on the tensor cores (wgmma fed by
+// a TMA ring, batch padded to the instruction's literal N = 32); f32
+// operands on the CUDA cores (one fmaf chain per element).  Either way each
+// output element's chunk sum is one f32 accumulator walked over the chunk in
+// a fixed order, with one instruction path per dtype for every M, so a row's
+// bits do not depend on M or on the other rows.
 // Pass 2 (below): the balanced-tree combine in f32, in tree_combine's
 // association, then one rounding to the output dtype.
 //
 // Bound on this card: at the verify/decode batch (M <= 32) the weight read
-// (K*N*2 bytes in bf16) dominates; at larger M the f32 products on the CUDA
-// cores do.  The design reads bf16 weights once per chunk tile and converts
-// in registers (no f32 weight copy), and spreads the K chunks over CTAs so
-// that a narrow verify GEMM still fills the SMs.  The chunk count is the
-// fixed canonical tree, never a function of M: this is not split-K.
+// (K*N*2 bytes in bf16) bounds the call.  The tensor-core tile keeps six
+// 8 KB weight tiles in flight per CTA and several CTAs per SM, and the K
+// chunks multiply the CTAs so that a narrow projection still spreads over
+// the SMs.  The chunk count is the fixed canonical tree, never a function of
+// M: this is not split-K.
 #include "gemm_tile.cuh"
 
 namespace {

@@ -8,11 +8,13 @@
 // _split_sizes(K, splits), so a K that `splits` does not divide is cut
 // unevenly, as repro/core/determinism.py::matmul does on the model path.
 //
-// Pass 1 (gemm_tile.cuh): one CTA per (N tile, M tile, split) writes that
-// split's f32 partial.  Pass 2 (below): one thread per output element folds
-// the partials in split order with the combine-dtype rounding.  No atomics:
-// the reduction tree is the split count and nothing else, which is exactly
-// the batch-dependent schedule the fast path is licensed to vary.
+// Pass 1 (gemm_tile.cuh): one CTA per (M tile, N tile, split) writes that
+// split's f32 partial, on the commit GEMM's tiles (tensor cores fed by TMA
+// for bf16, CUDA cores for f32): one design to maintain.  Pass 2 (below):
+// one thread per output element folds the partials in split order with the
+// combine-dtype rounding.  No atomics: the reduction tree is the split count
+// and nothing else, which is exactly the batch-dependent schedule the fast
+// path is licensed to vary.
 //
 // Bound on this card: the decode batch is M = 1..8, so the weight read
 // (K*N*2 bytes) bounds the call; the splits multiply the CTAs in flight so

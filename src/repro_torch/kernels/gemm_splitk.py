@@ -11,8 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref
-
-_DTYPES = (torch.bfloat16, torch.float32)
+from repro_torch.kernels.gemm_batch_invariant import check_operands
 
 
 def gemm_splitk(x: torch.Tensor, w: torch.Tensor, *, splits: int,
@@ -22,22 +21,15 @@ def gemm_splitk(x: torch.Tensor, w: torch.Tensor, *, splits: int,
     ``combine_dtype``."""
     if x.device.type == "cpu":
         return ref.gemm_splitk(x, w, splits, combine_dtype)
+    check_operands("gemm_splitk", x, w)
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"gemm_splitk: x on {x.device}, w on {w.device}")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
-        raise TypeError(f"gemm_splitk: dtypes {x.dtype}, {w.dtype}")
-    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
-        raise ValueError(f"gemm_splitk: shapes {x.shape} @ {w.shape}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("gemm_splitk: operands must be contiguous")
     if combine_dtype not in build.DTYPE_CODES:
         raise ValueError(f"gemm_splitk: combine_dtype {combine_dtype!r}")
     M, K = x.shape
     N = w.shape[1]
-    vec = 16 // w.element_size()
-    if N % vec or not 1 <= splits <= K:
-        raise ValueError(f"gemm_splitk: N={N} (multiple of {vec}), "
-                         f"splits={splits} (1..K={K})")
+    if not 1 <= splits <= K:
+        raise ValueError(f"gemm_splitk: splits={splits} (1..K={K})")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out

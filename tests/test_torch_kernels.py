@@ -22,6 +22,13 @@ plain version, which these tests hold against the JAX reference:
   f32, D = 256 bf16, with and without a residual): 2 ulps of max|out| in
   the output dtype (the mean over D is summed in another order).
 
+The GEMMs' host side and sources, which the CPU can check: the operand
+rules of the tiles (bf16 through TMA: K and N multiples of 8, 16-byte
+aligned bases; f32: N a multiple of 4) and that both wrappers apply them
+before the device check; every ``build.ENTRY_POINTS`` argtype list against
+its ``extern "C"`` signature; and a lint of the commit GEMM's sources (no
+atomics; tile, K-step, ring and wgmma shapes as constexpr literals).
+
 Plus the package-level contracts: no JAX and no ``repro`` import anywhere
 in the port or ``chip_smoke.py``, ``import repro_torch`` with JAX unimportable,
 the host-side copies equal to their originals but for import lines, and
@@ -191,6 +198,162 @@ def test_wrappers_never_fall_back():
         decode_attention(q, kv, kv, torch.empty(2, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError):
         rmsnorm(x, torch.empty(8, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# the GEMMs' host side and sources (the CUDA kernels run only on the card)
+# ---------------------------------------------------------------------------
+
+
+def _bf16(*shape, dtype=torch.bfloat16, device="cpu"):
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("x,w,error", [
+    (_bf16(3, 16), _bf16(16, 24), None),
+    (_bf16(3, 12, dtype=torch.float32), _bf16(12, 20, dtype=torch.float32), None),
+    (_bf16(3, 12), _bf16(12, 24), "K=12"),  # bf16 rows must be 16-byte strides
+    (_bf16(3, 16), _bf16(16, 20), "N=20"),
+    (_bf16(3, 12, dtype=torch.float32), _bf16(12, 6, dtype=torch.float32), "N=6"),
+    (_bf16(100)[1:49].view(3, 16), _bf16(16, 24), "aligned"),  # base 2 bytes off
+    (_bf16(3, 16), _bf16(400)[8:392].view(16, 24), None),  # base 16 bytes off
+    (_bf16(3, 16), _bf16(400)[4:388].view(16, 24), "aligned"),
+    (_bf16(3, 16), _bf16(16, 24, dtype=torch.float32), "dtypes"),
+    (_bf16(3, 16), _bf16(24, 16).t(), "contiguous"),
+    (_bf16(3, 16), _bf16(8, 24), "shapes"),
+    (_bf16(3, 12, dtype=torch.float32),  # w's base 4 bytes off
+     _bf16(300, dtype=torch.float32)[1:241].view(12, 20), "aligned"),
+    (_bf16(100, dtype=torch.float32)[1:37].view(3, 12),  # x is read by element
+     _bf16(12, 20, dtype=torch.float32), None),
+], ids=["bf16", "f32", "bf16-K", "bf16-N", "f32-N", "x-misaligned", "w-16B-offset",
+        "w-misaligned", "dtype-mismatch", "non-contiguous", "shape-mismatch",
+        "f32-w-misaligned", "f32-x-offset"])
+def test_gemm_check_operands(x, w, error):
+    """What the GEMM tiles take: bf16 through TMA needs K and N multiples of
+    8 and 16-byte-aligned bases; f32 loads w in 16-byte vectors (N a
+    multiple of 4, an aligned base) and x by element."""
+    from repro_torch.kernels.gemm_batch_invariant import check_operands
+
+    if error is None:
+        check_operands("gemm", x, w)
+    else:
+        with pytest.raises((ValueError, TypeError), match=error):
+            check_operands("gemm", x, w)
+
+
+@pytest.mark.parametrize("k,n,error", [(12, 24, "K=12"), (16, 20, "N=20"), (16, 24, "meta")])
+def test_gemm_wrappers_refuse_shapes_before_launch(k, n, error):
+    """Off the CPU both wrappers check the operands first and then the
+    device: a K or N the tiles do not take raises, and so does a tensor
+    that is not on a card; neither falls back to the plain version."""
+    x, w = _bf16(3, k, device="meta"), _bf16(k, n, device="meta")
+    with pytest.raises(ValueError, match=error):
+        gemm_batch_invariant(x, w, chunks=4)
+    with pytest.raises(ValueError, match=error):
+        gemm_splitk(x, w, splits=4)
+
+
+CSRC = PORT / "kernels" / "csrc"
+
+
+def _strip_comments(text: str) -> str:
+    import re
+
+    return re.sub(r"//[^\n]*|/\*.*?\*/", "", text, flags=re.S)
+
+
+def _with_headers(name: str):
+    """A source and, recursively, the local headers it includes."""
+    import re
+
+    seen, todo = [], [name]
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen.append(f)
+        todo += re.findall(r'#include "([^"]+)"', (CSRC / f).read_text())
+    return seen
+
+
+def _c_entry_points(stem: str):
+    """``extern "C"`` functions of a kernel library: name -> argument
+    types, parsed from its source and the headers it includes."""
+    import re
+
+    out = {}
+    for f in _with_headers(f"{stem}.cu"):
+        text = _strip_comments((CSRC / f).read_text())
+        for name, args in re.findall(r'extern "C"[^(]*?(\w+)\s*\(([^)]*)\)', text):
+            out[name] = [a.strip() for a in args.split(",") if a.strip()]
+    return out
+
+
+def _entry_point_cases():
+    from repro_torch.kernels import build
+
+    return [(stem, name) for stem, fns in build.ENTRY_POINTS.items() for name in fns]
+
+
+@pytest.mark.parametrize("stem,name", _entry_point_cases())
+def test_entry_points_match_c_signatures(stem, name):
+    """ctypes passes each argument as its declared type: a pointer declared
+    as an int would be cut to 32 bits without a word.  Each entry point's
+    argtypes must match its ``extern "C"`` signature in count and kind."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    args = _c_entry_points(stem)[name]
+    kinds = [ctypes.c_void_p if "*" in a else ctypes.c_float if a.startswith("float")
+             else ctypes.c_int for a in args]
+    assert build.ENTRY_POINTS[stem][name] == kinds, (args, build.ENTRY_POINTS[stem][name])
+
+
+def test_every_c_entry_point_is_declared():
+    from repro_torch.kernels import build
+
+    for stem, fns in build.ENTRY_POINTS.items():
+        assert set(_c_entry_points(stem)) - {"repro_error_string"} == set(fns), stem
+
+
+@pytest.mark.parametrize("source", _with_headers("gemm_batch_invariant.cu"))
+def test_commit_gemm_sources_have_no_atomics(source):
+    """The commit path's rules: no atomics anywhere in the commit GEMM or
+    the headers it includes (comments aside)."""
+    assert "atomic" not in _strip_comments((CSRC / source).read_text()).lower()
+
+
+def test_commit_gemm_tiles_are_literal():
+    """Tile sizes, the K step, the ring depth and the wgmma instruction
+    shape are constexpr literals (nothing can be chosen from M), and the
+    instruction in the source is the one the constants describe: M = the
+    tile's 64 output columns, N = its 32 batch rows, K = 16."""
+    import re
+
+    text = _strip_comments((CSRC / "gemm_tile.cuh").read_text())
+    consts = dict(re.findall(r"constexpr int (\w+) = (\w+);", text))
+    for name in ("TC_BN", "TC_BM", "TC_BK", "TC_MMA_K", "TC_STAGES", "TC_CONSUMERS",
+                 "BM", "BN", "BK", "THREADS"):
+        assert consts.get(name, "").isdigit(), (name, consts.get(name))
+    shapes = set(re.findall(r"wgmma\.mma_async\.sync\.aligned\.(m\d+n\d+k\d+)", text))
+    assert shapes == {f"m{consts['TC_BN']}n{consts['TC_BM']}k{consts['TC_MMA_K']}"}
+    # the batch never picks the tile: M enters the launch only as a count of tiles
+    launch = text[text.index("launch_partials<__nv_bfloat16>"):]
+    assert "dim3 grid((M + TC_BM - 1) / TC_BM" in launch
+
+
+def test_gemm_weight_maps_cached_x_maps_per_call():
+    """Host cost per call: the bf16 launch takes the weight's tensor map from
+    the cache, keyed by all that the map encodes besides its fixed box (base,
+    K, N), and encodes x's map on every call."""
+    text = _strip_comments((CSRC / "gemm_tile.cuh").read_text())
+    launch = text[text.index("launch_partials<__nv_bfloat16>("):]
+    launch = launch[:launch.index("launch_partials<float>")]
+    assert "weight_map(w, K, N, &wmap)" in launch
+    assert "encode_bf16(x, M, K, TC_BM, &xmap)" in launch
+    assert "encode_bf16(w, K, N, TC_BK, &map)" in text
+    assert "ptr == o.ptr && rows == o.rows && cols == o.cols" in text
 
 
 # ---------------------------------------------------------------------------
