@@ -11,9 +11,13 @@ the main path) and the gathered lane (``paged_attention=False``):
            shared memory and spills per kernel, and the card's name and
            power limit;
 2. kernels hold each kernel against its plain PyTorch version at the main
-           path's shapes (tolerance printed), plus row invariance across M
-           (the commit GEMM at all five projection shapes and at an uneven
-           chunk cut) and B, bitwise repeatability of the commit kernels,
+           path's shapes (tolerance printed; the paged pair at the headline,
+           serve and default-reach shapes of ``paged_shapes``, a long
+           context and odd block sizes and widths), plus row invariance
+           across M (the commit GEMM at all five projection shapes and at an
+           uneven chunk cut) and B (the commit paged kernel for B in
+           {1, 3, 8, 13} at each shape, and the same bits at a 128- and a
+           2056-entry table), bitwise repeatability of the commit kernels,
            split and combine sensitivity of the fast kernels, and which
            GEMM partial tile each operand dtype runs (bf16: tensor cores,
            f32: CUDA cores; by kernel name in a profiler trace);
@@ -32,14 +36,17 @@ the main path) and the gathered lane (``paged_attention=False``):
            beside 3 and 6 neighbours, and the gathered lane's LLM42 streams
            equal to the paged lane's (NONDET divergence is printed);
 5. profile ``torch.profiler`` over a window of 4 iterations of the paged
-           LLM42 run: device time by kernel, the GEMMs' share, and the
-           device's busy share; then a short run of every lane and mode,
+           LLM42 run: device time by kernel, the GEMMs' and the paged
+           kernels' share, and the device's busy share; then a short run of
+           every lane and mode,
            whose GEMMs must all run the tensor-core tile (by kernel name);
 6. timings each kernel against its plain version and one PyTorch call,
            beside the least time the card could take (100 launches a
            reading); both GEMMs beside ``torch.matmul`` at every projection
            shape and serve-run M, their device time per forward, and the
-           host time per GEMM call.
+           host time per GEMM call; the timer's floor; the paged pair at
+           each of ``paged_shapes``, B = 64 and a long context; ``rmsnorm``
+           with no residual beside ``F.rms_norm`` (the same function).
 
 The line before the last is a JSON object describing every kernel
 (``launches`` sums the serve runs and the rmsnorm entry-point run,
@@ -50,6 +57,7 @@ is visible or when it runs outside a checkout of the repository.
 
     python3 chip_smoke.py                 # everything, one card
     python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py --phases build,timings
 """
 
 from __future__ import annotations
@@ -72,9 +80,15 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "serve", "determinism", "profile", "timings")
 
-#: per-request KV reach of the serve phase (128 blocks of 16); the engine's
-#: default, max_seq_len, would make every commit-kernel row walk 2056 blocks
+#: per-request KV reach of the serve phase (128 blocks of 16).  The paged
+#: kernels' cost no longer follows the reach (the timings phase times them
+#: at the engine's default, max_seq_len, too), but the gathered lane copies
+#: every row's whole view per pass and its dense decode kernel spans it, and
+#: the pool grows with the reach, so the serve runs keep this reach
 CAPACITY = 2048
+
+#: block size of the paged shapes (the engine's default)
+BLOCK = 16
 
 #: device clock cycles the timer sleeps before each timed launch (about
 #: 0.1 ms at the H100's 1.98 GHz boost clock)
@@ -189,14 +203,17 @@ def phase_build() -> None:
     log(f"[build] {len(logs)} sources compiled in "
         f"{time.perf_counter() - t0:.1f} s -> {build.BUILD_DIR} "
         f"({version[-1] if version else 'nvcc version unknown'})")
-    # ptxas -v for the GEMM partial tiles: registers, static shared memory,
-    # spill bytes (the tensor-core tile's ring is dynamic shared memory,
-    # TC_SMEM in gemm_tile.cuh)
+    # ptxas -v for the GEMM partial tiles and the paged kernels (bf16,
+    # D = 128): registers, static shared memory, stack and spill bytes (the
+    # rings are dynamic shared memory)
     for stem, text in logs.items():
         kernel, spills = None, ""
         for line in text.splitlines():
             if "Compiling entry function" in line:
                 found = re.search(r"(wgmma|fmaf)_partial_kernel", line)
+                if found is None and re.search(r"bfloat16Li4EE|merge_kernelILi4E", line):
+                    # the paged kernels at the main path's bf16, D = 128
+                    found = re.search(r"paged_(attention|split|merge)_kernel", line)
                 kernel = found.group(0) if found else None
             elif kernel and "spill" in line:
                 spills = line.strip()
@@ -238,6 +255,46 @@ def paged_inputs(torch, cfg, B, capacity, block_size, seed, min_ctx, max_ctx):
     return q, k, v, pos, tables, q_pos, ctx
 
 
+def widen(torch, inputs, nblk):
+    """The same rows with their tables padded with -1 to ``nblk``
+    entries: the same blocks at a longer table reach."""
+    q, k, v, pos, tables, q_pos, ctx = inputs
+    wide = torch.full((tables.shape[0], nblk), -1, dtype=torch.int32, device=DEV)
+    wide[:, : tables.shape[1]] = tables
+    return q, k, v, pos, wide, q_pos, ctx
+
+
+def paged_shapes(torch, cfg):
+    """The paged kernels' three shapes, B = 8, blocks of 16: ``headline``
+    (a 128-entry table, contexts in [512, 2048), the kernel table's shape),
+    ``serve`` (a 128-entry table, the serve phase's contexts: 32 prompt
+    tokens and up to 16 new ones) and ``default reach`` (the serve rows
+    with their tables at the engine's default capacity, cfg.max_seq_len: a
+    2056-entry table)."""
+    serve = paged_inputs(torch, cfg, 8, CAPACITY, BLOCK, seed=13, min_ctx=33, max_ctx=49)
+    return {
+        "headline": paged_inputs(torch, cfg, 8, CAPACITY, BLOCK, seed=3,
+                                 min_ctx=512, max_ctx=2048),
+        "serve": serve,
+        "default reach": widen(torch, serve, -(-cfg.max_seq_len // BLOCK)),
+    }
+
+
+def long_inputs(torch, cfg):
+    """B = 8 contexts in [8192, 16384) at the default reach: a fast-kernel
+    CTA holds more keys than its score buffer at any of FAST_PATH_POLICY's
+    split counts, so it reads K a second time."""
+    return paged_inputs(torch, cfg, 8, cfg.max_seq_len, BLOCK, seed=14,
+                        min_ctx=8192, max_ctx=16384)
+
+
+def wide_batch_inputs(torch, cfg):
+    """B = 64 rows with the headline's contexts: the batch at which
+    FAST_PATH_POLICY gives the fast kernel one split."""
+    return paged_inputs(torch, cfg, 64, CAPACITY, BLOCK, seed=16, min_ctx=512,
+                        max_ctx=2048)
+
+
 def decode_inputs(torch, B, S, H, KV, D, seed, min_len, max_len, dt=None):
     """q (B,H,D), dense k/v (B,S,KV,D) and lengths in [min_len, max_len)."""
     g = torch.Generator(device=DEV).manual_seed(seed)
@@ -272,15 +329,17 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attention_bound(cfg, q, ctx, block_size):
+def attention_bound(cfg, q, ctx, block_size, tables):
     """Bytes a paged decode must move: q, every valid key and value row,
-    the positions of the blocks it reads, the tables, the f32 output."""
+    the positions of the blocks it reads, the tables and q_pos, the f32
+    output."""
     B, H, D = q.shape
     KV = cfg.num_kv_heads
     n_valid = int(ctx.sum())
     n_blocks = int(sum(-(-int(c) // block_size) for c in ctx))
     nbytes = (q.numel() * 2 + n_valid * KV * D * 2 * 2
-              + n_blocks * block_size * 4 + B * 4 + q.numel() * 4)
+              + n_blocks * block_size * 4 + tables.numel() * 4 + B * 4
+              + q.numel() * 4)
     flops = 4.0 * n_valid * H * D
     return bound(nbytes, flops)
 
@@ -295,9 +354,6 @@ def phase_kernels(torch, cfg, results) -> None:
     from repro_torch.kernels import ref
     from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
     from repro_torch.kernels.gemm_splitk import gemm_splitk
-    from repro_torch.kernels.paged_attention import (
-        paged_attention, paged_attention_fast,
-    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=DEV).manual_seed(0)
@@ -392,36 +448,83 @@ def phase_kernels(torch, cfg, results) -> None:
     log(f"[kernels] gemm_splitk splits 1 vs 8 (bf16 combine) differ at "
         f"{int((one != eight).sum())} of {one.numel()} outputs")
 
-    # -- kernels 3 and 4: paged decode attention at capacity 2048
-    q, k, v, pos, tab, qp, ctx = paged_inputs(
-        torch, cfg, 8, 2048, 16, seed=1, min_ctx=1, max_ctx=2048)
-    out = paged_attention(q, k, v, pos, tab, qp)
-    want = ref.paged_attention(q, k, v, pos, tab, qp)
-    err = float((out - want).abs().max())
-    log(f"[kernels] paged_attention B=8 nblk=128 bs=16: max_abs_err {err:.3e} "
-        f"(tol {ATTN_TOL:g})")
-    require(err <= ATTN_TOL, "paged_attention disagrees with its plain version")
-    results["paged_attention"]["max_abs_err"] = err
-    sub = [5, 1, 6]
-    out_sub = paged_attention(q[sub].contiguous(), k, v, pos, tab[sub].contiguous(),
-                              qp[sub].contiguous())
-    require(torch.equal(out_sub, out[sub]), "paged_attention rows change with B")
-    require(torch.equal(out, paged_attention(q, k, v, pos, tab, qp)),
-            "paged_attention is not repeatable")
-    log("[kernels] paged_attention rows bitwise identical for B in {8,3}; repeatable")
-    worst = 0.0
-    outs, wants = {}, {}
-    for splits, cd in ((4, "bfloat16"), (8, "bfloat16"), (4, "float32")):
-        out = paged_attention_fast(q, k, v, pos, tab, qp, kv_splits=splits, combine_dtype=cd)
-        want = ref.paged_attention_fast(q, k, v, pos, tab, qp, kv_splits=splits, combine_dtype=cd)
+    check_paged_attention(torch, cfg, results)
+    check_decode_attention(torch, cfg, results)
+    check_rmsnorm(torch, cfg, results)
+
+
+#: rows of the 8 at which the commit paged kernel's rows must keep their
+#: bits: B = 1, 3 and 13 (the 8, then rows 0-4 again with their own tables
+#: and q)
+PAGED_ROWS = ((5,), (5, 1, 6), tuple(range(8)) + (0, 1, 2, 3, 4))
+
+#: the fast paged kernel's (kv_splits, combine) cases at every shape
+FAST_CASES = ((4, "bfloat16"), (8, "bfloat16"), (4, "float32"))
+
+
+def check_paged_attention(torch, cfg, results) -> None:
+    """Kernels 3 and 4 at each of ``paged_shapes``, a long context and odd
+    block sizes, widths and head groups, against their plain versions; the
+    commit kernel's rows bitwise identical for B in {1, 3, 8, 13}, across
+    launches, and at a 128- and a 2056-entry table; the fast kernel's split
+    and combine sensitivity at the headline shape."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_fast
+
+    def commit_case(label, inp):
+        q, k, v, pos, tab, qp, ctx = inp
+        out = paged_attention(q, k, v, pos, tab, qp)
+        want = ref.paged_attention(q, k, v, pos, tab, qp)
+        err = float((out - want).abs().max())
+        log(f"[kernels] paged_attention {label}: B={q.shape[0]} nblk={tab.shape[1]} "
+            f"bs={k.shape[1]} H={q.shape[1]} KV={k.shape[2]} D={q.shape[2]} "
+            f"{str(q.dtype)[6:]}, {int(ctx.sum())} keys: max_abs_err {err:.3e} "
+            f"(tol {ATTN_TOL:g})")
+        require(err <= ATTN_TOL, f"paged_attention disagrees with its plain version ({label})")
+        return out, err
+
+    def fast_case(label, inp, splits, cd):
+        out = paged_attention_fast(*inp[:6], kv_splits=splits, combine_dtype=cd)
+        want = ref.paged_attention_fast(*inp[:6], kv_splits=splits, combine_dtype=cd)
         err = float((out - want).abs().max())
         tol = FAST_ATTN_TOL[cd]
-        log(f"[kernels] paged_attention_fast kv_splits={splits} {cd}: "
+        log(f"[kernels] paged_attention_fast {label} kv_splits={splits} {cd}: "
             f"max_abs_err {err:.3e} (tol {tol:g})")
-        require(err <= tol, "paged_attention_fast disagrees with its plain version")
+        require(err <= tol, f"paged_attention_fast disagrees with its plain version ({label})")
+        return out, want, err
+
+    worst = worst_fast = 0.0
+    shapes = paged_shapes(torch, cfg)
+    commit_out = {}
+    for label, inp in shapes.items():
+        out, err = commit_case(label, inp)
         worst = max(worst, err)
-        outs[splits, cd], wants[splits, cd] = out, want
-    results["paged_attention_fast"]["max_abs_err"] = worst
+        commit_out[label] = out
+        q, k, v, pos, tab, qp, _ = inp
+        for rows in PAGED_ROWS:
+            sel = torch.tensor(rows, device=DEV)
+            part = paged_attention(q[sel].contiguous(), k, v, pos, tab[sel].contiguous(),
+                                   qp[sel].contiguous())
+            require(torch.equal(part, out[sel]),
+                    f"paged_attention rows change at B={len(rows)} ({label})")
+        require(torch.equal(out, paged_attention(q, k, v, pos, tab, qp)),
+                f"paged_attention is not repeatable ({label})")
+        log(f"[kernels] paged_attention {label}: rows bitwise identical for B in "
+            f"{{1,3,8,13}}; repeatable")
+        for splits, cd in FAST_CASES:
+            worst_fast = max(worst_fast, fast_case(label, inp, splits, cd)[2])
+    require(torch.equal(commit_out["serve"], commit_out["default reach"]),
+            "paged_attention rows change with the table reach")
+    log("[kernels] paged_attention serve rows bitwise identical at a 128- and a "
+        "2056-entry table")
+
+    # split and combine sensitivity at the headline shape, and one split
+    # (the B >= 64 case)
+    head = shapes["headline"]
+    outs, wants = {}, {}
+    for splits, cd in FAST_CASES + ((1, "bfloat16"), (1, "float32")):
+        outs[splits, cd], wants[splits, cd], err = fast_case("headline", head, splits, cd)
+        worst_fast = max(worst_fast, err)
     # the bf16 rounding of e is the TPU kernel's defining rounding point: in
     # every row the kernel's bf16-combine output must sit far closer to the
     # plain bf16 version than the plain bf16 and f32 versions sit apart
@@ -437,14 +540,35 @@ def phase_kernels(torch, cfg, results) -> None:
         f"versions {float(gap_row.min()):.3e}..{float(gap_row.max()):.3e} apart "
         f"per row; kernel-to-plain error at most {ratio:.3f} of that gap (limit 0.25)")
     require(ratio <= 0.25, "paged_attention_fast does not round e to the combine dtype")
-    one = paged_attention_fast(q, k, v, pos, tab, qp, kv_splits=1, combine_dtype="bfloat16")
-    four = outs[4, "bfloat16"]
+    one, four = outs[1, "bfloat16"], outs[4, "bfloat16"]
     require(not torch.equal(one, four), "paged_attention_fast: kv_splits 1 and 4 agree")
     log(f"[kernels] paged_attention_fast kv_splits 1 vs 4 (bf16 combine) differ "
         f"at {int((one != four).sum())} of {one.numel()} outputs")
+    del shapes, head, outs, wants, commit_out
 
-    check_decode_attention(torch, cfg, results)
-    check_rmsnorm(torch, cfg, results)
+    # a long context: a fast-kernel CTA's keys exceed its score buffer (K
+    # read twice)
+    inp = long_inputs(torch, cfg)
+    worst = max(worst, commit_case("long", inp)[1])
+    for splits, cd in ((1, "bfloat16"), (1, "float32"), (4, "bfloat16")):
+        worst_fast = max(worst_fast, fast_case("long", inp, splits, cd)[2])
+    del inp
+
+    # odd shapes: one-key blocks (a table slice of several compaction
+    # windows, f32 pools, D = 64, G = 4), and 24-key blocks (a block of two
+    # tiles, the second partial; bf16, D = 96, G = 6)
+    for label, sub, B, cap, bs, lo, hi, splits in (
+            ("bs=1", dict(num_heads=8, num_kv_heads=2, head_dim=64, dtype="float32"),
+             2, 12000, 1, 2000, 12000, 2),
+            ("bs=24", dict(num_heads=24, num_kv_heads=4, head_dim=96), 3, 600, 24, 1, 600, 5)):
+        small = dataclasses.replace(cfg, **sub)
+        inp = paged_inputs(torch, small, B, cap, bs, seed=15, min_ctx=lo, max_ctx=hi)
+        worst = max(worst, commit_case(label, inp)[1])
+        for sp, cd in ((1, "bfloat16"), (splits, "bfloat16"), (splits, "float32")):
+            worst_fast = max(worst_fast, fast_case(label, inp, sp, cd)[2])
+        del inp
+    results["paged_attention"]["max_abs_err"] = worst
+    results["paged_attention_fast"]["max_abs_err"] = worst_fast
 
 
 #: batch sizes at which the commit GEMM's rows must keep their bits
@@ -477,20 +601,22 @@ def commit_rows_invariant(torch, gemm, xb, w, chunks) -> None:
 TENSOR_CORE_TILE, CUDA_CORE_TILE = "wgmma_partial_kernel", "fmaf_partial_kernel"
 
 
-def gemm_tiles_run(torch, fn):
-    """The GEMM partial tiles that ``fn()`` launched, by kernel name in a
-    ``torch.profiler`` trace of the card's activity alone (no host ops, so
-    a short serve run's trace sums in seconds)."""
+def gemm_tiles_run(torch, fn, calls=1):
+    """The GEMM partial tiles that ``calls`` calls of ``fn()`` launched, by
+    kernel name in a ``torch.profiler`` trace of the card's activity alone
+    (no host ops, so a short serve run's trace sums in seconds), and the
+    names of every kernel the trace holds."""
     from torch.profiler import ProfilerActivity, profile
 
     sync(torch)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         sync(torch)
-    names = [e.key for e in prof.key_averages()]
+    names = sorted({e.key for e in prof.key_averages()})
     require(names, "the profiler saw no activity on the card")
     return {tile for tile in (TENSOR_CORE_TILE, CUDA_CORE_TILE)
-            if any(tile in name for name in names)}
+            if any(tile in name for name in names)}, names
 
 
 def check_gemm_tiles(torch, rnd, D) -> None:
@@ -503,9 +629,12 @@ def check_gemm_tiles(torch, rnd, D) -> None:
         x, w = rnd(8, D).to(dt), rnd(D, 1024).to(dt)
         for name, fn in (("gemm_batch_invariant", lambda: gemm_batch_invariant(x, w, chunks=4)),
                          ("gemm_splitk", lambda: gemm_splitk(x, w, splits=4))):
-            ran = gemm_tiles_run(torch, fn)
+            # three calls: one trace of a single f32 call once held no
+            # partial tile at all (the trace, not the GEMM, missed it)
+            ran, names = gemm_tiles_run(torch, fn, calls=3)
             log(f"[kernels] {name}, {str(dt)[6:]} operands: partial tiles run {sorted(ran)}")
-            require(ran == {tile}, f"{name}: {str(dt)[6:]} operands did not run only {tile}")
+            require(ran == {tile}, f"{name}: {str(dt)[6:]} operands did not run only "
+                                   f"{tile}; the trace holds {names}")
 
 
 def rows_invariant(torch, fn, inputs, name):
@@ -915,6 +1044,8 @@ def phase_profile(torch, cfg, params, capacity, summary, warm=4, active=4) -> No
     costs about 5 s an iteration, which bounds the window.  Then a short
     run of every lane and mode under a trace of the card alone, whose
     GEMMs must all run the tensor-core tile."""
+    import re
+
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.determinism import Mode
@@ -958,6 +1089,17 @@ def phase_profile(torch, cfg, params, capacity, summary, warm=4, active=4) -> No
             f"{k} {ms:.1f} ms / {n} launches" for k, (ms, n) in gemm.items()))
     require("wgmma_partial_kernel" in gemm and "fmaf_partial_kernel" not in gemm,
             "the profiled window's bf16 GEMMs did not run only the tensor-core tile")
+    # the paged attention kernels' device time, by kernel name
+    paged = {}
+    for e in averages:
+        found = re.search(r"paged_(attention|split|merge)_kernel", e.key)
+        if found and e.self_device_time_total > 0:
+            ms, n = paged.get(found.group(0), (0.0, 0))
+            paged[found.group(0)] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    paged_ms = sum(ms for ms, _ in paged.values())
+    log(f"[profile] paged attention device time in the window {paged_ms:.2f} ms: "
+        + ", ".join(f"{k} {ms:.2f} ms / {n} launches ({1e3 * ms / n:.1f} us each)"
+                    for k, (ms, n) in sorted(paged.items())))
     for e in rows[:20]:
         log(f"[profile] {e.device_time_total / 1e3:10.1f} ms device "
             f"{e.cpu_time_total / 1e3:10.1f} ms cpu {e.count:7d}x  {e.key[:90]}")
@@ -970,7 +1112,7 @@ def phase_profile(torch, cfg, params, capacity, summary, warm=4, active=4) -> No
         walls = [ev["wall"] for ev in events if ev["kind"] == kind]
         log(f"[profile] engine {kind}: {len(walls)} passes, {sum(walls):.3f} s wall")
     summary["profile"] = {"iterations": active, "wall_s": wall, "device_busy_s": busy,
-                          "gemm_device_ms": gemm_ms}
+                          "gemm_device_ms": gemm_ms, "paged_device_ms": paged_ms}
     # every lane and mode: a short run's GEMMs by kernel name, all on the
     # tensor-core tile (a prefill and a decode pass each; summing a trace
     # costs seconds an iteration, so the runs are short)
@@ -979,11 +1121,12 @@ def phase_profile(torch, cfg, params, capacity, summary, warm=4, active=4) -> No
             eng = Engine(cfg, params, mode=mode, capacity=capacity, paged_attention=paged)
             for r in build_requests(cfg, 2, det_ratio=0.5, max_out=2, seed=0):
                 eng.submit(r)
-            ran = gemm_tiles_run(torch, eng.run)
+            ran, names = gemm_tiles_run(torch, eng.run)
             log(f"[profile] {lane}/{mode.value}, 2 requests x 2 new tokens: GEMM "
                 f"partial tiles run {sorted(ran)}")
             require(ran == {TENSOR_CORE_TILE},
-                    f"{lane}/{mode.value}: bf16 GEMMs did not run only the tensor-core tile")
+                    f"{lane}/{mode.value}: bf16 GEMMs did not run only the tensor-core "
+                    f"tile; the trace holds {names}")
             del eng
 
 
@@ -1034,9 +1177,6 @@ def phase_timings(torch, cfg, results) -> None:
     from repro_torch.kernels import ref
     from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
     from repro_torch.kernels.gemm_splitk import gemm_splitk
-    from repro_torch.kernels.paged_attention import (
-        paged_attention, paged_attention_fast,
-    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=DEV).manual_seed(2)
@@ -1077,28 +1217,10 @@ def phase_timings(torch, cfg, results) -> None:
              "splits=4 bf16 combine")
     time_gemm_table(torch, cfg, flush)
     time_gemm_host(torch, cfg)
-    q, k, v, pos, tab, qp, ctx = paged_inputs(
-        torch, cfg, 8, 2048, 16, seed=3, min_ctx=512, max_ctx=2048)
-    b_ms, b_by = attention_bound(cfg, q, ctx, 16)
-    for name, kern, plain, extra in (
-        ("paged_attention",
-         lambda: paged_attention(q, k, v, pos, tab, qp),
-         lambda: ref.paged_attention(q, k, v, pos, tab, qp), ""),
-        ("paged_attention_fast",
-         lambda: paged_attention_fast(q, k, v, pos, tab, qp, kv_splits=4,
-                                      combine_dtype="bfloat16"),
-         lambda: ref.paged_attention_fast(q, k, v, pos, tab, qp, kv_splits=4,
-                                          combine_dtype="bfloat16"),
-         "kv_splits=4 bf16 combine"),
-    ):
-        ms = time_ms(torch, kern, flush=flush)
-        plain_ms = time_ms(torch, plain, reps=5, flush=flush)
-        results[name].update(ms=ms, plain_ms=plain_ms, library_ms=None,
-                             bound_ms=b_ms, bound_by=b_by,
-                             shape=f"B=8 nblk=128 bs=16 ctx {int(ctx.sum())} keys {extra}")
-        log(f"[timings] {name} B=8, {int(ctx.sum())} keys {extra}: {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no single "
-            f"PyTorch call reads K/V through a block table (library_ms null)")
+    tiny = torch.zeros(1, device=DEV)
+    log(f"[timings] timer floor: a one-element zero_ reads "
+        f"{time_ms(torch, tiny.zero_, flush=flush):.4f} ms (launch and events)")
+    time_paged_attention(torch, cfg, results, flush)
     time_decode_attention(torch, cfg, results, flush)
     time_rmsnorm(torch, cfg, results, flush)
 
@@ -1217,6 +1339,60 @@ def time_gemm_host(torch, cfg, passes=6) -> None:
     log("[timings] gemm_host_us " + json.dumps(host_us))
 
 
+def time_paged_attention(torch, cfg, results, flush) -> None:
+    """Kernels 3 and 4 at each of ``paged_shapes``, B = 64 and the long
+    context, beside their plain versions and the bound of each shape: the
+    commit kernel, and the fast kernel at FAST_PATH_POLICY's schedule (bf16
+    combine; kv_splits 4 at B = 8, where the long context reads K twice,
+    and 1 at B = 64).  No single PyTorch call reads K/V through a block
+    table, so ``library_ms`` stays null.  The headline shape's numbers fill
+    the kernel's entry; every shape's go under ``shapes``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_fast
+
+    def commit(inp):
+        return (lambda: paged_attention(*inp[:6]),
+                lambda: ref.paged_attention(*inp[:6]))
+
+    def fast(inp, splits):
+        kw = dict(kv_splits=splits, combine_dtype="bfloat16")
+        return (lambda: paged_attention_fast(*inp[:6], **kw),
+                lambda: ref.paged_attention_fast(*inp[:6], **kw))
+
+    shapes = paged_shapes(torch, cfg)
+    cases = []
+    for label, inp in shapes.items():
+        cases += [("paged_attention", label, inp, commit(inp)),
+                  ("paged_attention_fast", label, inp, fast(inp, 4))]
+    for name, label, inp, (kern, plain) in cases:
+        time_paged_case(torch, cfg, results, flush, name, label, inp, kern, plain)
+    del shapes, cases
+    for label, make, splits in (("B=64", wide_batch_inputs, 1), ("long", long_inputs, 4)):
+        inp = make(torch, cfg)
+        time_paged_case(torch, cfg, results, flush, "paged_attention", label, inp,
+                        *commit(inp))
+        time_paged_case(torch, cfg, results, flush, "paged_attention_fast",
+                        f"{label}, kv_splits={splits}", inp, *fast(inp, splits))
+        del inp
+
+
+def time_paged_case(torch, cfg, results, flush, name, label, inp, kern, plain) -> None:
+    q, _, _, _, tab, _, ctx = inp
+    b_ms, b_by = attention_bound(cfg, q, ctx, BLOCK, tab)
+    ms = time_ms(torch, kern, flush=flush)
+    plain_ms = time_ms(torch, plain, reps=5, flush=flush)
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               keys=int(ctx.sum()), nblk=int(tab.shape[1]))
+    results[name].setdefault("shapes", {})[label] = row
+    if label == "headline":
+        results[name].update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                             bound_by=b_by)
+    log(f"[timings] {name} {label}: B={q.shape[0]}, nblk={tab.shape[1]}, "
+        f"{int(ctx.sum())} keys: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.1f}% of it); no single PyTorch "
+        f"call reads K/V through a block table (library_ms null)")
+
+
 def time_decode_attention(torch, cfg, results, flush) -> None:
     """Kernel 5 at the gathered lane's decode shape: B = 8 rows over a
     2048-slot view with the serve phase's lengths (32 prompt tokens plus
@@ -1252,8 +1428,10 @@ def time_decode_attention(torch, cfg, results, flush) -> None:
 
 
 def time_rmsnorm(torch, cfg, results, flush) -> None:
-    """Kernel 6 at (32, 4096) and (256, 4096) bf16 with a residual; the
-    yardstick is ``F.rms_norm`` on the same x (no residual add)."""
+    """Kernel 6 at (32, 4096) and (256, 4096) bf16 without a residual,
+    beside ``F.rms_norm`` on the same x and scale (the same function: the
+    kernel's entry then fills ``library_ms``), and with a residual (the
+    fused add, which no single PyTorch call computes)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -1266,15 +1444,23 @@ def time_rmsnorm(torch, cfg, results, flush) -> None:
         x = torch.randn((M, D), generator=g, device=DEV).to(torch.bfloat16)
         r = torch.randn((M, D), generator=g, device=DEV).to(torch.bfloat16)
         sc = torch.randn((D,), generator=g, device=DEV).to(torch.bfloat16)
-        ms = time_ms(torch, lambda: rmsnorm(x, sc, r, eps=cfg.norm_eps), flush=flush)
-        plain_ms = time_ms(torch, lambda: ref.rmsnorm(x, sc, cfg.norm_eps, r), flush=flush)
-        lib_ms = time_ms(torch, lambda: F.rms_norm(x, (D,), sc, cfg.norm_eps), flush=flush)
-        b_ms, b_by = bound(3 * M * D * 2 + D * 2, 4.0 * M * D)
+        # kernel, library, library, kernel
+        k1 = time_ms(torch, lambda: rmsnorm(x, sc, eps=cfg.norm_eps), flush=flush)
+        l1 = time_ms(torch, lambda: F.rms_norm(x, (D,), sc, cfg.norm_eps), flush=flush)
+        l2 = time_ms(torch, lambda: F.rms_norm(x, (D,), sc, cfg.norm_eps), flush=flush)
+        k2 = time_ms(torch, lambda: rmsnorm(x, sc, eps=cfg.norm_eps), flush=flush)
+        ms, lib_ms = (k1 + k2) / 2, (l1 + l2) / 2
+        plain_ms = time_ms(torch, lambda: ref.rmsnorm(x, sc, cfg.norm_eps), flush=flush)
+        res_ms = time_ms(torch, lambda: rmsnorm(x, sc, r, eps=cfg.norm_eps), flush=flush)
+        b_ms, b_by = bound(2 * M * D * 2 + D * 2, 4.0 * M * D)
         by_m[M] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                       bound_by=b_by)
-        log(f"[timings] rmsnorm ({M},{D}) bf16 with residual: {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    results["rmsnorm"].update(**by_m[32], ms_256_rows=by_m[256]["ms"])
+                       bound_by=b_by, ms_with_residual=res_ms)
+        log(f"[timings] rmsnorm ({M},{D}) bf16 without residual: {ms:.4f} ms "
+            f"(readings {k1:.4f}, {k2:.4f}), F.rms_norm {lib_ms:.4f} ms ({l1:.4f}, "
+            f"{l2:.4f}): {ms / lib_ms:.2f}x; plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}); with residual {res_ms:.4f} ms")
+    results["rmsnorm"].update(**by_m[32], ms_256_rows=by_m[256]["ms"],
+                              library_ms_256_rows=by_m[256]["library_ms"])
 
 
 # ---------------------------------------------------------------------------
@@ -1349,7 +1535,8 @@ def main() -> int:
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
                            "launches_by_mode", "max_abs_err", "ms", "plain_ms",
                            "bound_ms", "bound_by", "library_ms", "ms_kv_splits_1",
-                           "plain_ms_kv_splits_1", "ms_256_rows")
+                           "plain_ms_kv_splits_1", "ms_256_rows", "library_ms_256_rows",
+                           "ms_with_residual", "shapes")
          if k in r} for r in results.values()
     ]}))
     log(json.dumps({"ok": True, "device": {

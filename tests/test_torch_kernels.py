@@ -29,6 +29,14 @@ before the device check; every ``build.ENTRY_POINTS`` argtype list against
 its ``extern "C"`` signature; and a lint of the commit GEMM's sources (no
 atomics; tile, K-step, ring and wgmma shapes as constexpr literals).
 
+The commit paged kernel the same way: a lint of its source (no atomics; its
+key-axis partition, tile and ring as constexpr literals; B in its launch
+only as the grid's row count), and a plain model of its fixed
+chunk-and-merge order (columns round-robin over the cluster's ranks, an
+online softmax per tile, the ranks merged in order) held within 1e-6 of
+``ref.paged_attention``: merging a rank with no valid key changes no bit,
+and a row's bits are the same alone and in a batch of 8.
+
 Plus the package-level contracts: no JAX and no ``repro`` import anywhere
 in the port or ``chip_smoke.py``, ``import repro_torch`` with JAX unimportable,
 the host-side copies equal to their originals but for import lines, and
@@ -454,6 +462,167 @@ def test_ops_paged_routing():
     assert torch.equal(ops.paged_attention(*problem, fast),
                        paged_attention_fast(*problem, kv_splits=4,
                                             combine_dtype="bfloat16"))
+
+
+# ---------------------------------------------------------------------------
+# the commit paged kernel's source and its chunk-and-merge order
+# ---------------------------------------------------------------------------
+
+
+def _paged_consts():
+    """The ``constexpr int`` constants of ``csrc/paged_attention.cu``."""
+    import re
+
+    text = _strip_comments((CSRC / "paged_attention.cu").read_text())
+    return dict(re.findall(r"constexpr int (\w+) = (\w+);", text))
+
+
+def _paged_source_part(start: str, end: str) -> str:
+    text = _strip_comments((CSRC / "paged_attention.cu").read_text())
+    body = text[text.index(start):]
+    return body[:body.index(end)]
+
+
+@pytest.mark.parametrize("source", _with_headers("paged_attention.cu"))
+def test_paged_sources_have_no_atomics(source):
+    """The commit path's rules: no atomics in the paged kernels' source or
+    the headers it includes (comments aside)."""
+    assert "atomic" not in _strip_comments((CSRC / source).read_text()).lower()
+
+
+def test_commit_paged_partition_is_literal():
+    """The commit kernel's key-axis partition (cluster size, columns per
+    chunk), its tile and its ring are constexpr integer literals, and the
+    kernel reads them, not anything that could follow B, kv_splits, the
+    contexts or the card."""
+    consts = _paged_consts()
+    for name in ("PA_CLUSTER", "PA_CHUNK_BLOCKS", "PA_TILE_KEYS", "PA_STAGES", "PA_WINDOW"):
+        assert consts.get(name, "").isdigit(), (name, consts.get(name))
+    kernel = _paged_source_part("paged_attention_kernel(const T*", "paged_split_kernel")
+    assert "__cluster_dims__(PA_CLUSTER, 1, 1)" in _paged_source_part(
+        "__global__ void __cluster_dims__(PA_CLUSTER",
+        "paged_attention_kernel(")
+    assert "PA_CLUSTER, PA_CHUNK_BLOCKS}" in kernel  # the slice of a rank
+    for word in ("gridDim", "splits", "combine", "clock", "smid"):
+        assert word not in kernel, word
+    # the merge: the ranks' max first, then the sums in rank order
+    assert "for (int c = 0; c < PA_CLUSTER; ++c) M = fmaxf(M, " in kernel
+    assert "float M = -1e30f;" in kernel
+    assert "Lsum += p[1] * wc;" in kernel
+
+
+def test_commit_paged_launch_takes_b_as_a_count_of_rows():
+    """B enters the commit launch only as the grid's row axis."""
+    import re
+
+    launch = _paged_source_part("cudaError_t launch_commit(", "cudaError_t launch_fast(")
+    assert "dim3(PA_CLUSTER, a.KV, B)" in launch
+    uses = re.findall(r"\bB\b", launch)
+    assert len(uses) == 2, uses  # the parameter and the grid
+
+
+def _commit_model(q, k, v, pos, tables, q_pos, parts_hook=None):
+    """A plain model of the commit kernel's order, in f32: table column t
+    goes to rank (t // PA_CHUNK_BLOCKS) % PA_CLUSTER; a rank walks its
+    columns in order, each block in tiles of PA_TILE_KEYS keys, one online
+    softmax update per tile; the ranks' partials merge with their max M
+    first (from -1e30), then l and o summed in rank order with weights
+    exp(m_c - M).  ``parts_hook`` may edit the list of partials of a (row,
+    KV head) before the merge."""
+    c = {k_: int(v_) for k_, v_ in _paged_consts().items() if v_.isdigit()}
+    CL, CH, TK = c["PA_CLUSTER"], c["PA_CHUNK_BLOCKS"], c["PA_TILE_KEYS"]
+    B, H, D = q.shape
+    _, bs, KV, _ = k.shape
+    G, nblk = H // KV, tables.shape[1]
+    f32 = torch.float32
+    out = torch.empty((B, H, D), dtype=f32)
+
+    def neutral():
+        return (torch.full((G,), -1e30), torch.zeros(G), torch.zeros(G, D))
+
+    for b in range(B):
+        for h in range(KV):
+            qs = q[b, h * G:(h + 1) * G].to(f32) * (D ** -0.5)
+            parts = []
+            for r in range(CL):
+                m, l, o = neutral()
+                for t in range(nblk):
+                    bid = int(tables[b, t])
+                    if (t // CH) % CL != r or bid < 0:
+                        continue
+                    for j0 in range(0, bs, TK):
+                        kk = k[bid, j0:j0 + TK, h].to(f32)
+                        vv = v[bid, j0:j0 + TK, h].to(f32)
+                        pp = pos[bid, j0:j0 + TK]
+                        s = (qs @ kk.T).masked_fill(~((pp >= 0) & (pp <= q_pos[b])),
+                                                    float("-inf"))
+                        mn = torch.maximum(m, s.amax(dim=-1))
+                        alpha = torch.exp(m - mn)
+                        p = torch.exp(s - mn[:, None])
+                        l = l * alpha + p.sum(dim=-1)
+                        o = o * alpha[:, None] + p @ vv
+                        m = mn
+                parts.append((m, l, o))
+            if parts_hook is not None:
+                parts = parts_hook(parts, neutral)
+            out[b, h * G:(h + 1) * G] = _commit_merge(parts, neutral())
+    return out
+
+
+def _commit_merge(parts, start):
+    m, l, o = start
+    for mc, _, _ in parts:
+        m = torch.maximum(m, mc)
+    for mc, lc, oc in parts:
+        w = torch.exp(mc - m)
+        l = l + lc * w
+        o = o + oc * w[:, None]
+    return o / l.clamp_min(1e-30)[:, None]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_commit_paged_model_matches_refs(seed):
+    """The commit kernel's chunk-and-merge order computes the plain
+    version's function: within 1e-6 of ``ref.paged_attention`` (two f32
+    summation orders, outputs |o| < 3), and of the JAX oracle as the plain
+    version is (1e-5)."""
+    problem = _paged_problem(seed)
+    got = _commit_model(*_t(problem))
+    want = ref.paged_attention(*_t(problem), null_bid=problem[6])
+    assert float((got - want).abs().max()) <= 1e-6
+    np.testing.assert_allclose(got.numpy(), _jax_ref(problem), atol=1e-5, rtol=0)
+
+
+def test_commit_paged_model_neutral_partials_change_no_bit():
+    """A rank with no valid key (no block, or only masked positions) yields
+    the neutral partial, and merging it anywhere changes no bit; so the
+    same rows at a wider table reach (more -1 columns) keep their bits."""
+    problem = _t(_paged_problem(3, B=4))
+    base = _commit_model(*problem)
+    for at in (0, 2, 5):
+        def hook(parts, neutral, at=at):
+            return parts[:at] + [neutral(), neutral()] + parts[at:]
+        assert torch.equal(_commit_model(*problem, parts_hook=hook), base)
+    q, k, v, pos, tab, qp = problem
+    wide = torch.full((tab.shape[0], 5 * tab.shape[1]), -1, dtype=tab.dtype)
+    wide[:, : tab.shape[1]] = tab
+    assert torch.equal(_commit_model(q, k, v, pos, wide, qp), base)
+    # a block whose positions are all past q_pos is masked whole
+    stale = pos.clone()
+    free = [b for b in range(k.shape[0] - 2) if not bool((tab == b).any())][0]
+    stale[free] = 10_000
+    tab2 = wide.clone()
+    tab2[:, tab.shape[1]] = free
+    assert torch.equal(_commit_model(q, k, v, stale, tab2, qp), base)
+
+
+def test_commit_paged_model_rows_independent_of_batch():
+    """A row's bits are the same alone (B = 1) and in a batch of 8."""
+    q, k, v, pos, tab, qp = _t(_paged_problem(4, B=8))
+    full = _commit_model(q, k, v, pos, tab, qp)
+    for b in (0, 5, 7):
+        alone = _commit_model(q[b:b + 1], k, v, pos, tab[b:b + 1], qp[b:b + 1])
+        assert torch.equal(alone[0], full[b])
 
 
 # ---------------------------------------------------------------------------
