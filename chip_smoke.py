@@ -13,14 +13,19 @@ the main path) and the gathered lane (``paged_attention=False``):
 2. kernels hold each kernel against its plain PyTorch version at the main
            path's shapes (tolerance printed; the paged pair at the headline,
            serve and default-reach shapes of ``paged_shapes``, a long
-           context and odd block sizes and widths), plus row invariance
-           across M (the commit GEMM at all five projection shapes and at an
-           uneven chunk cut) and B (the commit paged kernel for B in
+           context and odd block sizes and widths; ``decode_attention`` at
+           the five ``decode_shapes``, D = 64 and f32 operands; ``rmsnorm``
+           at 32, 256 and 16384 rows with a bf16 and an f32 scale), plus
+           row invariance across M (the commit GEMM at all five projection
+           shapes and at an uneven chunk cut) and B (the commit paged
+           kernel and ``decode_attention`` at kv_splits 1 for B in
            {1, 3, 8, 13} at each shape, and the same bits at a 128- and a
-           2056-entry table), bitwise repeatability of the commit kernels,
-           split and combine sensitivity of the fast kernels, and which
-           GEMM partial tile each operand dtype runs (bf16: tensor cores,
-           f32: CUDA cores; by kernel name in a profiler trace);
+           2056-entry table, or a 2048- and a 32896-slot view), bitwise
+           repeatability of the commit kernels, split and combine
+           sensitivity of the fast kernels, which GEMM partial tile each
+           operand dtype runs (bf16: tensor cores, f32: CUDA cores) and that
+           an ``rmsnorm`` call is one launch (by kernel name in a profiler
+           trace);
 3. serve   serve requests through ``launch/serve.py``'s request builder in
            LLM42, BATCH_INVARIANT and NONDET mode on each lane, each run
            with every kernel's launch count reset just before it and read
@@ -45,8 +50,11 @@ the main path) and the gathered lane (``paged_attention=False``):
            reading); both GEMMs beside ``torch.matmul`` at every projection
            shape and serve-run M, their device time per forward, and the
            host time per GEMM call; the timer's floor; the paged pair at
-           each of ``paged_shapes``, B = 64 and a long context; ``rmsnorm``
-           with no residual beside ``F.rms_norm`` (the same function).
+           each of ``paged_shapes``, B = 64 and a long context;
+           ``decode_attention`` at each of ``decode_shapes`` beside
+           ``scaled_dot_product_attention``; ``rmsnorm`` at 32, 256 and
+           16384 rows beside ``F.rms_norm`` (the same function without a
+           residual) and with a residual.
 
 The line before the last is a JSON object describing every kernel
 (``launches`` sums the serve runs and the rmsnorm entry-point run,
@@ -203,17 +211,22 @@ def phase_build() -> None:
     log(f"[build] {len(logs)} sources compiled in "
         f"{time.perf_counter() - t0:.1f} s -> {build.BUILD_DIR} "
         f"({version[-1] if version else 'nvcc version unknown'})")
-    # ptxas -v for the GEMM partial tiles and the paged kernels (bf16,
-    # D = 128): registers, static shared memory, stack and spill bytes (the
-    # rings are dynamic shared memory)
+    # ptxas -v for the GEMM partial tiles, the attention kernels (bf16,
+    # D = 128) and rmsnorm (bf16 x and scale, 4 vectors a lane: D = 4096):
+    # registers, static shared memory, stack and spill bytes (the rings are
+    # dynamic shared memory)
     for stem, text in logs.items():
         kernel, spills = None, ""
         for line in text.splitlines():
             if "Compiling entry function" in line:
                 found = re.search(r"(wgmma|fmaf)_partial_kernel", line)
                 if found is None and re.search(r"bfloat16Li4EE|merge_kernelILi4E", line):
-                    # the paged kernels at the main path's bf16, D = 128
-                    found = re.search(r"paged_(attention|split|merge)_kernel", line)
+                    # the attention kernels at the main path's bf16, D = 128
+                    found = re.search(
+                        r"(paged_(attention|split|merge)|decode_attention)_kernel", line)
+                if found is None and re.search(r"rmsnorm_kernelI13__nv_bfloat16S\w*_Li4E",
+                                               line):
+                    found = re.search(r"rmsnorm_kernel", line)
                 kernel = found.group(0) if found else None
             elif kernel and "spill" in line:
                 spills = line.strip()
@@ -305,6 +318,35 @@ def decode_inputs(torch, B, S, H, KV, D, seed, min_len, max_len, dt=None):
     lengths = torch.randint(min_len, max_len, (B,), generator=g, device=DEV,
                             dtype=torch.int32)
     return q, k, v, lengths
+
+
+def decode_shapes(torch, cfg):
+    """The dense decode kernel's five shapes at Llama-3-8B's heads, bf16,
+    mirroring ``paged_shapes``: ``headline`` (B = 8 over a 2048-slot view,
+    lengths in [512, 2048)), ``serve`` (the serve phase's lengths: 32 prompt
+    tokens plus up to 16 committed and 7 speculated), ``default reach`` (the
+    serve rows in a view of cfg.max_seq_len slots, the engine's default
+    capacity; the slots past 2048 hold other random keys, which no valid
+    length reaches), ``B=64`` (the headline's lengths) and ``long`` (B = 8
+    over 16384 slots, lengths in [8192, 16384))."""
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    serve = decode_inputs(torch, 8, 2048, H, KV, D, seed=8, min_len=33, max_len=56)
+    q, k, v, lens = serve
+    g = torch.Generator(device=DEV).manual_seed(17)
+    wide = [torch.randn((8, cfg.max_seq_len, KV, D), generator=g, device=DEV).to(k.dtype)
+            for _ in range(2)]
+    for w, t in zip(wide, (k, v)):
+        w[:, : t.shape[1]] = t
+    return {
+        "headline": decode_inputs(torch, 8, 2048, H, KV, D, seed=3, min_len=512,
+                                  max_len=2048),
+        "serve": serve,
+        "default reach": (q, wide[0], wide[1], lens),
+        "B=64": decode_inputs(torch, 64, 2048, H, KV, D, seed=16, min_len=512,
+                              max_len=2048),
+        "long": decode_inputs(torch, 8, 16384, H, KV, D, seed=14, min_len=8192,
+                              max_len=16384),
+    }
 
 
 def decode_bound(q, k, lengths):
@@ -601,20 +643,32 @@ def commit_rows_invariant(torch, gemm, xb, w, chunks) -> None:
 TENSOR_CORE_TILE, CUDA_CORE_TILE = "wgmma_partial_kernel", "fmaf_partial_kernel"
 
 
-def gemm_tiles_run(torch, fn, calls=1):
-    """The GEMM partial tiles that ``calls`` calls of ``fn()`` launched, by
-    kernel name in a ``torch.profiler`` trace of the card's activity alone
-    (no host ops, so a short serve run's trace sums in seconds), and the
-    names of every kernel the trace holds."""
+def trace_kernels(torch, fn, calls=1):
+    """{name: launches} of every kernel that ``calls`` calls of ``fn()``
+    launched, from a ``torch.profiler`` trace of the card's activity alone
+    (no host ops, so a short serve run's trace sums in seconds)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    sync(torch)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(3):  # a trace now and then holds no activity at all
         sync(torch)
-    names = sorted({e.key for e in prof.key_averages()})
-    require(names, "the profiler saw no activity on the card")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            sync(torch)
+        # the trace also holds the runtime's host calls (cudaLaunchKernelExC...)
+        names = {e.key: e.count for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA}
+        if names:
+            return names
+    raise AssertionError("three profiler traces saw no activity on the card")
+
+
+def gemm_tiles_run(torch, fn, calls=1):
+    """The GEMM partial tiles that ``calls`` calls of ``fn()`` launched, by
+    kernel name in a profiler trace, and the names of every kernel the
+    trace holds."""
+    names = sorted(trace_kernels(torch, fn, calls))
     return {tile for tile in (TENSOR_CORE_TILE, CUDA_CORE_TILE)
             if any(tile in name for name in names)}, names
 
@@ -652,31 +706,70 @@ def rows_invariant(torch, fn, inputs, name):
         f"of batches of 7/32/200")
 
 
+#: the dense decode kernel's schedules at every shape: FAST_PATH_POLICY at
+#: B = 8 (kv_splits 4, bf16 combine) and the commit schedule (one split,
+#: f32 combine)
+DECODE_CASES = ((4, "bfloat16"), (1, "float32"))
+
+
 def check_decode_attention(torch, cfg, results) -> None:
-    """Kernel 5: the gathered lane's W == 1 attention, at its view shape
-    (B = 8, S = 2048) for Llama-3-8B's heads and for D = 64."""
+    """Kernel 5, the gathered lane's W == 1 attention, at each of
+    ``decode_shapes`` and at D = 64, against its plain version; at kv_splits
+    1 a row's bits identical for B in {1, 3, 8, 13} and across launches at
+    every shape, and at a 2048- and a 32896-slot view; the combine rounding
+    with f32 operands; a row's bits at places 5/17/199 of a batch."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
 
+    def case(label, inp, splits, cd):
+        q, k, v, lens = inp
+        out = decode_attention(q, k, v, lens, kv_splits=splits, combine_dtype=cd)
+        want = ref.decode_attention(q, k, v, lens, splits, cd)
+        sync(torch)
+        err = float((out.float() - want.float()).abs().max())
+        ulp = ulp_of(float(want.float().abs().max()), 7)
+        B, S, KV, D = k.shape
+        log(f"[kernels] decode_attention {label}: B={B} S={S} H={q.shape[1]} KV={KV} "
+            f"D={D} {str(q.dtype)[6:]}, {int(lens.clamp(0, S).sum())} keys, "
+            f"kv_splits={splits} {cd}: max_abs_err {err:.3e} = {err / ulp:.2f} bf16 "
+            f"ulps (tol {DECODE_ULPS[cd]})")
+        require(err <= DECODE_ULPS[cd] * ulp,
+                f"decode_attention disagrees with its plain version ({label})")
+        if bool((lens <= 0).any()):
+            require(not bool(out[lens <= 0].float().abs().max()), "length 0 must give 0")
+        return out, err
+
     worst = 0.0
-    for H, KV, D in ((cfg.num_heads, cfg.num_kv_heads, cfg.hd), (16, 4, 64)):
-        q, k, v, lens = decode_inputs(torch, 8, 2048, H, KV, D, seed=4,
-                                      min_len=1, max_len=2048)
-        lens[0], lens[1] = 0, 2048
-        for splits in (1, 4):
-            for cd in ("float32", "bfloat16"):
-                out = decode_attention(q, k, v, lens, kv_splits=splits, combine_dtype=cd)
-                want = ref.decode_attention(q, k, v, lens, splits, cd)
-                sync(torch)
-                err = float((out.float() - want.float()).abs().max())
-                ulp = ulp_of(float(want.float().abs().max()), 7)
-                log(f"[kernels] decode_attention B=8 S=2048 H={H} KV={KV} D={D} "
-                    f"kv_splits={splits} {cd}: max_abs_err {err:.3e} = "
-                    f"{err / ulp:.2f} bf16 ulps (tol {DECODE_ULPS[cd]})")
-                require(err <= DECODE_ULPS[cd] * ulp,
-                        "decode_attention disagrees with its plain version")
-                require(not bool(out[0].float().abs().max()), "length 0 must give 0")
-                worst = max(worst, err)
+    commit_out = {}
+    for label, inp in decode_shapes(torch, cfg).items():
+        for splits, cd in DECODE_CASES:
+            out, err = case(label, inp, splits, cd)
+            worst = max(worst, err)
+        commit_out[label] = out  # kv_splits 1, f32 combine
+        q, k, v, lens = inp
+        for rows in PAGED_ROWS:
+            sel = torch.tensor(rows, device=DEV)
+            part = decode_attention(q[sel].contiguous(), k[sel].contiguous(),
+                                    v[sel].contiguous(), lens[sel].contiguous())
+            require(torch.equal(part, out[sel]),
+                    f"decode_attention rows change at B={len(rows)} ({label})")
+        require(torch.equal(out, decode_attention(q, k, v, lens)),
+                f"decode_attention is not repeatable ({label})")
+        log(f"[kernels] decode_attention {label} kv_splits=1: rows bitwise identical "
+            f"for B in {{1,3,8,13}}; repeatable")
+        del inp, q, k, v
+    require(torch.equal(commit_out["serve"], commit_out["default reach"]),
+            "decode_attention rows change with the view length S")
+    log("[kernels] decode_attention serve rows bitwise identical in a 2048- and a "
+        "32896-slot view at kv_splits=1")
+    del commit_out
+    # D = 64, G = 4, lengths 0 and S included, uneven chunks (kv_splits 3)
+    q, k, v, lens = decode_inputs(torch, 8, 2048, 16, 4, 64, seed=4,
+                                  min_len=1, max_len=2048)
+    lens[0], lens[1] = 0, 2048
+    for splits in (1, 3, 4):
+        for cd in ("float32", "bfloat16"):
+            worst = max(worst, case("D=64", (q, k, v, lens), splits, cd)[1])
     results["decode_attention"]["max_abs_err"] = worst
     # f32 operands: the combine rounding is the kernel's only bf16 step, so
     # its bf16-combine output must sit far closer to the plain bf16
@@ -704,43 +797,62 @@ def check_decode_attention(torch, cfg, results) -> None:
                                   cfg.hd, seed=6, min_len=1, max_len=513)
     rows_invariant(torch, lambda *t: decode_attention(*t, kv_splits=1),
                    (q, k, v, lens), "decode_attention kv_splits=1")
-    require(torch.equal(decode_attention(q, k, v, lens), decode_attention(q, k, v, lens)),
-            "decode_attention is not repeatable")
+
+
+#: the fused norm's rows at the model's width: a decode batch, a verify
+#: pass's 256 rows, and a large batch whose bytes bound it
+RMSNORM_ROWS = (32, 256, 16384)
 
 
 def check_rmsnorm(torch, cfg, results) -> None:
     """Kernel 6: the fused norm through its entry point, at the model's
-    width in bf16 and at D = 300 in f32 (the JAX test's odd width)."""
+    width in bf16 for each of RMSNORM_ROWS, at D = 300 in f32 (the JAX
+    test's odd width) and at D = 16384 (a row over a cluster of CTAs), each
+    with a scale in x's dtype and in the other one, with and without a
+    residual; a row's bits across batches; and one launch a call (by kernel
+    name in a profiler trace)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.rmsnorm import rmsnorm
 
     g = torch.Generator(device=DEV).manual_seed(7)
     worst = 0.0
-    for M, D, dt, mant in ((32, cfg.d_model, torch.bfloat16, 7),
-                           (256, cfg.d_model, torch.bfloat16, 7),
-                           (32, 300, torch.float32, 23)):
+    cases = [(M, cfg.d_model, torch.bfloat16, 7) for M in RMSNORM_ROWS]
+    # rows too wide for one CTA: a 2-CTA (bf16) and a 4-CTA (f32) cluster
+    wide = [(64, 16384, torch.bfloat16, 7), (16, 16384, torch.float32, 23)]
+    for M, D, dt, mant in cases + [(32, 300, torch.float32, 23)] + wide:
         x = torch.randn((M, D), generator=g, device=DEV).to(dt)
         r = torch.randn((M, D), generator=g, device=DEV).to(dt)
-        sc = (1 + 0.1 * torch.randn((D,), generator=g, device=DEV)).to(dt)
-        for res in (None, r):
-            out = ops.rmsnorm(x, sc, res, eps=cfg.norm_eps)
-            want = ref.rmsnorm(x, sc, cfg.norm_eps, res)
-            sync(torch)
-            err = float((out.float() - want.float()).abs().max())
-            ulp = ulp_of(float(want.float().abs().max()), mant)
-            tol = RMSNORM_ULPS[str(dt)[6:]]
-            log(f"[kernels] rmsnorm ({M},{D}) {str(dt)[6:]} "
-                f"{'with' if res is not None else 'without'} residual: max_abs_err "
-                f"{err:.3e} = {err / ulp:.2f} ulps (tol {tol}); "
-                f"{int((out != want).sum())} of {out.numel()} outputs differ")
-            require(err <= tol * ulp, "rmsnorm disagrees with its plain version")
-            worst = max(worst, err)
+        sc32 = 1 + 0.1 * torch.randn((D,), generator=g, device=DEV)
+        for sc in (sc32.to(dt), sc32.to(torch.float32 if dt == torch.bfloat16
+                                        else torch.bfloat16)):
+            for res in (None, r):
+                out = ops.rmsnorm(x, sc, res, eps=cfg.norm_eps)
+                want = ref.rmsnorm(x, sc, cfg.norm_eps, res)
+                sync(torch)
+                err = float((out.float() - want.float()).abs().max())
+                ulp = ulp_of(float(want.float().abs().max()), mant)
+                tol = RMSNORM_ULPS[str(dt)[6:]]
+                log(f"[kernels] rmsnorm ({M},{D}) {str(dt)[6:]}, scale "
+                    f"{str(sc.dtype)[6:]}, {'with' if res is not None else 'without'} "
+                    f"residual: max_abs_err {err:.3e} = {err / ulp:.2f} ulps (tol "
+                    f"{tol}); {int((out != want).sum())} of {out.numel()} outputs differ")
+                require(err <= tol * ulp, "rmsnorm disagrees with its plain version")
+                worst = max(worst, err)
+        del x, r
     results["rmsnorm"]["max_abs_err"] = worst
     x = torch.randn((200, cfg.d_model), generator=g, device=DEV).to(torch.bfloat16)
     r = torch.randn((200, cfg.d_model), generator=g, device=DEV).to(torch.bfloat16)
     sc = torch.randn((1, cfg.d_model), generator=g, device=DEV).to(torch.bfloat16)
     rows_invariant(torch, lambda x, r, sc: rmsnorm(x, sc[0], r, eps=cfg.norm_eps),
                    (x, r, sc.expand(200, -1)), "rmsnorm with residual")
+    # the timed call (bf16 x and scale) is one launch of the norm kernel;
+    # three calls a trace (a trace of one call now and then holds nothing)
+    for scale in (sc[0], sc[0].float()):
+        names = trace_kernels(torch, lambda: rmsnorm(x, scale, eps=cfg.norm_eps), calls=3)
+        log(f"[kernels] rmsnorm, {str(scale.dtype)[6:]} scale: 3 calls launched {names}")
+        require(len(names) == 1 and "rmsnorm_kernel" in next(iter(names))
+                and next(iter(names.values())) == 3,
+                "rmsnorm: a call is not one launch of the norm kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -1394,44 +1506,54 @@ def time_paged_case(torch, cfg, results, flush, name, label, inp, kern, plain) -
 
 
 def time_decode_attention(torch, cfg, results, flush) -> None:
-    """Kernel 5 at the gathered lane's decode shape: B = 8 rows over a
-    2048-slot view with the serve phase's lengths (32 prompt tokens plus
-    up to 16 committed and 7 speculated), kv_splits 4 (FAST_PATH_POLICY at
-    B = 8, bf16 combine) and 1 (the commit schedule).  The yardstick is
-    ``scaled_dot_product_attention`` with a length mask and GQA."""
+    """Kernel 5 at each of ``decode_shapes``, at FAST_PATH_POLICY's schedule
+    for B = 8 (kv_splits 4, bf16 combine) and the commit schedule (1, f32),
+    beside its plain version, ``scaled_dot_product_attention`` with a length
+    mask and GQA (the same function), and the bound of each shape.  The
+    headline shape's numbers fill the kernel's entry; every shape's go
+    under ``shapes``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
 
-    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    q, k, v, lens = decode_inputs(torch, 8, 2048, H, KV, D, seed=8,
-                                  min_len=33, max_len=56)
-    b_ms, b_by = decode_bound(q, k, lens)
-    mask = (torch.arange(2048, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
-    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask, enable_gqa=True), flush=flush)
-    rows = {}
-    for splits, cd in ((4, "bfloat16"), (1, "float32")):
-        ms = time_ms(torch, lambda: decode_attention(
-            q, k, v, lens, kv_splits=splits, combine_dtype=cd), flush=flush)
-        plain_ms = time_ms(torch, lambda: ref.decode_attention(
-            q, k, v, lens, splits, cd), reps=5, flush=flush)
-        rows[splits] = (ms, plain_ms)
-        log(f"[timings] decode_attention B=8 S=2048, {int(lens.sum())} valid keys, "
-            f"kv_splits={splits} {cd}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    results["decode_attention"].update(
-        ms=rows[4][0], plain_ms=rows[4][1], library_ms=lib_ms, bound_ms=b_ms,
-        bound_by=b_by, ms_kv_splits_1=rows[1][0], plain_ms_kv_splits_1=rows[1][1])
+    for label, (q, k, v, lens) in decode_shapes(torch, cfg).items():
+        S = k.shape[1]
+        b_ms, b_by = decode_bound(q, k, lens)
+        mask = (torch.arange(S, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
+        qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True), flush=flush)
+        row = dict(keys=int(lens.sum()), S=S, B=q.shape[0], library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by)
+        for splits, cd in DECODE_CASES:
+            ms = time_ms(torch, lambda: decode_attention(
+                q, k, v, lens, kv_splits=splits, combine_dtype=cd), flush=flush)
+            plain_ms = time_ms(torch, lambda: ref.decode_attention(
+                q, k, v, lens, splits, cd), reps=5, flush=flush)
+            suffix = "" if splits == 4 else "_kv_splits_1"
+            row.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms})
+            log(f"[timings] decode_attention {label}: B={q.shape[0]} S={S}, "
+                f"{int(lens.sum())} valid keys, kv_splits={splits} {cd}: {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}, {100 * b_ms / ms:.1f}% of it)")
+        results["decode_attention"].setdefault("shapes", {})[label] = row
+        if label == "headline":
+            results["decode_attention"].update(
+                {key: row[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                           "bound_by", "ms_kv_splits_1",
+                                           "plain_ms_kv_splits_1")})
+        del q, k, v, lens, ks, vs
 
 
 def time_rmsnorm(torch, cfg, results, flush) -> None:
-    """Kernel 6 at (32, 4096) and (256, 4096) bf16 without a residual,
-    beside ``F.rms_norm`` on the same x and scale (the same function: the
-    kernel's entry then fills ``library_ms``), and with a residual (the
-    fused add, which no single PyTorch call computes)."""
+    """Kernel 6 at (M, 4096) bf16 for each of RMSNORM_ROWS, bf16 scale:
+    without a residual beside ``F.rms_norm`` on the same x and scale (the
+    same function), kernel, library, library, kernel; and with a residual
+    (the fused add, which no single PyTorch call computes).  That the timed
+    call is one launch is checked in the kernels phase (``check_rmsnorm``).
+    The 32-row numbers fill the kernel's entry; every shape's go under
+    ``shapes``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -1439,28 +1561,34 @@ def time_rmsnorm(torch, cfg, results, flush) -> None:
 
     g = torch.Generator(device=DEV).manual_seed(9)
     D = cfg.d_model
-    by_m = {}
-    for M in (32, 256):
+    for M in RMSNORM_ROWS:
         x = torch.randn((M, D), generator=g, device=DEV).to(torch.bfloat16)
         r = torch.randn((M, D), generator=g, device=DEV).to(torch.bfloat16)
         sc = torch.randn((D,), generator=g, device=DEV).to(torch.bfloat16)
-        # kernel, library, library, kernel
         k1 = time_ms(torch, lambda: rmsnorm(x, sc, eps=cfg.norm_eps), flush=flush)
         l1 = time_ms(torch, lambda: F.rms_norm(x, (D,), sc, cfg.norm_eps), flush=flush)
         l2 = time_ms(torch, lambda: F.rms_norm(x, (D,), sc, cfg.norm_eps), flush=flush)
         k2 = time_ms(torch, lambda: rmsnorm(x, sc, eps=cfg.norm_eps), flush=flush)
-        ms, lib_ms = (k1 + k2) / 2, (l1 + l2) / 2
-        plain_ms = time_ms(torch, lambda: ref.rmsnorm(x, sc, cfg.norm_eps), flush=flush)
-        res_ms = time_ms(torch, lambda: rmsnorm(x, sc, r, eps=cfg.norm_eps), flush=flush)
+        r1 = time_ms(torch, lambda: rmsnorm(x, sc, r, eps=cfg.norm_eps), flush=flush)
+        r2 = time_ms(torch, lambda: rmsnorm(x, sc, r, eps=cfg.norm_eps), flush=flush)
+        ms, lib_ms, res_ms = (k1 + k2) / 2, (l1 + l2) / 2, (r1 + r2) / 2
+        plain_ms = time_ms(torch, lambda: ref.rmsnorm(x, sc, cfg.norm_eps), reps=20,
+                           flush=flush)
         b_ms, b_by = bound(2 * M * D * 2 + D * 2, 4.0 * M * D)
-        by_m[M] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                       bound_by=b_by, ms_with_residual=res_ms)
-        log(f"[timings] rmsnorm ({M},{D}) bf16 without residual: {ms:.4f} ms "
-            f"(readings {k1:.4f}, {k2:.4f}), F.rms_norm {lib_ms:.4f} ms ({l1:.4f}, "
-            f"{l2:.4f}): {ms / lib_ms:.2f}x; plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}); with residual {res_ms:.4f} ms")
-    results["rmsnorm"].update(**by_m[32], ms_256_rows=by_m[256]["ms"],
-                              library_ms_256_rows=by_m[256]["library_ms"])
+        rb_ms, _ = bound(3 * M * D * 2 + D * 2, 5.0 * M * D)
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                   bound_by=b_by, ms_with_residual=res_ms, bound_ms_with_residual=rb_ms)
+        results["rmsnorm"].setdefault("shapes", {})[f"({M},{D})"] = row
+        if M == RMSNORM_ROWS[0]:
+            results["rmsnorm"].update({key: row[key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "ms_with_residual")})
+        log(f"[timings] rmsnorm ({M},{D}) bf16, bf16 scale: without residual "
+            f"{ms:.4f} ms (readings {k1:.4f}, {k2:.4f}), "
+            f"F.rms_norm {lib_ms:.4f} ms ({l1:.4f}, {l2:.4f}): {ms / lib_ms:.2f}x; "
+            f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{100 * b_ms / ms:.1f}% of it); with residual {res_ms:.4f} ms ({r1:.4f}, "
+            f"{r2:.4f}), bound {rb_ms:.4f} ms ({100 * rb_ms / res_ms:.1f}% of it)")
+        del x, r
 
 
 # ---------------------------------------------------------------------------
@@ -1535,8 +1663,7 @@ def main() -> int:
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
                            "launches_by_mode", "max_abs_err", "ms", "plain_ms",
                            "bound_ms", "bound_by", "library_ms", "ms_kv_splits_1",
-                           "plain_ms_kv_splits_1", "ms_256_rows", "library_ms_256_rows",
-                           "ms_with_residual", "shapes")
+                           "plain_ms_kv_splits_1", "ms_with_residual", "shapes")
          if k in r} for r in results.values()
     ]}))
     log(json.dumps({"ok": True, "device": {

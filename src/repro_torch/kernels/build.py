@@ -55,8 +55,9 @@ ENTRY_POINTS = {
         ],
     },
     "rmsnorm": {
-        # x, residual (or NULL), scale (f32), out, M, D, eps, dtype, stream
-        "repro_rmsnorm": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+        # x, residual (or NULL), scale, out, M, D, eps, dtype, scale dtype,
+        # stream
+        "repro_rmsnorm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     },
 }
 

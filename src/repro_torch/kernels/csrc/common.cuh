@@ -27,3 +27,18 @@ __device__ __forceinline__ float round_to(float v, int code) {
   if (code == DT_F16) return __half2float(__float2half_rn(v));
   return v;
 }
+
+// A thread-block cluster barrier split in two: every CTA arrives when it
+// starts and waits just before its first store into another CTA's shared
+// memory, so that store never reaches a CTA that has not started.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// the low and high bf16 of a 32-bit word, as f32
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }

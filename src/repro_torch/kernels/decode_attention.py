@@ -15,7 +15,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 _DTYPES = (torch.bfloat16, torch.float32)
-#: query heads per KV head the kernel holds in registers (csrc GMAX)
+#: query heads per KV head, a warp each (csrc GMAX)
 MAX_GROUP = 8
 
 

@@ -102,7 +102,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             residual: Optional[torch.Tensor] = None, *,
             eps: float = 1e-5) -> torch.Tensor:
     """Fused (residual +) RMSNorm over the last axis, any leading shape.
-    The kernel takes one row per block, so rows need no padding."""
+    The kernel's blocks follow D alone, so rows need no padding."""
     lead, D = x.shape[:-1], x.shape[-1]
     res = residual.reshape(-1, D).contiguous() if residual is not None else None
     out = _rmsnorm(x.reshape(-1, D).contiguous(), scale.contiguous(), res, eps=eps)

@@ -5,7 +5,9 @@ Replaces ``repro/kernels/rmsnorm.py::rmsnorm``.  Its contract is
 round), not the model's ``models.layers.rms_norm``, so, as in the JAX
 package, it is reached through ``kernels.ops.rmsnorm`` and not from the
 model.  A CPU tensor runs the plain version; a CUDA tensor launches the
-kernel or raises.  ``rmsnorm.launches`` counts kernel launches.
+kernel or raises.  The kernel reads ``scale`` in its own dtype (bf16 or
+f32), so a call is one launch.  ``rmsnorm.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ import torch
 from repro_torch.kernels import build, ref
 
 _DTYPES = (torch.bfloat16, torch.float32)
+#: the widest row the kernel holds: a cluster of 8 CTAs of 4 warps, 8
+#: 16-byte vectors a lane (csrc RN_MAX_CLUSTER, RN_WARPS, RN_MAX_VPT)
+MAX_D = {torch.bfloat16: 65536, torch.float32: 32768}
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -40,15 +45,16 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("rmsnorm: every tensor must be contiguous")
     M, D = x.shape
+    if D > MAX_D[x.dtype]:
+        raise ValueError(f"rmsnorm: D={D} > {MAX_D[x.dtype]} for {x.dtype}")
     out = torch.empty_like(x)
     if M == 0:
         return out
-    sc = scale.to(torch.float32)  # the kernel reads scale in f32, as the TPU one does
     lib = build.load("rmsnorm")
     rc = lib.repro_rmsnorm(
         x.data_ptr(), residual.data_ptr() if residual is not None else None,
-        sc.data_ptr(), out.data_ptr(), M, D, eps,
-        build.DTYPE_CODES[str(x.dtype)[6:]],
+        scale.data_ptr(), out.data_ptr(), M, D, eps,
+        build.DTYPE_CODES[str(x.dtype)[6:]], build.DTYPE_CODES[str(scale.dtype)[6:]],
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(lib, rc, "rmsnorm")

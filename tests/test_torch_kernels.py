@@ -37,6 +37,20 @@ online softmax per tile, the ranks merged in order) held within 1e-6 of
 ``ref.paged_attention``: merging a rank with no valid key changes no bit,
 and a row's bits are the same alone and in a batch of 8.
 
+The dense decode kernel likewise: a lint of ``csrc/decode_attention.cu``
+(no atomics; cluster, tile, ring and merge-round sizes as constexpr
+literals; tile t of a chunk to rank t % DA_CLUSTER; B only as the grid's
+row count) and a plain model of its order (a chunk's valid keys in tiles
+from the chunk's start, tiles round-robin over the ranks, the ranks merged
+max first and in rank order, the chunks in split order through
+``combine_dtype``) held against ``ref.decode_attention`` and the Pallas
+kernel (1e-6 with f32 combine, 2 bf16 ulps with bf16): neutral partials and
+skipped trailing chunks change no bit, rows do not depend on B, and at one
+split not on S.  And the fused norm: a lint of ``csrc/rmsnorm.cu`` (literal
+CTA shape and plan bounds, a plan read from D alone, M only as a count)
+and a plain model of its sum tree, within 1 bf16 ulp (4 f32 ulps) of
+``ref.rmsnorm`` and 2 of the Pallas kernel, rows independent of M.
+
 Plus the package-level contracts: no JAX and no ``repro`` import anywhere
 in the port or ``chip_smoke.py``, ``import repro_torch`` with JAX unimportable,
 the host-side copies equal to their originals but for import lines, and
@@ -469,16 +483,16 @@ def test_ops_paged_routing():
 # ---------------------------------------------------------------------------
 
 
-def _paged_consts():
-    """The ``constexpr int`` constants of ``csrc/paged_attention.cu``."""
+def _consts(name: str):
+    """The ``constexpr int`` constants of a source that are integer literals."""
     import re
 
-    text = _strip_comments((CSRC / "paged_attention.cu").read_text())
-    return dict(re.findall(r"constexpr int (\w+) = (\w+);", text))
+    text = _strip_comments((CSRC / name).read_text())
+    return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
 
 
-def _paged_source_part(start: str, end: str) -> str:
-    text = _strip_comments((CSRC / "paged_attention.cu").read_text())
+def _source_part(name: str, start: str, end: str) -> str:
+    text = _strip_comments((CSRC / name).read_text())
     body = text[text.index(start):]
     return body[:body.index(end)]
 
@@ -495,12 +509,13 @@ def test_commit_paged_partition_is_literal():
     chunk), its tile and its ring are constexpr integer literals, and the
     kernel reads them, not anything that could follow B, kv_splits, the
     contexts or the card."""
-    consts = _paged_consts()
+    consts = _consts("paged_attention.cu")
     for name in ("PA_CLUSTER", "PA_CHUNK_BLOCKS", "PA_TILE_KEYS", "PA_STAGES", "PA_WINDOW"):
-        assert consts.get(name, "").isdigit(), (name, consts.get(name))
-    kernel = _paged_source_part("paged_attention_kernel(const T*", "paged_split_kernel")
-    assert "__cluster_dims__(PA_CLUSTER, 1, 1)" in _paged_source_part(
-        "__global__ void __cluster_dims__(PA_CLUSTER",
+        assert name in consts, name
+    kernel = _source_part("paged_attention.cu", "paged_attention_kernel(const T*",
+                          "paged_split_kernel")
+    assert "__cluster_dims__(PA_CLUSTER, 1, 1)" in _source_part(
+        "paged_attention.cu", "__global__ void __cluster_dims__(PA_CLUSTER",
         "paged_attention_kernel(")
     assert "PA_CLUSTER, PA_CHUNK_BLOCKS}" in kernel  # the slice of a rank
     for word in ("gridDim", "splits", "combine", "clock", "smid"):
@@ -515,7 +530,8 @@ def test_commit_paged_launch_takes_b_as_a_count_of_rows():
     """B enters the commit launch only as the grid's row axis."""
     import re
 
-    launch = _paged_source_part("cudaError_t launch_commit(", "cudaError_t launch_fast(")
+    launch = _source_part("paged_attention.cu", "cudaError_t launch_commit(",
+                          "cudaError_t launch_fast(")
     assert "dim3(PA_CLUSTER, a.KV, B)" in launch
     uses = re.findall(r"\bB\b", launch)
     assert len(uses) == 2, uses  # the parameter and the grid
@@ -529,7 +545,7 @@ def _commit_model(q, k, v, pos, tables, q_pos, parts_hook=None):
     first (from -1e30), then l and o summed in rank order with weights
     exp(m_c - M).  ``parts_hook`` may edit the list of partials of a (row,
     KV head) before the merge."""
-    c = {k_: int(v_) for k_, v_ in _paged_consts().items() if v_.isdigit()}
+    c = _consts("paged_attention.cu")
     CL, CH, TK = c["PA_CLUSTER"], c["PA_CHUNK_BLOCKS"], c["PA_TILE_KEYS"]
     B, H, D = q.shape
     _, bs, KV, _ = k.shape
@@ -569,7 +585,10 @@ def _commit_model(q, k, v, pos, tables, q_pos, parts_hook=None):
     return out
 
 
-def _commit_merge(parts, start):
+def _rank_merge(parts, start):
+    """The ranks' partials merged as the kernels merge them: the max M
+    first (from start's m), then l and o summed in rank order with weights
+    exp(m_c - M).  Returns (M, l, o)."""
     m, l, o = start
     for mc, _, _ in parts:
         m = torch.maximum(m, mc)
@@ -577,6 +596,11 @@ def _commit_merge(parts, start):
         w = torch.exp(mc - m)
         l = l + lc * w
         o = o + oc * w[:, None]
+    return m, l, o
+
+
+def _commit_merge(parts, start):
+    _, l, o = _rank_merge(parts, start)
     return o / l.clamp_min(1e-30)[:, None]
 
 
@@ -623,6 +647,317 @@ def test_commit_paged_model_rows_independent_of_batch():
     for b in (0, 5, 7):
         alone = _commit_model(q[b:b + 1], k, v, pos, tab[b:b + 1], qp[b:b + 1])
         assert torch.equal(alone[0], full[b])
+
+
+# ---------------------------------------------------------------------------
+# the dense decode kernel's source and its tile, rank and chunk order
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("source", _with_headers("decode_attention.cu"))
+def test_decode_sources_have_no_atomics(source):
+    """The commit path's rules: no atomics in the dense decode kernel's
+    source or the headers it includes (comments aside)."""
+    assert "atomic" not in _strip_comments((CSRC / source).read_text()).lower()
+
+
+def test_decode_partition_is_literal():
+    """The dense decode kernel's key-axis partition (cluster size, tile),
+    its ring and its merge rounds are constexpr integer literals; a tile
+    goes to rank t % DA_CLUSTER by its index t in its chunk alone; the
+    kernel reads nothing that could follow B, the lengths or the card; the
+    ranks merge with their max first and their sums in rank order."""
+    consts = _consts("decode_attention.cu")
+    for name in ("DA_CLUSTER", "DA_TILE_KEYS", "DA_STAGES", "DA_MAX_ROUND", "GMAX"):
+        assert name in consts, name
+    src = "decode_attention.cu"
+    assert "__cluster_dims__(DA_CLUSTER, 1, 1)" in _source_part(
+        src, "template <typename T, int E>\n__global__", "decode_attention_kernel(")
+    kernel = _source_part(src, "decode_attention_kernel(const T*", "cudaError_t launch(")
+    chunks = _source_part(src, "struct Chunks {", "};")
+    # tile t of a chunk: rank t % DA_CLUSTER (the rank's tiles r, r + C, ...)
+    assert "return n > r ? (n - 1 - r) / DA_CLUSTER + 1 : 0;" in chunks
+    assert ("return ch.start(c) + (ch.r + (u - first) * DA_CLUSTER) * DA_TILE_KEYS;"
+            in _source_part(src, "struct Cursor {", "};"))
+    for word in ("gridDim", "clock", "smid", "atomic"):
+        assert word not in kernel, word
+    # the ranks' max first, then the sums in rank order; the chunks in
+    # split order through combine_dtype
+    assert "for (int rr = 0; rr < DA_CLUSTER; ++rr) M = fmaxf(M, " in kernel
+    assert "float M = -1e30f;" in kernel
+    assert "dc += p[1] * w;" in kernel
+    assert "for (int c = c0; c < c1; ++c) {" in kernel
+    assert "d_run = round_to(dc, a.combine);" in kernel
+
+
+def test_decode_launch_takes_b_as_a_count_of_rows():
+    """B enters the launch only as the grid's row axis."""
+    import re
+
+    launch = _source_part("decode_attention.cu", "cudaError_t launch(", "extern \"C\"")
+    assert "dim3(DA_CLUSTER, a.KV, B)" in launch
+    uses = re.findall(r"\bB\b", launch)
+    assert len(uses) == 2, uses  # the parameter and the grid
+
+
+def _decode_model(q, k, v, lengths, kv_splits, combine_dtype="float32", *,
+                  parts_hook=None, skip_trailing=True):
+    """A plain model of the dense decode kernel's order, in f32: the chunks
+    of ``_split_sizes(S, kv_splits)``; a chunk's valid keys cut into tiles
+    of DA_TILE_KEYS from the chunk's start; tile t to rank t % DA_CLUSTER,
+    each rank one online-softmax update per tile; the ranks merged by
+    ``_rank_merge``; the chunk triples merged in split order with d and o
+    rounded through ``combine_dtype`` at the first chunk and after every
+    merge.  ``skip_trailing`` skips the chunks after the first that start at
+    or past the row's length, as the kernel does; ``parts_hook`` may edit a
+    chunk's list of rank partials before the merge."""
+    from repro_torch.core.determinism import _split_sizes
+
+    c = _consts("decode_attention.cu")
+    CL, TK = c["DA_CLUSTER"], c["DA_TILE_KEYS"]
+    B, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    f32, cd = torch.float32, getattr(torch, combine_dtype)
+    out = torch.empty((B, H, D), dtype=f32)
+
+    def neutral():
+        return (torch.full((G,), -1e30), torch.zeros(G), torch.zeros(G, D))
+
+    def rnd(t):
+        return t.to(cd).to(f32)
+
+    for b in range(B):
+        n = min(max(int(lengths[b]), 0), S)
+        for h in range(KV):
+            qs = q[b, h * G:(h + 1) * G].to(f32) * (D ** -0.5)
+            start = 0
+            for ci, size in enumerate(_split_sizes(S, kv_splits)):
+                if skip_trailing and ci > 0 and start >= n:
+                    break
+                vend = min(start + size, n)
+                ntile = -(-max(vend - start, 0) // TK)
+                parts = []
+                for r in range(CL):
+                    m, l, o = neutral()
+                    for t in range(r, ntile, CL):
+                        k0 = start + t * TK
+                        kk = k[b, k0:min(k0 + TK, vend), h].to(f32)
+                        vv = v[b, k0:min(k0 + TK, vend), h].to(f32)
+                        s = qs @ kk.T
+                        mn = torch.maximum(m, s.amax(dim=-1))
+                        alpha = torch.exp(m - mn)
+                        p = torch.exp(s - mn[:, None])
+                        l = l * alpha + p.sum(dim=-1)
+                        o = o * alpha[:, None] + p @ vv
+                        m = mn
+                    parts.append((m, l, o))
+                if parts_hook is not None:
+                    parts = parts_hook(parts, neutral)
+                mc, dc, oc = _rank_merge(parts, neutral())
+                if ci == 0:
+                    m_run, d_run, o_run = mc, rnd(dc), rnd(oc)
+                else:
+                    m_new = torch.maximum(m_run, mc)
+                    a1, a2 = torch.exp(m_run - m_new), torch.exp(mc - m_new)
+                    d_run = rnd(a1 * d_run + a2 * dc)
+                    o_run = rnd(a1[:, None] * o_run + a2[:, None] * oc)
+                    m_run = m_new
+                start += size
+            out[b, h * G:(h + 1) * G] = o_run / d_run.clamp_min(1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("splits,S", [(1, 96), (4, 96), (4, 100), (3, 99)])
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_decode_model_matches_refs(splits, S, cd):
+    """The dense kernel's tile, rank and chunk order computes the plain
+    version's function and the Pallas kernel's (interpret mode), at S a
+    multiple of the tile and not (chunks of 25 and 33 keys): within 1e-6
+    with f32 combine (two f32 summation orders over at most 100 keys,
+    outputs |o| < 3), 2 bf16 ulps of max|o| with bf16 combine (a reordered
+    sum may round the running d or o across a bf16 boundary)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.decode_attention import decode_attention as pallas
+
+    problem = _decode_problem(40 + splits, S=S)
+    got = _decode_model(*(torch.from_numpy(a) for a in problem), splits, cd)
+    want = ref.decode_attention(*(torch.from_numpy(a) for a in problem), splits, cd)
+    jax_want = np.asarray(pallas(*(jnp.asarray(a) for a in problem), kv_splits=splits,
+                                 combine_dtype=cd, interpret=True))
+    tol = 1e-6 if cd == "float32" else float(want.abs().max()) * 2.0 ** -7
+    assert float((got - want).abs().max()) <= tol
+    np.testing.assert_allclose(got.numpy(), jax_want, atol=tol, rtol=0)
+    assert not bool(got[0].abs().max())  # length 0: output 0
+
+
+def test_decode_model_matches_ref_at_uneven_chunks():
+    """S = 100 in 3 chunks (34, 33, 33 keys: _split_sizes' uneven cut, which
+    the Pallas kernel does not take), against the plain version."""
+    problem = [torch.from_numpy(a) for a in _decode_problem(45, S=100)]
+    for cd, tol in (("float32", 1e-6), ("bfloat16", None)):
+        want = ref.decode_attention(*problem, 3, cd)
+        tol = tol or float(want.abs().max()) * 2.0 ** -7
+        assert float((_decode_model(*problem, 3, cd) - want).abs().max()) <= tol
+
+
+def test_decode_model_rows_independent_of_batch():
+    """A row's bits are the same alone (B = 1) and in a batch of 4, at the
+    commit schedule and at the fast one."""
+    q, k, v, lengths = (torch.from_numpy(a) for a in _decode_problem(46))
+    for splits, cd in ((1, "float32"), (4, "bfloat16")):
+        full = _decode_model(q, k, v, lengths, splits, cd)
+        for b in range(4):
+            alone = _decode_model(q[b:b + 1], k[b:b + 1], v[b:b + 1], lengths[b:b + 1],
+                                  splits, cd)
+            assert torch.equal(alone[0], full[b])
+
+
+def test_decode_model_neutral_partials_change_no_bit():
+    """Neutral partials merged anywhere among a chunk's ranks change no bit,
+    and neither does skipping the trailing empty chunks (rows of 0 and 17
+    keys in 4 chunks of 24: chunks 1-3 are empty)."""
+    problem = [torch.from_numpy(a) for a in _decode_problem(47)]
+    for splits, cd in ((4, "bfloat16"), (4, "float32"), (1, "float32")):
+        base = _decode_model(*problem, splits, cd)
+        for at in (0, 3, 8):
+            def hook(parts, neutral, at=at):
+                return parts[:at] + [neutral(), neutral()] + parts[at:]
+            assert torch.equal(_decode_model(*problem, splits, cd, parts_hook=hook), base)
+        assert torch.equal(_decode_model(*problem, splits, cd, skip_trailing=False), base)
+
+
+def test_decode_model_kv_splits_1_bits_do_not_depend_on_s():
+    """At kv_splits 1 the same rows in a 96- and a 400-slot view (other
+    random keys past slot 96, which no length reaches) give the same bits."""
+    q, k, v, lengths = (torch.from_numpy(a) for a in _decode_problem(48))
+    rng = np.random.default_rng(49)
+    wide_k, wide_v = (torch.from_numpy(rng.standard_normal((4, 400, 2, 64)).astype(np.float32))
+                      for _ in range(2))
+    wide_k[:, :96], wide_v[:, :96] = k, v
+    assert torch.equal(_decode_model(q, k, v, lengths, 1),
+                       _decode_model(q, wide_k, wide_v, lengths, 1))
+
+
+# ---------------------------------------------------------------------------
+# the fused norm's source and its sum tree
+# ---------------------------------------------------------------------------
+
+
+def test_rmsnorm_tree_is_literal():
+    """The norm's CTA shape and the bounds of its plan are constexpr
+    literals, the plan reads D and the element size alone, and M enters
+    the launch only as a count (the grid, and the last CTA's row mask)."""
+    import re
+
+    consts = _consts("rmsnorm.cu")
+    for name in ("RN_WARPS", "RN_MAX_VPT", "RN_MAX_CLUSTER", "RN_SM_CTAS"):
+        assert name in consts, name
+    text = _strip_comments((CSRC / "rmsnorm.cu").read_text())
+    assert "atomic" not in text.lower()
+    plan = _source_part("rmsnorm.cu", "Plan plan(int D, int elt) {", "\n}\n")
+    assert not re.search(r"\bM\b", plan)
+    kernel = _source_part("rmsnorm.cu", "rmsnorm_kernel(const T*",
+                          "cudaError_t launch_vpt(")
+    assert len(re.findall(r"\bM\b", kernel)) == 2  # the parameter and the row mask
+    assert "const bool live = row < M;" in kernel
+    launch = _source_part("rmsnorm.cu", "cudaError_t launch_vpt(", "extern \"C\"")
+    lines = [ln.strip() for ln in launch.splitlines() if re.search(r"\bM\b", ln)]
+    assert all(ln.startswith(("int M, int D", "cfg.gridDim = dim3(", "static_cast<T*>(out), M",
+                              "int M, int D, float eps", "if (p.cl > RN_MAX_CLUSTER",
+                              "case ", "default: "))
+               for ln in lines), lines
+    # the tree: lanes in vector and element order, an xor butterfly, the
+    # row's segments in order
+    assert "ss = fmaf(xp[k].get(e), xp[k].get(e), ss);" in kernel
+    assert "for (int o = 16; o > 0; o >>= 1) ss = __fadd_rn(ss, __shfl_xor_sync(" in kernel
+    assert "for (int i = 0; i < nseg; ++i) total = __fadd_rn(total, seg_sum[first + i]);" in kernel
+
+
+def _rmsnorm_plan(D, elt):
+    """csrc/rmsnorm.cu::plan: (vectors a lane, warps a row)."""
+    c = _consts("rmsnorm.cu")
+    V = 16 // elt
+    nvec = -(-D // V)
+    vpt = 1
+    while vpt < c["RN_MAX_VPT"] and nvec > 32 * vpt * c["RN_WARPS"]:
+        vpt *= 2
+    nseg = 1
+    while nseg * 32 * vpt < nvec:
+        nseg *= 2
+    return vpt, nseg
+
+
+def _rmsnorm_model(x, scale, eps=1e-5, residual=None):
+    """A plain model of the norm kernel's sum tree, vectorised over rows:
+    element j = ((seg * VPT + k) * 32 + lane) * V + e of a row, zero past
+    D; each lane adds its squares over (k, e) in order; an xor butterfly
+    over the 32 lanes; the segments in order.  Products and sums are each
+    rounded (the kernel fuses them), so it models the order, not the bits."""
+    M, D = x.shape
+    V = 16 // x.element_size()
+    vpt, nseg = _rmsnorm_plan(D, x.element_size())
+    if residual is not None:
+        x = (x.float() + residual.float()).to(x.dtype)
+    xf = x.float()
+    padded = torch.zeros((M, nseg * vpt * 32 * V))
+    padded[:, :D] = xf
+    sq = (padded * padded).reshape(M, nseg, vpt, 32, V)
+    lane = torch.zeros((M, nseg, 32))
+    for k_ in range(vpt):
+        for e in range(V):
+            lane = lane + sq[:, :, k_, :, e]
+    idx = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        lane = lane + lane[..., idx ^ o]
+    total = torch.zeros(M)
+    for s_ in range(nseg):
+        total = total + lane[:, s_, 0]
+    inv = torch.rsqrt(total / D + eps)
+    return (xf * inv[:, None] * scale.float()).to(x.dtype)
+
+
+@pytest.mark.parametrize("d,dtype", [(300, "float32"), (4096, "bfloat16"),
+                                     (256, "bfloat16"), (9000, "bfloat16")])
+@pytest.mark.parametrize("with_res", [False, True])
+def test_rmsnorm_model_matches_refs(d, dtype, with_res):
+    """The norm kernel's sum tree computes the plain version's function and
+    the Pallas kernel's (interpret mode): within 1 ulp of max|out| in the
+    output dtype of ``ref.rmsnorm`` for bf16 (the sum's order moves
+    rsqrt by an f32 ulp or so), 4 for f32, and within the Pallas test's 2
+    ulps of the Pallas kernel."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.rmsnorm import rmsnorm as pallas
+
+    rng = np.random.default_rng(d + 1)
+    x, res = rng.standard_normal((2, 5, d)).astype(np.float32)
+    sc = rng.standard_normal(d).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), jnp.dtype(dtype)
+    tx, tres = torch.from_numpy(x).to(tdt), torch.from_numpy(res).to(tdt)
+    tres = tres if with_res else None
+    got = _rmsnorm_model(tx, torch.from_numpy(sc), residual=tres).float()
+    want = ref.rmsnorm(tx, torch.from_numpy(sc), 1e-5, tres).float()
+    mant = 23 if dtype == "float32" else 7
+    ulp = float(want.abs().max()) * 2.0 ** -mant
+    assert float((got - want).abs().max()) <= (4 if dtype == "float32" else 1) * ulp
+    jres = jnp.asarray(res).astype(jdt) if with_res else None
+    jax_want = np.asarray(pallas(jnp.asarray(x).astype(jdt), jnp.asarray(sc), jres,
+                                 bm=5, interpret=True).astype(jnp.float32))
+    np.testing.assert_allclose(got.numpy(), jax_want, atol=2 * ulp, rtol=0)
+
+
+def test_rmsnorm_model_rows_independent_of_m():
+    """The plan reads D alone, so a row's bits are the same in batches of 1,
+    5 and 13 rows and at any place in them."""
+    rng = np.random.default_rng(50)
+    x = torch.from_numpy(rng.standard_normal((13, 4096)).astype(np.float32)).to(torch.bfloat16)
+    sc = torch.from_numpy(rng.standard_normal(4096).astype(np.float32)).to(torch.bfloat16)
+    full = _rmsnorm_model(x, sc)
+    for m in (1, 5, 13):
+        assert torch.equal(_rmsnorm_model(x[:m], sc), full[:m])
+    assert torch.equal(_rmsnorm_model(x[7:9], sc), full[7:9])
 
 
 # ---------------------------------------------------------------------------
