@@ -45,7 +45,26 @@ the main path) and the gathered lane (``paged_attention=False``):
            kernels' share, and the device's busy share; then a short run of
            every lane and mode,
            whose GEMMs must all run the tensor-core tile (by kernel name);
-6. timings each kernel against its plain version and one PyTorch call,
+6. online  the online runner (``serving.online.run_online``) on the H100
+           cost model's clock at the serve phase's width and capacity: 16
+           ShareGPT-length requests under Poisson arrivals, half of them
+           deterministic (greedy and seeded); it must drain with every
+           latency >= TTFT > 0 while the decode batch changes, two runs must
+           give the same event log and modeled times, and each
+           deterministic request must commit what it commits alone; prints
+           p50/p99 latency and TTFT on the modeled clock beside the CUDA-event
+           device time and host wall time, and first the GEMM calibration of
+           the ``costmodel.H100`` entry (``bi_compute_frac``, ``sat_rows``);
+7. configs tinyllama-1.1b (22 layers), phi3-mini-3.8b (32), internlm2-20b
+           (12 of 48) and command-r-35b (8 of 40) at full width: the
+           attention kernels at each config's (H, KV, D) at the headline and
+           serve shapes against their plain versions with rows across B,
+           the commit GEMM at its LM head (vocab up to 256000) with rows
+           across M, a short paged LLM42 serve whose deterministic streams
+           must be identical alone and beside 3 neighbours (launches reset
+           and checked as in the serve phase), command-r's forward checked
+           for a copy of its tied embedding, and peak device memory;
+8. timings each kernel against its plain version and one PyTorch call,
            beside the least time the card could take (100 launches a
            reading); both GEMMs beside ``torch.matmul`` at every projection
            shape and serve-run M, their device time per forward, and the
@@ -58,7 +77,9 @@ the main path) and the gathered lane (``paged_attention=False``):
 
 The line before the last is a JSON object describing every kernel
 (``launches`` sums the serve runs and the rmsnorm entry-point run,
-``launches_by_mode`` splits them by lane and mode); the last line is
+``launches_by_mode`` splits them by lane and mode and adds the online run's
+and each config's, ``max_abs_err_by_config`` holds the configs phase's
+errors); the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the script exits non-zero without a result when no CUDA device
 is visible or when it runs outside a checkout of the repository.
@@ -66,6 +87,7 @@ is visible or when it runs outside a checkout of the repository.
     python3 chip_smoke.py                 # everything, one card
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,timings
+    python3 chip_smoke.py --phases build,online,configs
 """
 
 from __future__ import annotations
@@ -86,7 +108,8 @@ from pathlib import Path
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "serve", "determinism", "profile", "timings")
+PHASES = ("build", "kernels", "serve", "determinism", "profile", "online", "configs",
+          "timings")
 
 #: per-request KV reach of the serve phase (128 blocks of 16).  The paged
 #: kernels' cost no longer follows the reach (the timings phase times them
@@ -277,20 +300,21 @@ def widen(torch, inputs, nblk):
     return q, k, v, pos, wide, q_pos, ctx
 
 
-def paged_shapes(torch, cfg):
-    """The paged kernels' three shapes, B = 8, blocks of 16: ``headline``
-    (a 128-entry table, contexts in [512, 2048), the kernel table's shape),
-    ``serve`` (a 128-entry table, the serve phase's contexts: 32 prompt
-    tokens and up to 16 new ones) and ``default reach`` (the serve rows
-    with their tables at the engine's default capacity, cfg.max_seq_len: a
-    2056-entry table)."""
+def paged_shapes(torch, cfg, names=("headline", "serve", "default reach")):
+    """The paged kernels' three shapes (those of ``names``), B = 8, blocks
+    of 16: ``headline`` (a 128-entry table, contexts in [512, 2048), the
+    kernel table's shape), ``serve`` (a 128-entry table, the serve phase's
+    contexts: 32 prompt tokens and up to 16 new ones) and ``default reach``
+    (the serve rows with their tables at the engine's default capacity,
+    cfg.max_seq_len: a 2056-entry table)."""
     serve = paged_inputs(torch, cfg, 8, CAPACITY, BLOCK, seed=13, min_ctx=33, max_ctx=49)
-    return {
-        "headline": paged_inputs(torch, cfg, 8, CAPACITY, BLOCK, seed=3,
-                                 min_ctx=512, max_ctx=2048),
-        "serve": serve,
-        "default reach": widen(torch, serve, -(-cfg.max_seq_len // BLOCK)),
+    shapes = {
+        "headline": lambda: paged_inputs(torch, cfg, 8, CAPACITY, BLOCK, seed=3,
+                                         min_ctx=512, max_ctx=2048),
+        "serve": lambda: serve,
+        "default reach": lambda: widen(torch, serve, -(-cfg.max_seq_len // BLOCK)),
     }
+    return {name: shapes[name]() for name in names}
 
 
 def long_inputs(torch, cfg):
@@ -320,9 +344,13 @@ def decode_inputs(torch, B, S, H, KV, D, seed, min_len, max_len, dt=None):
     return q, k, v, lengths
 
 
-def decode_shapes(torch, cfg):
-    """The dense decode kernel's five shapes at Llama-3-8B's heads, bf16,
-    mirroring ``paged_shapes``: ``headline`` (B = 8 over a 2048-slot view,
+DECODE_SHAPES = ("headline", "serve", "default reach", "B=64", "long")
+
+
+def decode_shapes(torch, cfg, names=DECODE_SHAPES):
+    """The dense decode kernel's five shapes (those of ``names``) at the
+    config's heads (Llama-3-8B's in the kernels phase), bf16, mirroring
+    ``paged_shapes``: ``headline`` (B = 8 over a 2048-slot view,
     lengths in [512, 2048)), ``serve`` (the serve phase's lengths: 32 prompt
     tokens plus up to 16 committed and 7 speculated), ``default reach`` (the
     serve rows in a view of cfg.max_seq_len slots, the engine's default
@@ -331,22 +359,27 @@ def decode_shapes(torch, cfg):
     over 16384 slots, lengths in [8192, 16384))."""
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     serve = decode_inputs(torch, 8, 2048, H, KV, D, seed=8, min_len=33, max_len=56)
-    q, k, v, lens = serve
-    g = torch.Generator(device=DEV).manual_seed(17)
-    wide = [torch.randn((8, cfg.max_seq_len, KV, D), generator=g, device=DEV).to(k.dtype)
-            for _ in range(2)]
-    for w, t in zip(wide, (k, v)):
-        w[:, : t.shape[1]] = t
-    return {
-        "headline": decode_inputs(torch, 8, 2048, H, KV, D, seed=3, min_len=512,
-                                  max_len=2048),
-        "serve": serve,
-        "default reach": (q, wide[0], wide[1], lens),
-        "B=64": decode_inputs(torch, 64, 2048, H, KV, D, seed=16, min_len=512,
-                              max_len=2048),
-        "long": decode_inputs(torch, 8, 16384, H, KV, D, seed=14, min_len=8192,
-                              max_len=16384),
+
+    def default_reach():
+        q, k, v, lens = serve
+        g = torch.Generator(device=DEV).manual_seed(17)
+        wide = [torch.randn((8, cfg.max_seq_len, KV, D), generator=g,
+                            device=DEV).to(k.dtype) for _ in range(2)]
+        for w, t in zip(wide, (k, v)):
+            w[:, : t.shape[1]] = t
+        return q, wide[0], wide[1], lens
+
+    shapes = {
+        "headline": lambda: decode_inputs(torch, 8, 2048, H, KV, D, seed=3,
+                                          min_len=512, max_len=2048),
+        "serve": lambda: serve,
+        "default reach": default_reach,
+        "B=64": lambda: decode_inputs(torch, 64, 2048, H, KV, D, seed=16,
+                                      min_len=512, max_len=2048),
+        "long": lambda: decode_inputs(torch, 8, 16384, H, KV, D, seed=14,
+                                      min_len=8192, max_len=16384),
     }
+    return {name: shapes[name]() for name in names}
 
 
 def decode_bound(q, k, lengths):
@@ -504,57 +537,72 @@ PAGED_ROWS = ((5,), (5, 1, 6), tuple(range(8)) + (0, 1, 2, 3, 4))
 FAST_CASES = ((4, "bfloat16"), (8, "bfloat16"), (4, "float32"))
 
 
+def paged_commit_case(torch, label, inp, phase="kernels"):
+    """The commit paged kernel against its plain version on ``inp``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    q, k, v, pos, tab, qp, ctx = inp
+    out = paged_attention(q, k, v, pos, tab, qp)
+    want = ref.paged_attention(q, k, v, pos, tab, qp)
+    err = float((out - want).abs().max())
+    log(f"[{phase}] paged_attention {label}: B={q.shape[0]} nblk={tab.shape[1]} "
+        f"bs={k.shape[1]} H={q.shape[1]} KV={k.shape[2]} D={q.shape[2]} "
+        f"{str(q.dtype)[6:]}, {int(ctx.sum())} keys: max_abs_err {err:.3e} "
+        f"(tol {ATTN_TOL:g})")
+    require(err <= ATTN_TOL, f"paged_attention disagrees with its plain version ({label})")
+    return out, err
+
+
+def paged_fast_case(torch, label, inp, splits, cd, phase="kernels"):
+    """The fast paged kernel against its plain version on ``inp``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention_fast
+
+    out = paged_attention_fast(*inp[:6], kv_splits=splits, combine_dtype=cd)
+    want = ref.paged_attention_fast(*inp[:6], kv_splits=splits, combine_dtype=cd)
+    err = float((out - want).abs().max())
+    tol = FAST_ATTN_TOL[cd]
+    log(f"[{phase}] paged_attention_fast {label} kv_splits={splits} {cd}: "
+        f"max_abs_err {err:.3e} (tol {tol:g})")
+    require(err <= tol, f"paged_attention_fast disagrees with its plain version ({label})")
+    return out, want, err
+
+
+def paged_rows_invariant(torch, label, inp, out, phase="kernels"):
+    """The commit paged kernel's rows of ``out`` keep their bits at B in
+    {1, 3, 13} (PAGED_ROWS), and a launch repeats bitwise."""
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    q, k, v, pos, tab, qp, _ = inp
+    for rows in PAGED_ROWS:
+        sel = torch.tensor(rows, device=DEV)
+        part = paged_attention(q[sel].contiguous(), k, v, pos, tab[sel].contiguous(),
+                               qp[sel].contiguous())
+        require(torch.equal(part, out[sel]),
+                f"paged_attention rows change at B={len(rows)} ({label})")
+    require(torch.equal(out, paged_attention(q, k, v, pos, tab, qp)),
+            f"paged_attention is not repeatable ({label})")
+    log(f"[{phase}] paged_attention {label}: rows bitwise identical for B in "
+        f"{{1,3,8,13}}; repeatable")
+
+
 def check_paged_attention(torch, cfg, results) -> None:
     """Kernels 3 and 4 at each of ``paged_shapes``, a long context and odd
     block sizes, widths and head groups, against their plain versions; the
     commit kernel's rows bitwise identical for B in {1, 3, 8, 13}, across
     launches, and at a 128- and a 2056-entry table; the fast kernel's split
     and combine sensitivity at the headline shape."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_fast
-
-    def commit_case(label, inp):
-        q, k, v, pos, tab, qp, ctx = inp
-        out = paged_attention(q, k, v, pos, tab, qp)
-        want = ref.paged_attention(q, k, v, pos, tab, qp)
-        err = float((out - want).abs().max())
-        log(f"[kernels] paged_attention {label}: B={q.shape[0]} nblk={tab.shape[1]} "
-            f"bs={k.shape[1]} H={q.shape[1]} KV={k.shape[2]} D={q.shape[2]} "
-            f"{str(q.dtype)[6:]}, {int(ctx.sum())} keys: max_abs_err {err:.3e} "
-            f"(tol {ATTN_TOL:g})")
-        require(err <= ATTN_TOL, f"paged_attention disagrees with its plain version ({label})")
-        return out, err
-
-    def fast_case(label, inp, splits, cd):
-        out = paged_attention_fast(*inp[:6], kv_splits=splits, combine_dtype=cd)
-        want = ref.paged_attention_fast(*inp[:6], kv_splits=splits, combine_dtype=cd)
-        err = float((out - want).abs().max())
-        tol = FAST_ATTN_TOL[cd]
-        log(f"[kernels] paged_attention_fast {label} kv_splits={splits} {cd}: "
-            f"max_abs_err {err:.3e} (tol {tol:g})")
-        require(err <= tol, f"paged_attention_fast disagrees with its plain version ({label})")
-        return out, want, err
-
     worst = worst_fast = 0.0
     shapes = paged_shapes(torch, cfg)
     commit_out = {}
     for label, inp in shapes.items():
-        out, err = commit_case(label, inp)
+        out, err = paged_commit_case(torch, label, inp)
         worst = max(worst, err)
         commit_out[label] = out
-        q, k, v, pos, tab, qp, _ = inp
-        for rows in PAGED_ROWS:
-            sel = torch.tensor(rows, device=DEV)
-            part = paged_attention(q[sel].contiguous(), k, v, pos, tab[sel].contiguous(),
-                                   qp[sel].contiguous())
-            require(torch.equal(part, out[sel]),
-                    f"paged_attention rows change at B={len(rows)} ({label})")
-        require(torch.equal(out, paged_attention(q, k, v, pos, tab, qp)),
-                f"paged_attention is not repeatable ({label})")
-        log(f"[kernels] paged_attention {label}: rows bitwise identical for B in "
-            f"{{1,3,8,13}}; repeatable")
+        paged_rows_invariant(torch, label, inp, out)
         for splits, cd in FAST_CASES:
-            worst_fast = max(worst_fast, fast_case(label, inp, splits, cd)[2])
+            worst_fast = max(worst_fast, paged_fast_case(torch, label, inp, splits, cd)[2])
     require(torch.equal(commit_out["serve"], commit_out["default reach"]),
             "paged_attention rows change with the table reach")
     log("[kernels] paged_attention serve rows bitwise identical at a 128- and a "
@@ -565,7 +613,8 @@ def check_paged_attention(torch, cfg, results) -> None:
     head = shapes["headline"]
     outs, wants = {}, {}
     for splits, cd in FAST_CASES + ((1, "bfloat16"), (1, "float32")):
-        outs[splits, cd], wants[splits, cd], err = fast_case("headline", head, splits, cd)
+        outs[splits, cd], wants[splits, cd], err = paged_fast_case(
+            torch, "headline", head, splits, cd)
         worst_fast = max(worst_fast, err)
     # the bf16 rounding of e is the TPU kernel's defining rounding point: in
     # every row the kernel's bf16-combine output must sit far closer to the
@@ -591,9 +640,9 @@ def check_paged_attention(torch, cfg, results) -> None:
     # a long context: a fast-kernel CTA's keys exceed its score buffer (K
     # read twice)
     inp = long_inputs(torch, cfg)
-    worst = max(worst, commit_case("long", inp)[1])
+    worst = max(worst, paged_commit_case(torch, "long", inp)[1])
     for splits, cd in ((1, "bfloat16"), (1, "float32"), (4, "bfloat16")):
-        worst_fast = max(worst_fast, fast_case("long", inp, splits, cd)[2])
+        worst_fast = max(worst_fast, paged_fast_case(torch, "long", inp, splits, cd)[2])
     del inp
 
     # odd shapes: one-key blocks (a table slice of several compaction
@@ -605,9 +654,9 @@ def check_paged_attention(torch, cfg, results) -> None:
             ("bs=24", dict(num_heads=24, num_kv_heads=4, head_dim=96), 3, 600, 24, 1, 600, 5)):
         small = dataclasses.replace(cfg, **sub)
         inp = paged_inputs(torch, small, B, cap, bs, seed=15, min_ctx=lo, max_ctx=hi)
-        worst = max(worst, commit_case(label, inp)[1])
+        worst = max(worst, paged_commit_case(torch, label, inp)[1])
         for sp, cd in ((1, "bfloat16"), (splits, "bfloat16"), (splits, "float32")):
-            worst_fast = max(worst_fast, fast_case(label, inp, sp, cd)[2])
+            worst_fast = max(worst_fast, paged_fast_case(torch, label, inp, sp, cd)[2])
         del inp
     results["paged_attention"]["max_abs_err"] = worst
     results["paged_attention_fast"]["max_abs_err"] = worst_fast
@@ -712,6 +761,47 @@ def rows_invariant(torch, fn, inputs, name):
 DECODE_CASES = ((4, "bfloat16"), (1, "float32"))
 
 
+def decode_case(torch, label, inp, splits, cd, phase="kernels"):
+    """The dense decode kernel against its plain version on ``inp``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    q, k, v, lens = inp
+    out = decode_attention(q, k, v, lens, kv_splits=splits, combine_dtype=cd)
+    want = ref.decode_attention(q, k, v, lens, splits, cd)
+    sync(torch)
+    err = float((out.float() - want.float()).abs().max())
+    ulp = ulp_of(float(want.float().abs().max()), 7)
+    B, S, KV, D = k.shape
+    log(f"[{phase}] decode_attention {label}: B={B} S={S} H={q.shape[1]} KV={KV} "
+        f"D={D} {str(q.dtype)[6:]}, {int(lens.clamp(0, S).sum())} keys, "
+        f"kv_splits={splits} {cd}: max_abs_err {err:.3e} = {err / ulp:.2f} bf16 "
+        f"ulps (tol {DECODE_ULPS[cd]})")
+    require(err <= DECODE_ULPS[cd] * ulp,
+            f"decode_attention disagrees with its plain version ({label})")
+    if bool((lens <= 0).any()):
+        require(not bool(out[lens <= 0].float().abs().max()), "length 0 must give 0")
+    return out, err
+
+
+def decode_rows_invariant(torch, label, inp, out, phase="kernels"):
+    """At kv_splits 1 the rows of ``out`` keep their bits at B in {1, 3,
+    13} (PAGED_ROWS), and a launch repeats bitwise."""
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    q, k, v, lens = inp
+    for rows in PAGED_ROWS:
+        sel = torch.tensor(rows, device=DEV)
+        part = decode_attention(q[sel].contiguous(), k[sel].contiguous(),
+                                v[sel].contiguous(), lens[sel].contiguous())
+        require(torch.equal(part, out[sel]),
+                f"decode_attention rows change at B={len(rows)} ({label})")
+    require(torch.equal(out, decode_attention(q, k, v, lens)),
+            f"decode_attention is not repeatable ({label})")
+    log(f"[{phase}] decode_attention {label} kv_splits=1: rows bitwise identical "
+        f"for B in {{1,3,8,13}}; repeatable")
+
+
 def check_decode_attention(torch, cfg, results) -> None:
     """Kernel 5, the gathered lane's W == 1 attention, at each of
     ``decode_shapes`` and at D = 64, against its plain version; at kv_splits
@@ -720,44 +810,15 @@ def check_decode_attention(torch, cfg, results) -> None:
     with f32 operands; a row's bits at places 5/17/199 of a batch."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
-
-    def case(label, inp, splits, cd):
-        q, k, v, lens = inp
-        out = decode_attention(q, k, v, lens, kv_splits=splits, combine_dtype=cd)
-        want = ref.decode_attention(q, k, v, lens, splits, cd)
-        sync(torch)
-        err = float((out.float() - want.float()).abs().max())
-        ulp = ulp_of(float(want.float().abs().max()), 7)
-        B, S, KV, D = k.shape
-        log(f"[kernels] decode_attention {label}: B={B} S={S} H={q.shape[1]} KV={KV} "
-            f"D={D} {str(q.dtype)[6:]}, {int(lens.clamp(0, S).sum())} keys, "
-            f"kv_splits={splits} {cd}: max_abs_err {err:.3e} = {err / ulp:.2f} bf16 "
-            f"ulps (tol {DECODE_ULPS[cd]})")
-        require(err <= DECODE_ULPS[cd] * ulp,
-                f"decode_attention disagrees with its plain version ({label})")
-        if bool((lens <= 0).any()):
-            require(not bool(out[lens <= 0].float().abs().max()), "length 0 must give 0")
-        return out, err
-
     worst = 0.0
     commit_out = {}
     for label, inp in decode_shapes(torch, cfg).items():
         for splits, cd in DECODE_CASES:
-            out, err = case(label, inp, splits, cd)
+            out, err = decode_case(torch, label, inp, splits, cd)
             worst = max(worst, err)
         commit_out[label] = out  # kv_splits 1, f32 combine
-        q, k, v, lens = inp
-        for rows in PAGED_ROWS:
-            sel = torch.tensor(rows, device=DEV)
-            part = decode_attention(q[sel].contiguous(), k[sel].contiguous(),
-                                    v[sel].contiguous(), lens[sel].contiguous())
-            require(torch.equal(part, out[sel]),
-                    f"decode_attention rows change at B={len(rows)} ({label})")
-        require(torch.equal(out, decode_attention(q, k, v, lens)),
-                f"decode_attention is not repeatable ({label})")
-        log(f"[kernels] decode_attention {label} kv_splits=1: rows bitwise identical "
-            f"for B in {{1,3,8,13}}; repeatable")
-        del inp, q, k, v
+        decode_rows_invariant(torch, label, inp, out)
+        del inp
     require(torch.equal(commit_out["serve"], commit_out["default reach"]),
             "decode_attention rows change with the view length S")
     log("[kernels] decode_attention serve rows bitwise identical in a 2048- and a "
@@ -769,7 +830,7 @@ def check_decode_attention(torch, cfg, results) -> None:
     lens[0], lens[1] = 0, 2048
     for splits in (1, 3, 4):
         for cd in ("float32", "bfloat16"):
-            worst = max(worst, case("D=64", (q, k, v, lens), splits, cd)[1])
+            worst = max(worst, decode_case(torch, "D=64", (q, k, v, lens), splits, cd)[1])
     results["decode_attention"]["max_abs_err"] = worst
     # f32 operands: the combine rounding is the kernel's only bf16 step, so
     # its bf16-combine output must sit far closer to the plain bf16
@@ -1255,7 +1316,554 @@ def engine_events(eng):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: timings
+# phases 6 and 7: online, configs
+# ---------------------------------------------------------------------------
+
+#: the online phase's traffic: ShareGPT-length requests (prompts of at most
+#: 256 tokens, at most 32 new tokens), Poisson arrivals at ONLINE_QPS a
+#: second of modeled time.  At Llama-3-8B's width the H100 model prices a
+#: decode pass at about 5 ms (16 GB of weights over 3.35 TB/s), so a
+#: request of 32 new tokens lives about 0.2 modeled seconds, and 40
+#: arrivals a second keep several requests in flight while others arrive
+#: and retire: the decode batch changes throughout the run (checked)
+ONLINE_REQUESTS, ONLINE_QPS, ONLINE_MAX_OUT = 16, 40.0, 32
+
+#: M of the GEMM calibration: the serve runs' decode batch (8), a verify
+#: pass (32), up to where the commit GEMM's time grows with M
+CALIBRATION_MS = (8, 16, 32, 64, 128, 256, 512, 1024)
+
+#: how far the measured GEMM ratio (capped at 1: a commit GEMM faster than
+#: split-K is no gain the model gives) may lie from costmodel.H100's
+#: bi_compute_frac and bi_mem_frac
+CALIBRATION_FRAC_TOL = 0.05
+
+
+def strip_wall(ev):
+    """An engine event without its host wall times, the one field that
+    differs between two runs of one schedule."""
+    if isinstance(ev, dict):
+        return {k: strip_wall(v) for k, v in ev.items() if k != "wall"}
+    if isinstance(ev, (list, tuple)):
+        return type(ev)(strip_wall(v) for v in ev)
+    return ev
+
+
+def online_requests(cfg):
+    """ONLINE_REQUESTS ShareGPT-length requests from
+    ``launch/serve.py::build_requests``; the even rids deterministic, alternately greedy and seeded at
+    temperature 0.8."""
+    from repro_torch.launch.serve import build_requests
+
+    reqs = build_requests(cfg, ONLINE_REQUESTS, det_ratio=0.0, max_out=ONLINE_MAX_OUT,
+                          seed=0, workload="sharegpt")
+    for r in reqs:
+        r.sampling.is_deterministic = r.rid % 2 == 0
+        if r.rid % 4 == 2:
+            r.sampling.temperature = 0.8
+    return reqs
+
+
+def gemm_calibration(torch, cfg, summary) -> None:
+    """The H100 cost-model entry's GEMM fields, measured on this card and
+    held to the entry's values: the commit GEMM (4 chunks) at (K, N) =
+    (d_model, d_ff) for each M of CALIBRATION_MS, and the split-K GEMM at
+    the decode batch, M = 8, under FAST_PATH_POLICY's schedule.  ``bi_compute_frac`` = split-K time /
+    commit time at M = 8; ``sat_rows`` = the largest M up to which the
+    commit GEMM's time stays within 10 % of its time at M = 8 (the rows a
+    pass can add before the GEMM's time follows them)."""
+    from repro_torch.core.determinism import CANONICAL_TP_SHARDS, FAST_PATH_POLICY
+    from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
+    from repro_torch.kernels.gemm_splitk import gemm_splitk
+    from repro_torch.serving import costmodel
+
+    g = torch.Generator(device=DEV).manual_seed(12)
+    K, N = cfg.d_model, cfg.d_ff
+    w = (torch.randn((K, N), generator=g, device=DEV) * K ** -0.5).to(torch.bfloat16)
+    x = torch.randn((max(CALIBRATION_MS), K), generator=g, device=DEV).to(torch.bfloat16)
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    commit = {M: time_ms(torch, lambda: gemm_batch_invariant(
+        x[:M], w, chunks=CANONICAL_TP_SHARDS), reps=50, flush=scratch.zero_)
+        for M in CALIBRATION_MS}
+    s = FAST_PATH_POLICY.schedule_for(8)
+    split = time_ms(torch, lambda: gemm_splitk(x[:8], w, splits=s.splits,
+                                               combine_dtype=s.combine_dtype),
+                    reps=50, flush=scratch.zero_)
+    sat = CALIBRATION_MS[0]
+    for M in CALIBRATION_MS:
+        if commit[M] > 1.1 * commit[8]:
+            break
+        sat = M
+    frac = split / commit[8]
+    hw = costmodel.H100
+    log(f"[online] H100 entry calibration, commit GEMM (M,{K})@({K},{N}) chunks=4 "
+        "(ms, median of 50, L2 flushed): " + ", ".join(
+            f"M={M} {t:.4f}" for M, t in commit.items())
+        + f"; split-K at M=8, splits={s.splits} {s.combine_dtype} combine: {split:.4f} ms")
+    log(f"[online] measured bi_compute_frac = {split:.4f} / {commit[8]:.4f} = "
+        f"{frac:.4f}, sat_rows = {sat}; costmodel.H100 holds bi_compute_frac "
+        f"{hw.bi_compute_frac}, bi_mem_frac {hw.bi_mem_frac}, sat_rows {hw.sat_rows}")
+    summary["h100_calibration"] = {"commit_ms": commit, "splitk_ms_m8": split,
+                                   "bi_compute_frac": frac, "sat_rows": sat}
+    require(sat == hw.sat_rows, f"measured sat_rows {sat} is not costmodel.H100's "
+            f"{hw.sat_rows}")
+    require(all(abs(min(frac, 1.0) - f) <= CALIBRATION_FRAC_TOL
+                for f in (hw.bi_compute_frac, hw.bi_mem_frac)),
+            f"measured bi_compute_frac {frac:.4f} (capped at 1) is more than "
+            f"{CALIBRATION_FRAC_TOL} from costmodel.H100's")
+    del w, x, scratch
+
+
+def phase_online(torch, cfg, params, capacity, results, summary) -> None:
+    """The online runner (``serving.online.run_online``) on the card at the
+    serve phase's width, depth and capacity, on the H100 cost model's
+    clock: ONLINE_REQUESTS ShareGPT-length requests under Poisson arrivals,
+    half of them deterministic.  It must drain with every latency >= TTFT >
+    0 and the decode batch changing; launches reset just before and read
+    just after; two runs give the same event log and the same modeled
+    times; each deterministic request commits what it commits alone."""
+    from repro_torch.core.determinism import Mode
+    from repro_torch.serving import costmodel
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.online import percentile, run_online
+    from repro_torch.training.data import poisson_arrivals
+
+    gemm_calibration(torch, cfg, summary)
+    arrivals = poisson_arrivals(ONLINE_REQUESTS, ONLINE_QPS, seed=0)
+    first = online_requests(cfg)
+    det = [r.rid for r in first if r.sampling.is_deterministic]
+    log(f"[online] {cfg.name}: {cfg.num_layers} layers, capacity {capacity}; "
+        f"{ONLINE_REQUESTS} ShareGPT-length requests (prompts "
+        f"{min(len(r.prompt) for r in first)}-{max(len(r.prompt) for r in first)} "
+        f"tokens, {min(r.sampling.max_new_tokens for r in first)}-"
+        f"{max(r.sampling.max_new_tokens for r in first)} new), deterministic rids "
+        f"{det} (greedy and seeded), Poisson arrivals at {ONLINE_QPS}/s over "
+        f"{arrivals[-1] * 1e3:.1f} ms of modeled time; clock costmodel.H100 at "
+        f"{cfg.name}'s scale")
+    runs = []
+    for i in range(2):
+        gc.collect()
+        eng = Engine(cfg, params, mode=Mode.LLM42, capacity=capacity)
+        reqs = online_requests(cfg)
+        sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        fns = reset_launches()
+        start.record()
+        t0 = time.perf_counter()
+        res = run_online(eng, cfg, list(zip(reqs, arrivals)), hw=costmodel.H100)
+        end.record()
+        end.synchronize()
+        host_s = time.perf_counter() - t0
+        counts = {name: fn.launches for name, fn in fns.items()}
+        device_s = start.elapsed_time(end) / 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        run = f"online run {i + 1}"
+        require(len(res.latencies) == ONLINE_REQUESTS and len(eng.finished) == ONLINE_REQUESTS,
+                f"{run}: did not drain")
+        require(all(res.latencies[r] >= res.ttfts[r] > 0 for r in res.latencies),
+                f"{run}: a latency below its TTFT, or a TTFT of 0")
+        want = expected_launches(cfg, eng, True)
+        log(f"[online] {run}: kernel launches {counts}; from the engine's passes {want}")
+        require(counts == want, f"{run}: launches do not match the passes run")
+        for name, n in counts.items():
+            on_path = name in PATH_KERNELS["paged", "llm42"]
+            require((n > 0) == on_path, f"{run}: {name} launched {n} times")
+        batches = sorted({ev["batch"] for ev in engine_events(eng) if ev["kind"] == "decode"})
+        require(len(batches) >= 3, f"{run}: the decode batch took only sizes {batches}")
+        lat = sorted(res.latencies.values())
+        ttft = sorted(res.ttfts.values())
+        rt = eng.runtime
+        log(f"[online] {run}: drained {ONLINE_REQUESTS} requests, {res.out_tokens} "
+            f"tokens committed in {eng._now} iterations, rollbacks "
+            f"{sum(r.num_rollbacks for r in eng.finished)}, decode batch sizes "
+            f"{batches}, peak running {eng.peak_running}")
+        log(f"[online] {run}: modeled (costmodel.H100, not a measurement): total "
+            f"{res.total_time * 1e3:.3f} ms, latency p50 "
+            f"{percentile(lat, 50) * 1e3:.3f} / p99 {percentile(lat, 99) * 1e3:.3f} ms, "
+            f"TTFT p50 {percentile(ttft, 50) * 1e3:.3f} / p99 "
+            f"{percentile(ttft, 99) * 1e3:.3f} ms; main-stream busy "
+            f"{rt.main.busy * 1e3:.3f} ms, verify-stream busy {rt.verify.busy * 1e3:.3f} ms")
+        log(f"[online] {run}: measured: CUDA-event device time {device_s:.3f} s, host "
+            f"wall {host_s:.3f} s ({device_s / max(rt.main.busy, 1e-12):.1f}x the "
+            f"modeled main-stream busy time); peak device memory {peak:.3f} GiB")
+        runs.append((eng, res))
+        summary[f"online_{i + 1}"] = dict(
+            total_time_s=res.total_time, latency_p50_s=percentile(lat, 50),
+            latency_p99_s=percentile(lat, 99), ttft_p50_s=percentile(ttft, 50),
+            ttft_p99_s=percentile(ttft, 99), main_busy_s=rt.main.busy,
+            verify_busy_s=rt.verify.busy, device_s=device_s, host_s=host_s,
+            iterations=eng._now, committed=res.out_tokens, peak_mem_gib=peak,
+            launches=counts)
+        if i == 0:
+            for name, n in counts.items():
+                results[name]["launches_by_mode"]["online/paged/llm42"] = n
+    (e1, r1), (e2, r2) = runs
+    same = (strip_wall(e1.events) == strip_wall(e2.events)
+            and r1.total_time == r2.total_time and r1.latencies == r2.latencies
+            and r1.ttfts == r2.ttfts)
+    log(f"[online] runs 1 and 2: same event log ({len(e1.events)} events, wall "
+        f"times aside) and the same modeled total, latencies and TTFTs: {same}")
+    require(same, "two online runs differ")
+    online = {r.rid: r.committed for r in e1.finished}
+    del runs, e1, e2
+    for req in online_requests(cfg):
+        if not req.sampling.is_deterministic:
+            continue
+        gc.collect()
+        solo = Engine(cfg, params, mode=Mode.LLM42, capacity=capacity)
+        solo.submit(req)
+        got = solo.run()[0].committed
+        require(got == online[req.rid],
+                f"online rid {req.rid}: committed stream differs from the request alone")
+        del solo
+    log(f"[online] deterministic rids {det}: committed streams online equal the "
+        f"same requests served alone")
+
+
+#: the configs phase: each new dense config at full width.  Depth is full
+#: for tinyllama (22) and phi3 (32).  command-r's 61 GB of bf16 weights (65
+#: with the tied unembedding copy) leave no room for the run on one 80 GB
+#: card, so it runs 8 of 40 layers; internlm2's 40 GB would fit, and it runs
+#: 12 of 48 to keep its host-bound serve runs (time grows with depth) short
+CONFIG_DEPTHS = {"tinyllama-1.1b": None, "phi3-mini-3.8b": None,
+                 "internlm2-20b": 12, "command-r-35b": 8}
+
+#: the fast paged kernel's bf16 combine at the configs' head shapes.  Its
+#: e = exp(s - m) is rounded to bf16, and it sums each f32 score s in
+#: another order than its plain version: an e whose f32 value lies near a
+#: bf16 rounding midpoint rounds to one neighbour in the kernel and to the
+#: other in the plain version.  Such a flip, one bf16 ulp (<= 2^-7 e), moves
+#: the row's outputs by up to 2^-7 |v_j - o| / d, which at few keys a row
+#: (d small) lies far past FAST_ATTN_TOL's 1e-4, measured at Llama-3-8B's
+#: heads.  So an output beyond FAST_ATTN_TOL passes only where its (row,
+#: head) slice is explained: the plain version with at most FLIP_MAX of the
+#: slice's e rounded to their other neighbour, each e within FLIP_WINDOW
+#: (relative) of a rounding midpoint in the plain version's f32, comes
+#: within FAST_ATTN_TOL of the kernel on the whole slice.  The mean error,
+#: which isolated flips hardly move, is held to FAST_BF16_MEAN_RATIO of the
+#: plain bf16 and f32 versions' mean gap: the kernel rounds e where the
+#: plain version does
+FLIP_WINDOW = 2.0 ** -16
+FLIP_MAX = 3
+FAST_BF16_MEAN_RATIO = 0.25
+
+#: more draws of the serve shape (seed 13 is its own) for the bf16 combine:
+#: at few keys a row flips show the most
+FLIP_SEEDS = (21, 34)
+
+#: host ops that copy a tensor: none may take the whole embedding
+COPY_OPS = ("aten::copy_", "aten::clone", "aten::contiguous", "aten::_to_copy", "aten::to")
+
+
+def fast_bf16_parts(torch, inp, splits):
+    """``ref.paged_attention_fast`` with the bf16 combine, step for step,
+    keeping what a flip of one e needs: per key its f32 e before rounding,
+    the rounded e and its split's factor exp(m_c - m) into the merged row,
+    and the row's merged f32 numerator and denominator.  Returns (out, e32,
+    e, factor, acc, d, v) with e32, e and factor (B, KV, G, keys), acc (B,
+    KV, G, D), d (B, KV, G) and v the gathered (B, keys, KV, D) values."""
+    from repro_torch.kernels import ref
+
+    q, k_pool, v_pool, pos_pool, tables, q_pos = inp[:6]
+    B, H, D = q.shape
+    KV, bs, nblk = k_pool.shape[2], k_pool.shape[1], tables.shape[1]
+    kf, vf, pos = ref._view(k_pool, v_pool, pos_pool, tables, None)
+    valid = (pos >= 0) & (pos <= q_pos[:, None])
+    qg = ref._scaled_q(q, KV)
+    per = nblk // splits * bs
+    m = d = acc = None
+    e32s, es, ms = [], [], []
+    for sp in range(splits):
+        sl = slice(sp * per, (sp + 1) * per)
+        s = ref._scores(qg, kf[:, sl], valid[:, sl])
+        m_c = s.amax(dim=-1).clamp_min(-1e30)
+        e32 = torch.exp(s - m_c[..., None])
+        e = e32.to(torch.bfloat16).to(torch.float32)
+        d_c = e.sum(dim=-1)
+        o_c = torch.einsum("bkgs,bskd->bkgd", e, vf[:, sl])
+        if m is None:
+            m, d, acc = m_c, d_c, o_c
+        else:
+            m_new = torch.maximum(m, m_c)
+            a_prev, a_c = torch.exp(m - m_new), torch.exp(m_c - m_new)
+            d = d * a_prev + d_c * a_c
+            acc = acc * a_prev[..., None] + o_c * a_c[..., None]
+            m = m_new
+        e32s.append(e32)
+        es.append(e)
+        ms.append(m_c)
+    factor = torch.cat([torch.exp(m_c - m)[..., None].expand_as(e) for m_c, e in zip(ms, es)],
+                       dim=-1)
+    out = (acc / d.clamp_min(1e-30)[..., None]).reshape(B, H, D)
+    return out, torch.cat(e32s, dim=-1), torch.cat(es, dim=-1), factor, acc, d, vf
+
+
+def explain_flips(torch, parts, out):
+    """Each (row, head) slice of ``out`` with an output beyond
+    FAST_ATTN_TOL of the plain version (``parts``, from
+    ``fast_bf16_parts``), explained greedily: of the slice's keys whose f32
+    e lies within FLIP_WINDOW of a bf16 rounding midpoint, up to FLIP_MAX
+    are rounded to their other neighbour in the plain version, each the one
+    that brings the slice closest to the kernel's.  Returns one dict a
+    slice: its row, head, error, the keys flipped (with their f32 e and its
+    relative distance from the midpoint) and the slice's error after the
+    flips."""
+    want, e32, e, factor, acc, d, vf = parts
+    B, H, D = out.shape
+    G = H // vf.shape[2]
+    tol = FAST_ATTN_TOL["bfloat16"]
+    diff = (out - want).abs()
+    low = (e32.view(torch.int32) & -65536).view(torch.float32)
+    high = ((e32.view(torch.int32) & -65536) + 65536).view(torch.float32)
+    gap = (e32 - (low + high) / 2).abs() / e32.clamp_min(1e-30)
+    near = (e32 > 0) & (gap <= FLIP_WINDOW)
+    delta = torch.where(e == low, high, low) - e
+    slices = []
+    for b, h in (diff.amax(dim=-1) > tol).nonzero().tolist():
+        kv, gi = divmod(h, G)
+        keys = near[b, kv, gi].nonzero().flatten().tolist()
+
+        def resid(js):
+            w = delta[b, kv, gi, js] * factor[b, kv, gi, js]
+            o = (acc[b, kv, gi] + w @ vf[b, js, kv]) / (d[b, kv, gi] + w.sum())
+            return float((o - out[b, h]).abs().max())
+
+        chosen, best = [], float(diff[b, h].max())
+        while best > tol and len(chosen) < FLIP_MAX:
+            trials = [(resid(chosen + [j]), j) for j in keys if j not in chosen]
+            if not trials or min(trials)[0] >= best:
+                break
+            best, j = min(trials)
+            chosen.append(j)
+        slices.append(dict(row=b, head=h, err=float(diff[b, h].max()), resid=best,
+                           flips=[(j, float(e32[b, kv, gi, j]), float(gap[b, kv, gi, j]))
+                                  for j in chosen]))
+    return slices
+
+
+def paged_fast_bf16_case(torch, label, inp, splits):
+    """The fast paged kernel with the bf16 combine against its plain
+    version, held as FLIP_WINDOW, FLIP_MAX and FAST_BF16_MEAN_RATIO say:
+    each output within FAST_ATTN_TOL, or its slice explained by flips of
+    e (``explain_flips``); the mean error within the ratio."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention_fast
+
+    out = paged_attention_fast(*inp[:6], kv_splits=splits, combine_dtype="bfloat16")
+    want = ref.paged_attention_fast(*inp[:6], kv_splits=splits, combine_dtype="bfloat16")
+    want32 = ref.paged_attention_fast(*inp[:6], kv_splits=splits, combine_dtype="float32")
+    parts = fast_bf16_parts(torch, inp, splits)
+    require(torch.equal(parts[0], want), f"fast_bf16_parts is not the plain version ({label})")
+    diff = (out - want).abs()
+    err, mean_err = float(diff.max()), float(diff.mean())
+    gap = float((want - want32).abs().mean())
+    slices = explain_flips(torch, parts, out)
+    tol = FAST_ATTN_TOL["bfloat16"]
+    log(f"[configs] paged_attention_fast {label} kv_splits={splits} bfloat16: "
+        f"max_abs_err {err:.3e}, mean {mean_err:.3e} = {mean_err / max(gap, 1e-30):.3f} of "
+        f"the plain bf16-f32 mean gap {gap:.3e} (limit {FAST_BF16_MEAN_RATIO}); "
+        f"{int((diff > 0).sum())} of {out.numel()} differ, {len(slices)} (row, head) "
+        f"slices beyond {tol:g}")
+    for sl in slices:
+        flips = ", ".join(f"key {j} (plain f32 e {e:.9g}, {g:.2e} from a bf16 midpoint)"
+                          for j, e, g in sl["flips"])
+        log(f"[configs]   row {sl['row']} head {sl['head']}: max_abs_err {sl['err']:.3e}; "
+            f"plain with e rounded the other way at {flips or 'no key'}: {sl['resid']:.3e} "
+            f"(tol {tol:g})")
+    require(all(sl["resid"] <= tol for sl in slices),
+            f"paged_attention_fast disagrees with its plain version beyond flips of e ({label})")
+    require(mean_err <= FAST_BF16_MEAN_RATIO * gap,
+            f"paged_attention_fast's mean error is too large ({label})")
+    return err
+
+
+def check_config_kernels(torch, cfg, arch, results) -> None:
+    """The attention kernels at the config's (H, KV, D) at the ``headline``
+    and ``serve`` shapes against their plain versions, the commit paged
+    kernel's and ``decode_attention``'s rows across B, and the commit GEMM
+    at the config's LM-head shape: against its plain version at M = 32 and
+    its rows across M."""
+    from repro_torch.core.determinism import CANONICAL_TP_SHARDS
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = dict.fromkeys(("paged_attention", "paged_attention_fast", "decode_attention",
+                          "gemm_batch_invariant"), 0.0)
+    names = ("headline", "serve")
+    for label, inp in paged_shapes(torch, cfg, names).items():
+        label = f"{arch} {label}"
+        out, err = paged_commit_case(torch, label, inp, phase="configs")
+        errs["paged_attention"] = max(errs["paged_attention"], err)
+        paged_rows_invariant(torch, label, inp, out, phase="configs")
+        for splits, cd in FAST_CASES:
+            err = (paged_fast_bf16_case(torch, label, inp, splits) if cd == "bfloat16"
+                   else paged_fast_case(torch, label, inp, splits, cd, phase="configs")[2])
+            errs["paged_attention_fast"] = max(errs["paged_attention_fast"], err)
+    for label, inp in decode_shapes(torch, cfg, names).items():
+        label = f"{arch} {label}"
+        for splits, cd in DECODE_CASES:
+            out, err = decode_case(torch, label, inp, splits, cd, phase="configs")
+            errs["decode_attention"] = max(errs["decode_attention"], err)
+        decode_rows_invariant(torch, label, inp, out, phase="configs")
+    for seed in FLIP_SEEDS:
+        inp = paged_inputs(torch, cfg, 8, CAPACITY, BLOCK, seed=seed, min_ctx=33, max_ctx=49)
+        for splits, cd in FAST_CASES:
+            if cd == "bfloat16":
+                err = paged_fast_bf16_case(torch, f"{arch} serve seed {seed}", inp, splits)
+                errs["paged_attention_fast"] = max(errs["paged_attention_fast"], err)
+    g = torch.Generator(device=DEV).manual_seed(11)
+    D, V = cfg.d_model, cfg.vocab_size
+    w = (torch.randn((D, V), generator=g, device=DEV) * D ** -0.5).to(torch.bfloat16)
+    x = torch.randn((200, D), generator=g, device=DEV).to(torch.bfloat16)
+    out = gemm_batch_invariant(x[:32].contiguous(), w, chunks=CANONICAL_TP_SHARDS)
+    want = ref.gemm_batch_invariant(x[:32], w, chunks=CANONICAL_TP_SHARDS)
+    err = float((out.float() - want.float()).abs().max())
+    tol = 2 * ulp_of(float(want.float().abs().max()), 7)
+    log(f"[configs] gemm_batch_invariant {arch} LM head (32,{D})@({D},{V}) chunks=4: "
+        f"max_abs_err {err:.3e} (tol {tol:.3e}, 2 bf16 ulps of max|ref|)")
+    require(err <= tol, f"{arch}: gemm_batch_invariant disagrees at the LM head")
+    errs["gemm_batch_invariant"] = err
+    del out, want
+    commit_rows_invariant(torch, gemm_batch_invariant, x, w, CANONICAL_TP_SHARDS)
+    log(f"[configs] gemm_batch_invariant {arch} LM head: rows bitwise identical for "
+        f"M in {ROW_MS}; repeatable")
+    for name, e in errs.items():
+        results[name].setdefault("max_abs_err_by_config", {})[arch] = e
+
+
+def config_serve(torch, cfg, arch, params, results):
+    """A short paged LLM42 serve: two deterministic requests (greedy, and
+    seeded at temperature 0.8 with top-k 50) alone and beside 3 NONDET
+    neighbours, under the divergence demo's aggressive fast path.  Counts
+    reset just before each run and read just after; the streams must be
+    identical."""
+    from repro_torch.core.determinism import Mode, ReductionPolicy
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request, SamplingParams
+
+    policy = ReductionPolicy(thresholds=((2, 16), (4, 8), (8, 4)),
+                             combine_dtype="bfloat16")
+    tracked = {0: dict(seed=7), 1: dict(seed=8, temperature=0.8, top_k=50)}
+    total = dict.fromkeys(KERNELS, 0)
+
+    def run(n_neighbours):
+        gc.collect()
+        eng = Engine(cfg, params, mode=Mode.LLM42, policy=policy, window=6, group=2,
+                     max_batch=8, capacity=CAPACITY)
+        for rid, kw in tracked.items():
+            eng.submit(Request(rid=rid, prompt=[rid * 11 + k for k in range(1, 33)],
+                               sampling=SamplingParams(max_new_tokens=16,
+                                                       is_deterministic=True, **kw)))
+        for i in range(n_neighbours):
+            eng.submit(Request(rid=10 + i, prompt=[3 * i + k for k in range(20)],
+                               sampling=SamplingParams(max_new_tokens=16)))
+        fns = reset_launches()
+        done = {r.rid: r for r in eng.run()}
+        counts = {name: fn.launches for name, fn in fns.items()}
+        want = expected_launches(cfg, eng, True)
+        require(counts == want, f"{arch}: launches {counts} do not match the passes {want}")
+        for name, n in counts.items():
+            on_path = name in PATH_KERNELS["paged", "llm42"]
+            require((n > 0) == on_path, f"{arch}: {name} launched {n} times")
+            total[name] += n
+        rb = sum(done[rid].num_rollbacks for rid in tracked)
+        return {rid: done[rid].committed for rid in tracked}, rb, eng._now
+
+    alone, rb0, it0 = run(0)
+    crowd, rb3, it3 = run(3)
+    same = alone == crowd
+    log(f"[configs] {arch} paged LLM42, 2 deterministic requests (greedy + seeded) "
+        f"x 16 tokens alone ({it0} iterations, {rb0} rollbacks) and beside 3 "
+        f"neighbours ({it3} iterations, {rb3} rollbacks): identical={same}; kernel "
+        f"launches {total}")
+    require(same, f"{arch}: LLM42 streams changed beside 3 neighbours")
+    require(all(len(s) == 16 for s in alone.values()), f"{arch}: short streams")
+    for name, n in total.items():
+        results[name]["launches_by_mode"][f"configs/{arch}"] = n
+    return {"rollbacks_alone": rb0, "rollbacks_beside_3": rb3}
+
+
+def check_no_embedding_copy(torch, cfg, params) -> int:
+    """A tied config's forward makes no copy of the (vocab, d_model)
+    embedding: no host copy op in a profiled serve run of 2 new tokens
+    takes a tensor of that shape, where a per-pass transpose copy would
+    (checked first on one explicit ``embed.t().contiguous()``).  Returns
+    the forwards profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.determinism import Mode
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request, SamplingParams
+
+    shapes = ([cfg.vocab_size, cfg.d_model], [cfg.d_model, cfg.vocab_size])
+
+    def embedding_copies(fn):
+        with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+            fn()
+            sync(torch)
+        return [(e.key, e.count) for e in prof.key_averages(group_by_input_shape=True)
+                if e.key in COPY_OPS and any(list(s) in shapes for s in e.input_shapes)]
+
+    control = embedding_copies(lambda: params["embed"].t().contiguous())
+    require(control, "the copy check does not see an explicit transpose copy")
+    eng = Engine(cfg, params, mode=Mode.LLM42, capacity=CAPACITY)
+    eng.submit(Request(rid=0, prompt=list(range(1, 17)),
+                       sampling=SamplingParams(max_new_tokens=2)))
+    seen = embedding_copies(eng.run)
+    forwards = sum(1 for ev in engine_events(eng)
+                   if ev["kind"] in ("prefill", "prefill_chunk", "decode", "verify"))
+    log(f"[configs] {cfg.name} tied embedding: {forwards} forwards profiled, host copy "
+        f"ops on a {cfg.vocab_size}x{cfg.d_model} tensor: {seen or 'none'} (an explicit "
+        f"embed.t().contiguous() shows {control})")
+    require(not seen, f"{cfg.name}: a forward copies the embedding")
+    return forwards
+
+
+def phase_configs(torch, results, summary) -> None:
+    """Each dense config beside Llama-3-8B at full width (depth per
+    CONFIG_DEPTHS), random weights from seed 0: its kernels at its head
+    shape and LM head, a short paged LLM42 serve beside neighbours, the
+    tied embedding's copy check, and the peak device memory."""
+    from repro_torch import configs
+    from repro_torch.models.base import init_params
+
+    summary["configs"] = {}
+    for arch, depth in CONFIG_DEPTHS.items():
+        full = configs.get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=depth) if depth else full
+        log(f"[configs] {arch}: {cfg.num_layers} of {full.num_layers} layers, d_model "
+            f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} (group "
+            f"{cfg.num_heads // cfg.num_kv_heads}), head_dim {cfg.hd}, d_ff {cfg.d_ff}, "
+            f"vocab {cfg.vocab_size}, tied embeddings {cfg.tie_embeddings}, {cfg.dtype}")
+        t0 = time.perf_counter()
+        check_config_kernels(torch, cfg, arch, results)
+        gc.collect()
+        torch.cuda.empty_cache()
+        sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+        sync(torch)
+        weights = torch.cuda.memory_allocated() / 2 ** 30
+        tied = (params["unembed"].numel() * params["unembed"].element_size() / 2 ** 30
+                if cfg.tie_embeddings else 0.0)
+        info = config_serve(torch, cfg, arch, params, results)
+        if cfg.tie_embeddings:
+            info["forwards_without_embedding_copy"] = check_no_embedding_copy(
+                torch, cfg, params)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[configs] {arch}: weights {weights:.3f} GiB (of it the tied unembedding "
+            f"copy {tied:.3f} GiB), peak device memory {peak:.3f} GiB; "
+            f"{time.perf_counter() - t0:.1f} s")
+        summary["configs"][arch] = dict(layers=cfg.num_layers, weights_gib=weights,
+                                        tied_unembed_gib=tied, peak_mem_gib=peak, **info)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 8: timings
 # ---------------------------------------------------------------------------
 
 
@@ -1636,7 +2244,7 @@ def main() -> int:
         timed("build", phase_build)
     if "kernels" in phases:
         timed("kernels", phase_kernels, torch, cfg, results)
-    if {"serve", "determinism", "profile"} & set(phases):
+    if {"serve", "determinism", "profile", "online"} & set(phases):
         from repro_torch.models.base import init_params
 
         t0 = time.perf_counter()
@@ -1652,8 +2260,13 @@ def main() -> int:
             timed("determinism", phase_determinism, torch, cfg, params, summary)
         if "profile" in phases:
             timed("profile", phase_profile, torch, cfg, params, CAPACITY, summary)
+        if "online" in phases:
+            timed("online", phase_online, torch, cfg, params, CAPACITY, results, summary)
         del params
+        gc.collect()
         torch.cuda.empty_cache()
+    if "configs" in phases:
+        timed("configs", phase_configs, torch, results, summary)
     if "timings" in phases:
         timed("timings", phase_timings, torch, cfg, results)
     log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f} s")
@@ -1661,7 +2274,8 @@ def main() -> int:
     log(card)
     log(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
-                           "launches_by_mode", "max_abs_err", "ms", "plain_ms",
+                           "launches_by_mode", "max_abs_err", "max_abs_err_by_config",
+                           "ms", "plain_ms",
                            "bound_ms", "bound_by", "library_ms", "ms_kv_splits_1",
                            "plain_ms_kv_splits_1", "ms_with_residual", "shapes")
          if k in r} for r in results.values()

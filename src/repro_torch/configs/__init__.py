@@ -1,4 +1,4 @@
-"""Model configs ported so far (the dense Llama family of the main path).
+"""Model configs ported so far: the dense full-attention family.
 
 Each module exposes ``config()`` (the exact architecture) and
 ``smoke_config()`` (a reduced same-family variant for CPU tests), as in
@@ -12,10 +12,22 @@ from typing import List
 
 from repro_torch.models.base import ModelConfig
 
-ARCH_IDS: List[str] = ["llama3_8b"]
+ARCH_IDS: List[str] = [
+    "llama3_8b",
+    "tinyllama_1_1b",
+    "phi3_mini_3_8b",
+    "internlm2_20b",
+    "command_r_35b",
+]
 
 #: canonical dashed ids -> module names
-DASHED = {"llama3-8b": "llama3_8b"}
+DASHED = {
+    "llama3-8b": "llama3_8b",
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "internlm2-20b": "internlm2_20b",
+    "command-r-35b": "command_r_35b",
+}
 
 
 def _module(name: str):

@@ -7,7 +7,11 @@ layers stacked along a leading ``layers`` dimension under
 ``params["blocks"]["0"]`` (the dense family's block period is 1), weights
 stored ``(in, out)``.  ``models.convert.params_from_numpy`` turns the JAX
 package's tree into this one; ``init_params`` makes random weights without
-JAX.
+JAX.  A config with tied embeddings also carries ``unembed``: a
+(d_model, vocab) copy of ``embed.T``, made once by ``tie_unembedding``
+where params are made, so no forward transposes the embedding (at
+command-r's width that would be a 4.2 GB copy per pass).  It is not a
+parameter of its own: ``param_count`` does not count it.
 
 The other families (MoE, SSM, hybrid, enc-dec, multimodal) wait for later
 slices; ``param_specs`` raises on them.
@@ -70,9 +74,48 @@ class ModelConfig:
     def hd(self) -> int:
         return self.head_dim or (self.d_model // self.num_heads)
 
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    def layer_kind(self, i: int) -> str:
+        """'attn' | 'mamba' | 'rwkv' for decoder layer i."""
+        if self.family == "ssm":
+            return "rwkv"
+        if self.family == "hybrid" and self.attn_every > 0:
+            return "attn" if (i % self.attn_every == 0) else "mamba"
+        return "attn"
+
+    def ffn_kind(self, i: int) -> str:
+        """'dense' | 'moe' for decoder layer i."""
+        if self.num_experts <= 0 or i < self.first_k_dense:
+            return "dense"
+        if i % self.moe_every != self.moe_offset:
+            return "dense"
+        return "moe"
+
+    def block_period(self) -> int:
+        """Smallest repeating period of (layer_kind, ffn_kind) patterns."""
+        period = 1
+        if self.family == "hybrid" and self.attn_every:
+            period = self.attn_every
+        if self.num_experts > 0 and self.moe_every > 1:
+            period = period * self.moe_every // math.gcd(period, self.moe_every)
+        return period
+
     def param_count(self) -> int:
         """Total parameter count."""
         return sum(math.prod(s.shape) for _, s in iter_specs(param_specs(self)))
+
+    def active_param_count(self) -> int:
+        """Params active per token (MoE: only top_k experts count)."""
+        total = 0
+        for _, spec in iter_specs(param_specs(self)):
+            n = math.prod(spec.shape)
+            if "experts" in spec.axes and self.num_experts > 0:
+                n = n * self.top_k // self.num_experts
+            total += n
+        return total
 
 
 class ParamSpec:
@@ -194,4 +237,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = t
+    return tie_unembedding(cfg, params)
+
+
+def tie_unembedding(cfg: ModelConfig, params: Dict[str, Any]) -> Dict[str, Any]:
+    """Give a tied config its (d_model, vocab) ``unembed``: one contiguous
+    copy of ``embed.T``, which the GEMMs read N-contiguous.  Untied params
+    are returned as they are."""
+    if cfg.tie_embeddings:
+        params["unembed"] = params["embed"].t().contiguous()
     return params

@@ -3,8 +3,9 @@
 ``params_from_numpy`` takes the JAX package's parameter pytree converted to
 numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``: nested dicts,
 decoder layers stacked under ``blocks/0``) and returns the port's tree of
-tensors, same keys, same layouts.  Shapes are checked against the port's
-``param_specs``.
+tensors, same keys, same layouts (a tied config's tree gains the
+``unembed`` copy of ``embed.T``, ``models.base.tie_unembedding``).  Shapes
+are checked against the port's ``param_specs``.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.base import ModelConfig, iter_specs, param_specs
+from repro_torch.models.base import ModelConfig, iter_specs, param_specs, tie_unembedding
 
 
 def params_from_numpy(cfg: ModelConfig, np_tree: Dict[str, Any],
@@ -38,4 +39,4 @@ def params_from_numpy(cfg: ModelConfig, np_tree: Dict[str, Any],
         for k in path[:-1]:
             dst = dst.setdefault(k, {})
         dst[path[-1]] = t.to(device=dev, dtype=dtype)
-    return out
+    return tie_unembedding(cfg, out)

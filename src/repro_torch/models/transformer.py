@@ -71,8 +71,8 @@ def _embed(params, cfg, tokens, inputs_embeds):
 
 
 def _unembed(params, cfg, x, schedule):
-    if cfg.tie_embeddings:
-        return matmul(x, params["embed"].t().contiguous(), schedule)
+    # tied configs read the copy of embed.T made with the params
+    # (models.base.tie_unembedding), never a per-pass transpose
     return matmul(x, params["unembed"], schedule)
 
 

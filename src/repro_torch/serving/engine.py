@@ -12,7 +12,11 @@ modes (paper §5 baselines):
 
 What is ported: all three modes and scheduler policies (pause, overlap,
 adaptive), any ``spec_depth``, exclusive and chunked prefill, decode,
-grouped verify, the fused mixed-batch step, the logical clock, and the
+grouped verify, the fused mixed-batch step, both clocks of the dual-stream
+runtime (the logical clock by default; the costed clock behind
+``verify_latency_ms`` and ``bind_cost_model``, priced by
+``serving.costmodel`` at ``cost_cfg``'s scale on ``hw``, default
+``costmodel.H100``), and the
 memory lanes the engine calls (block-pool admission, preemption with
 restore-by-recompute, the radix prefix cache).  The host protocol is the
 JAX engine's, line for line where it can be.
@@ -36,9 +40,7 @@ the two hand-written GEMMs and single-token attention in the paged kernels
 (paged lane) or the dense-cache decode kernel (gathered lane).
 
 What waits for later slices: recurrent / enc-dec / prefix-embed /
-sliding-window archs, the costed clock (``verify_latency_ms``,
-``bind_cost_model``, the cost model) and ``tp > 1``.  The constructor
-raises on each.
+sliding-window archs and ``tp > 1``.  The constructor raises on each.
 """
 
 from __future__ import annotations
@@ -61,7 +63,9 @@ from repro_torch.core.determinism import (
 from repro_torch.core.verifier import make_verify_body
 from repro_torch.models.base import ModelConfig, dense_supported
 from repro_torch.obs import Observability, TokenProvenance
-from repro_torch.serving import blockpool, kv_cache, prefixcache, statepool, streams
+from repro_torch.serving import (
+    blockpool, costmodel, kv_cache, prefixcache, statepool, streams,
+)
 from repro_torch.serving import scheduler as sched
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.sampler import sample_batch, sample_token, top2_margin
@@ -89,6 +93,9 @@ class Engine:
         capacity: Optional[int] = None,
         scheduler: Optional[sched.SchedulePolicy] = None,
         spec_depth: int = 1,  # verify windows in flight per request
+        verify_latency_ms: Optional[float] = None,  # continuous verdict latency
+        cost_cfg: Optional[ModelConfig] = None,  # config the stream clocks cost at
+        hw: costmodel.Hardware = costmodel.H100,
         prefill_chunk: int = 0,  # tokens per prefill chunk; 0 = exclusive
         block_size: int = blockpool.DEFAULT_BLOCK_SIZE,  # KV tokens per block
         num_blocks: Optional[int] = None,  # pool size; None = dense parity
@@ -124,8 +131,17 @@ class Engine:
         self.spec_depth = int(spec_depth)
         self.statepool = statepool.StatePool(cfg, max_batch, self.spec_depth)
         self.scheduler = scheduler if scheduler is not None else sched.default_policy(mode)
-        # the logical clock: 1 tick per iteration, verdicts 1 tick after launch
+        assert verify_latency_ms is None or verify_latency_ms >= 0.0
+        self.verify_latency_ms = verify_latency_ms
+        self.hw = hw
+        self.tp = int(tp)
+        # the logical clock (1 tick per iteration, verdicts 1 tick after
+        # launch) unless verify_latency_ms is given or bind_cost_model() is
+        # called (run_online does): then the costed clock, continuous
+        # main/verify stream times from the cost model
         self.runtime = streams.DualClockRuntime(latency=1.0)
+        if verify_latency_ms is not None:
+            self.bind_cost_model(cost_cfg or cfg, hw)
         self.prefill_chunk = int(prefill_chunk)
         self.chunked_prefill = self.prefill_chunk > 0
 
@@ -147,11 +163,51 @@ class Engine:
         self._register_metrics()
 
     # ------------------------------------------------------------------
+    # stream clocks
+    # ------------------------------------------------------------------
+
+    def bind_cost_model(
+        self,
+        cost_cfg: ModelConfig,
+        hw: Optional[costmodel.Hardware] = None,
+        *,
+        invariant: bool = False,
+    ) -> None:
+        """Switch the runtime to a costed clock: stream times come from the
+        cost model evaluated at ``cost_cfg``'s scale on ``hw`` (default the
+        engine's, ``costmodel.H100`` unless given), so a reduced model can
+        be scheduled on the full model's clock.  Must happen before the
+        first step: rebinding mid-run would tear the clock.
+
+        Verdict latency under a costed clock is ``verify_latency_ms``
+        (default 0: a verdict is visible as soon as the verify-stream pass
+        completes)."""
+        assert getattr(self, "_now", 0) == 0, "bind the clock before stepping"
+        hw = hw or self.hw
+        self.hw = hw
+
+        def cost_fn(ev: Dict[str, Any]) -> float:
+            if invariant:
+                ev = dict(ev, invariant=True)
+            if self.tp > 1 and "tp" not in ev:
+                ev = dict(ev, tp=self.tp)
+            return costmodel.step_time(cost_cfg, ev, hw)
+
+        self.runtime = streams.DualClockRuntime(
+            cost_fn,
+            latency=(self.verify_latency_ms or 0.0) / 1e3,
+            contention=hw.stream_contention,
+        )
+
+    # ------------------------------------------------------------------
     # observability (repro_torch.obs)
     # ------------------------------------------------------------------
 
     def _register_metrics(self) -> None:
-        """Register every engine series with the metrics registry."""
+        """Register every engine series with the metrics registry.  Pull
+        gauges close over ``self`` attribute lookups, never over the
+        objects themselves (``bind_cost_model`` replaces ``self.runtime``
+        wholesale)."""
         m = self.obs.metrics
         self._c_iters = m.counter(
             "engine.iterations", unit="iterations",
@@ -202,6 +258,15 @@ class Engine:
         m.gauge_fn("verify.inflight",
                    lambda: sum(len(r.pipeline) for r in self.running),
                    unit="windows", help="verify windows currently in flight")
+        m.gauge_fn("streams.main_busy", lambda: self.runtime.main.busy,
+                   unit="s", help="main-stream busy time (costed clock)")
+        m.gauge_fn("streams.verify_busy", lambda: self.runtime.verify.busy,
+                   unit="s", help="verify-stream busy time (costed clock)")
+        m.gauge_fn("streams.makespan", lambda: self.runtime.makespan,
+                   unit="s", help="completion time of all scheduled work")
+        m.gauge_fn("streams.verify_backlog",
+                   lambda: self.runtime.verify_backlog,
+                   unit="s", help="verify-stream work scheduled past now")
         m.gauge_fn("streams.outstanding_verdicts",
                    lambda: self.runtime.outstanding_verdicts,
                    unit="verdicts", help="verdicts launched but not yet due")
@@ -255,14 +320,14 @@ class Engine:
                        unit="transitions",
                        help="adaptive promotions back to overlap")
         self._h_ttft = m.histogram(
-            "latency.ttft", unit="ticks",
-            help="submit to first committed token (logical clock)")
+            "latency.ttft", unit="s",
+            help="submit to first committed token (stream clock)")
         self._h_tpot = m.histogram(
-            "latency.tpot", unit="ticks",
-            help="mean inter-token time past T0 (logical clock)")
+            "latency.tpot", unit="s",
+            help="mean inter-token time past T0 (stream clock)")
         self._h_e2e = m.histogram(
-            "latency.e2e", unit="ticks",
-            help="submit to retirement (logical clock)")
+            "latency.e2e", unit="s",
+            help="submit to retirement (stream clock)")
 
     def _charge_main(self, ev: Dict[str, Any]) -> None:
         """Charge one main-stream pass and record its trace slice."""
@@ -1281,7 +1346,14 @@ class Engine:
         self._c_iters.inc()
         tr = self.obs.tracer
         if tr.enabled:
-            tr.begin_iteration(self._now, self.runtime.now - 1.0)
+            # iteration window start: under the logical clock
+            # begin_iteration just advanced main by 1.0, so the window the
+            # tick represents is [now - 1, now]; costed passes extend the
+            # frontier from now onward
+            tr.begin_iteration(
+                self._now,
+                self.runtime.now - (1.0 if self.runtime.logical else 0.0),
+            )
         applied = self._apply_due_verdicts()
         self._retire()
         self._admit()

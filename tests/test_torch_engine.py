@@ -237,3 +237,42 @@ def test_preemption_restore_keeps_streams(port_params):
     tight_eng, tight = run(24)
     assert tight_eng.num_preemptions > 0 and tight_eng.num_restores > 0
     assert {rid: tight[rid] for rid in (0, 2)} == {rid: roomy[rid] for rid in (0, 2)}
+
+
+#: the JAX package's memory-pressure scenario (tests/test_paged_kv.py):
+#: four requests behind a shared 40-token system prompt, two deterministic
+SYS_PROMPT = [(3 * j + 1) % CFG.vocab_size for j in range(40)]
+DRIFTY = ReductionPolicy(thresholds=((2, 16), (4, 8), (16, 4)),
+                         combine_dtype="bfloat16")
+
+
+def _pressure_run(params, **kw):
+    eng = Engine(CFG, params, mode=Mode.LLM42, policy=DRIFTY, window=5, group=2,
+                 max_batch=8, capacity=128, **kw)
+    for i in range(4):
+        tail = [(5 * i + j) % CFG.vocab_size for j in range(5)]
+        eng.submit(Request(rid=i, prompt=SYS_PROMPT + tail, sampling=SamplingParams(
+            max_new_tokens=12, is_deterministic=i in (0, 2), seed=70 + i)))
+    done = {r.rid: r.committed for r in eng.run()}
+    return eng, {rid: done[rid] for rid in (0, 2)}
+
+
+@pytest.fixture(scope="module")
+def unconstrained_streams(port_params):
+    return _pressure_run(port_params, scheduler=PauseDecodePolicy())[1]
+
+
+@pytest.mark.parametrize("num_blocks", [14, 12, 10, 8])
+def test_memory_pressure_preempts_restores_and_keeps_streams(
+        port_params, unconstrained_streams, num_blocks):
+    """Chunked prefill, a shared system prompt and a restore cooldown in an
+    undersized pool: the policy preempts and restores, and the deterministic
+    streams equal the unconstrained run's bitwise.  (On the same scenario
+    the JAX engine on jax 0.9.0 no longer preempts: ROADMAP §3.)"""
+    from repro_torch.serving.scheduler import BlockMemoryPolicy
+
+    eng, streams = _pressure_run(
+        port_params, scheduler=OverlapPolicy(), num_blocks=num_blocks,
+        prefill_chunk=8, mem_policy=BlockMemoryPolicy(restore_cooldown=2))
+    assert eng.num_preemptions >= 1 and eng.num_restores >= 1
+    assert streams == unconstrained_streams
