@@ -64,7 +64,21 @@ the main path) and the gathered lane (``paged_attention=False``):
            must be identical alone and beside 3 neighbours (launches reset
            and checked as in the serve phase), command-r's forward checked
            for a copy of its tied embedding, and peak device memory;
-8. timings each kernel against its plain version and one PyTorch call,
+8. variants llama4-scout-17b-a16e (8 of 48 layers; MoE, heads 40/8, G = 5)
+           and its chunked8k variant (2 layers, window 8192), phi3-mini-3.8b-
+           sw4k (8 of 32 layers, window 4096) at full width: the attention
+           kernels and the commit GEMM at Scout's shapes (as in configs),
+           ``moe_ffn`` rows bitwise across T and a ring's W == 1 rows across B
+           (rings that wrapped), Scout's LLM42 and BATCH_INVARIANT streams
+           alone and beside 3 neighbours on both lanes (NONDET divergence
+           printed), phi3-sw4k's with 4200- and 4300-token prompts (ring-
+           capped prefill chunks, decode past the wrap), chunked8k's LLM42
+           stream of an 8300-token prompt beside 1 neighbour, each run's
+           launches held to its passes (3 x 16 expert launches a MoE layer a
+           pass; no attention kernel on a ring), then the gathered lane's
+           q-chunked prefill of a 3000-token prompt at llama3-8b's width
+           against the paged lane; peak device memory per config;
+9. timings each kernel against its plain version and one PyTorch call,
            beside the least time the card could take (100 launches a
            reading); both GEMMs beside ``torch.matmul`` at every projection
            shape and serve-run M, their device time per forward, and the
@@ -77,9 +91,9 @@ the main path) and the gathered lane (``paged_attention=False``):
 
 The line before the last is a JSON object describing every kernel
 (``launches`` sums the serve runs and the rmsnorm entry-point run,
-``launches_by_mode`` splits them by lane and mode and adds the online run's
-and each config's, ``max_abs_err_by_config`` holds the configs phase's
-errors); the last line is
+``launches_by_mode`` splits them by lane and mode and adds the online run's,
+each config's and each variants run's, ``max_abs_err_by_config`` holds the
+configs and variants phases' errors); the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the script exits non-zero without a result when no CUDA device
 is visible or when it runs outside a checkout of the repository.
@@ -88,6 +102,7 @@ is visible or when it runs outside a checkout of the repository.
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,timings
     python3 chip_smoke.py --phases build,online,configs
+    python3 chip_smoke.py --phases build,variants
 """
 
 from __future__ import annotations
@@ -109,7 +124,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "serve", "determinism", "profile", "online", "configs",
-          "timings")
+          "variants", "timings")
 
 #: per-request KV reach of the serve phase (128 blocks of 16).  The paged
 #: kernels' cost no longer follows the reach (the timings phase times them
@@ -128,6 +143,8 @@ SLEEP_CYCLES = 200_000
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+#: f32 outside the tensor cores (the commit GEMM's f32 tile, MoE experts)
+F32_FLOPS_PER_S = 67e12
 
 #: the device every phase runs on
 DEV = "cuda"
@@ -398,9 +415,9 @@ def gemm_bound(M, K, N, elt=2):
     return bound(nbytes, flops)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1044,22 +1061,41 @@ PATH_KERNELS = {
 }
 
 
+def forward_gemms(cfg):
+    """GEMM launches of one forward: ``(in the schedule's GEMM, in the
+    commit GEMM whatever the schedule)``.  Per layer 4 attention projections
+    plus the dense FFN's 3 or a MoE layer's router in the schedule's GEMM,
+    plus the unembedding; a MoE layer's 3 contractions per expert (every
+    expert, on its capacity bucket) in the commit GEMM with one chunk."""
+    moe = cfg.num_experts > 0
+    per_layer = 4 + (1 if moe else 3)
+    experts = 3 * cfg.num_experts * cfg.num_layers if moe else 0
+    return per_layer * cfg.num_layers + 1, experts
+
+
 def expected_launches(cfg, eng, paged):
     """Kernel launches implied by the passes the engine reports: every
-    forward runs 7 GEMMs per layer plus the unembedding in the kernel its
-    schedule selects, and every single-token forward (a decode pass, or a
-    one-token prefill chunk) one attention launch per layer: on the paged
-    lane the fast paged kernel where its kv_splits divides the table reach,
-    else the commit one; on the gathered lane the dense decode kernel."""
+    forward runs ``forward_gemms``' launches, and every single-token forward
+    (a decode pass, or a one-token prefill chunk) of a full-attention config
+    one attention launch per layer: on the paged lane the fast paged kernel
+    where its kv_splits divides the table reach, else the commit one; on
+    the gathered lane the dense decode kernel.  A sliding config's ring
+    passes launch no attention kernel.  A ``prefill`` event covers
+    ``padded`` over the engine's ring-pass cap passes (one, but for a
+    sliding prompt longer than the cap)."""
     from repro_torch.core.determinism import Schedule
 
-    gemms = 7 * cfg.num_layers + 1
+    gemms, experts = forward_gemms(cfg)
+    ring = cfg.attn_kind == "sliding"
     nblk = eng.pool.layout.blocks_per_table
     commit = eng._commit_schedule()
     want = dict.fromkeys(KERNELS, 0)
     for ev in engine_events(eng):
+        passes = 1
+        if ev["kind"] == "prefill":
+            passes = ev["padded"] // eng._ring_pass_cap(ev["padded"])
         if ev["kind"] in ("prefill", "prefill_chunk", "verify"):
-            want["gemm_batch_invariant"] += gemms
+            want["gemm_batch_invariant"] += (gemms + experts) * passes
             if ev["kind"] == "verify" or ev["padded"] > 1:
                 continue
             s = commit
@@ -1067,7 +1103,10 @@ def expected_launches(cfg, eng, paged):
             s = Schedule(*ev["schedule"])
             split = s.splits > 1 and s.tp_shards == 1
             want["gemm_splitk" if split else "gemm_batch_invariant"] += gemms
+            want["gemm_batch_invariant"] += experts
         else:
+            continue
+        if ring:
             continue
         if not paged:
             want["decode_attention"] += cfg.num_layers
@@ -1863,7 +1902,434 @@ def phase_configs(torch, results, summary) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: timings
+# phase 8: variants (sliding-window rings, q-chunked attention, MoE)
+# ---------------------------------------------------------------------------
+
+#: the variants phase's depth cuts, for memory and phase time: Scout's bf16
+#: weights are about 4.15 GB a layer (16 experts x 3 x 5120 x 8192) plus
+#: 4.1 GB of embedding and unembedding, so 8 of its 48 layers (about 37 GB)
+#: leave room for its runs on one 80 GB card, and its chunked8k variant's
+#: 8300-token prompt runs 2 of them (65 ring-capped prefill chunks a run);
+#: phi3-sw4k runs 8 of 32 (two 4200- and 4300-token prompts a run); the
+#: gathered lane's long prefill runs llama3-8b at 2 layers
+VARIANT_DEPTHS = {"llama4-scout-17b-a16e": 8, "llama4-scout-chunked8k": 2,
+                  "phi3-mini-3.8b-sw4k": 8, "llama3-8b": 2}
+
+#: the kernels that read attention K/V (none of them reads a ring)
+ATTENTION_KERNELS = ("paged_attention", "paged_attention_fast", "decode_attention")
+
+#: batch sizes of the ring and MoE row checks (B for the ring's W == 1
+#: pass, T tokens for moe_ffn)
+RING_ROWS = (1, 3, 8, 13)
+MOE_ROWS = (1, 3, 8, 13, 32)
+
+
+def variant_serve(torch, cfg, label, params, results, *, lanes, modes, prompts,
+                  max_new, neighbours, capacity):
+    """Two (or ``len(prompts)``) tracked requests, greedy and seeded at
+    temperature 0.8 with top-k 50, deterministic outside NONDET, alone and
+    beside ``neighbours`` requests of 32 + 16 tokens, per lane ("paged",
+    "gathered", or "ring": a sliding config, whose pool has no paged
+    leaves) and mode,
+    under the divergence demo's aggressive fast path.  Counts reset just
+    before each run and read just after, held to what the passes imply;
+    LLM42 and BATCH_INVARIANT streams must be identical (NONDET divergence
+    printed).  Returns a summary per run."""
+    from repro_torch.core.determinism import Mode, ReductionPolicy
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request, SamplingParams
+
+    policy = ReductionPolicy(thresholds=((2, 16), (4, 8), (8, 4)),
+                             combine_dtype="bfloat16")
+    kws = (dict(seed=7), dict(seed=8, temperature=0.8, top_k=50))
+    out = {}
+    for lane in lanes:
+        for mode in modes:
+            run_name = f"variants/{label}/{lane}/{mode.value}"
+            streams, info = {}, {}
+            total = dict.fromkeys(KERNELS, 0)
+            for n in (0, neighbours):
+                gc.collect()
+                t0 = time.perf_counter()
+                eng = Engine(cfg, params, mode=mode, policy=policy, window=6, group=2,
+                             max_batch=8, capacity=capacity,
+                             paged_attention=LANES.get(lane, False))
+                for rid, plen in enumerate(prompts):
+                    eng.submit(Request(
+                        rid=rid, prompt=[(rid * 11 + 7 * k) % cfg.vocab_size
+                                         for k in range(1, plen + 1)],
+                        sampling=SamplingParams(max_new_tokens=max_new,
+                                                is_deterministic=mode != Mode.NONDET,
+                                                **kws[rid % 2])))
+                for i in range(n):
+                    eng.submit(Request(rid=10 + i, prompt=[3 * i + k for k in range(32)],
+                                       sampling=SamplingParams(max_new_tokens=16)))
+                sync(torch)
+                torch.cuda.reset_peak_memory_stats()
+                fns = reset_launches()
+                done = {r.rid: r for r in eng.run()}
+                sync(torch)
+                counts = {name: fn.launches for name, fn in fns.items()}
+                want = expected_launches(cfg, eng, eng._paged_fwd)
+                require(counts == want, f"{run_name} beside {n}: launches {counts} do not "
+                        f"match the passes {want}")
+                if lane == "ring":  # no attention kernel reads a ring
+                    require(not any(counts[k] for k in ATTENTION_KERNELS),
+                            f"{run_name}: an attention kernel ran on a ring")
+                for name, c in counts.items():
+                    total[name] += c
+                streams[n] = {rid: done[rid].committed for rid in range(len(prompts))}
+                require(all(len(x) == max_new for x in streams[n].values()),
+                        f"{run_name}: short streams")
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                info[n] = dict(iterations=eng._now, peak_mem_gib=peak,
+                               rollbacks=[done[r].num_rollbacks for r in streams[n]],
+                               seconds=time.perf_counter() - t0)
+                log(f"[variants] {run_name} beside {n}: {eng._now} iterations, "
+                    f"rollbacks by tracked rid {info[n]['rollbacks']}, kernel launches "
+                    f"{counts} (= the "
+                    f"passes), peak device memory {peak:.3f} GiB; "
+                    f"{info[n]['seconds']:.1f} s")
+                del eng
+            same = streams[0] == streams[neighbours]
+            log(f"[variants] {run_name}: streams alone and beside {neighbours} "
+                f"identical={same}")
+            if mode != Mode.NONDET:
+                require(same, f"{run_name}: streams changed beside {neighbours} neighbours")
+            for name, c in total.items():
+                results[name]["launches_by_mode"][run_name] = c
+            out[f"{lane}/{mode.value}"] = dict(identical=same, **{
+                f"beside_{n}": v for n, v in info.items()})
+            out[f"{lane}/{mode.value}"]["streams"] = streams[0]
+    return out
+
+
+#: M of the MoE checks: a decode expert bucket, a verify pass's 32 rows
+#: (Scout's no-drop capacity at 32 tokens), a ring-capped prefill chunk
+EXPERT_MS = (1, 32, 129)
+
+
+def check_moe_gemms(torch, cfg, results) -> dict:
+    """The GEMMs at the shapes a MoE layer gives them: the expert
+    contractions in the commit GEMM with one chunk and f32 operands, (M, d)
+    @ (d, f) and (M, f) @ (f, d), for M in EXPERT_MS, against the plain
+    version (1e-4, as the kernels phase holds f32) with rows across M; the
+    router (M, d) @ (d, E) in bf16 through the commit GEMM (4 chunks) and
+    the split-K GEMM at the demo policy's splits.  Times the expert
+    contraction beside ``torch.matmul`` (TF32 off) and its bound (f32
+    bytes, or f32 CUDA-core operations at 67 TFLOP/s)."""
+    from repro_torch.core.determinism import CANONICAL_TP_SHARDS
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
+    from repro_torch.kernels.gemm_splitk import gemm_splitk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=DEV).manual_seed(14)
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    shapes, worst = {}, 0.0
+    for K, N in ((d, f), (f, d)):
+        w = torch.randn((K, N), generator=g, device=DEV) * K ** -0.5
+        xb = torch.randn((200, K), generator=g, device=DEV)
+        for M in EXPERT_MS:
+            x = xb[:M].contiguous()
+            out = gemm_batch_invariant(x, w, chunks=1)
+            err = float((out - ref.gemm_batch_invariant(x, w, chunks=1)).abs().max())
+            require(err <= 1e-4, f"expert GEMM f32 ({M},{K})@({K},{N}) disagrees: {err}")
+            worst = max(worst, err)
+            k1 = time_ms(torch, lambda: gemm_batch_invariant(x, w, chunks=1), reps=30,
+                         flush=scratch.zero_)
+            lib = time_ms(torch, lambda: torch.matmul(x, w), reps=30, flush=scratch.zero_)
+            k2 = time_ms(torch, lambda: gemm_batch_invariant(x, w, chunks=1), reps=30,
+                         flush=scratch.zero_)
+            b_ms, b_by = bound((M * K + K * N + M * N) * 4, 2.0 * M * K * N,
+                               F32_FLOPS_PER_S)
+            ms = (k1 + k2) / 2
+            shapes[f"expert f32 ({M},{K})@({K},{N})"] = dict(
+                ms=ms, library_ms=lib, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+            log(f"[variants] gemm_batch_invariant expert f32 ({M},{K})@({K},{N}) chunks=1: "
+                f"max_abs_err {err:.3e} (tol 1e-4); {ms:.4f} ms (torch.matmul {lib:.4f}, "
+                f"bound {b_ms:.4f} by {b_by})")
+        commit_rows_invariant(torch, gemm_batch_invariant, xb, w, 1)
+    log(f"[variants] expert GEMMs f32: rows bitwise identical for M in {ROW_MS}")
+    w = (torch.randn((d, E), generator=g, device=DEV) * 0.02).to(torch.bfloat16)
+    x = torch.randn((32, d), generator=g, device=DEV).to(torch.bfloat16)
+    out = gemm_batch_invariant(x, w, chunks=CANONICAL_TP_SHARDS)
+    want = ref.gemm_batch_invariant(x, w, chunks=CANONICAL_TP_SHARDS)
+    err = float((out.float() - want.float()).abs().max())
+    tol = 2 * ulp_of(float(want.float().abs().max()), 7)
+    require(err <= tol, f"router commit GEMM disagrees: {err} > {tol}")
+    errs = [err]
+    for M, splits in ((1, 16), (3, 8), (8, 4)):
+        out = gemm_splitk(x[:M].contiguous(), w, splits=splits, combine_dtype="bfloat16")
+        want = ref.gemm_splitk(x[:M], w, splits, "bfloat16")
+        err = float((out.float() - want.float()).abs().max())
+        tol = 4 * ulp_of(float(want.float().abs().max()), 7)
+        require(err <= tol, f"router split-K GEMM at M={M} splits={splits} disagrees")
+        errs.append(err)
+    log(f"[variants] router (M,{d})@({d},{E}) bf16: commit GEMM 4 chunks and split-K "
+        f"at 16 / 8 / 4 splits within 2 / 4 bf16 ulps of max|ref| (max_abs_err "
+        f"{max(errs):.3e})")
+    results["gemm_batch_invariant"].setdefault("shapes", {}).update(shapes)
+    results["gemm_batch_invariant"].setdefault("max_abs_err_by_config", {})[
+        f"{cfg.name} experts f32"] = worst
+    del scratch
+    return shapes
+
+
+def ring_rows_invariant(torch, cfg, params) -> None:
+    """A ring's W == 1 pass under the commit schedule (layer 0's
+    ``attention_cached`` with the config's window) gives each row the same
+    bits at B in RING_ROWS, on rings that have wrapped; prints whether
+    ``_softmax_attend``'s ``einsum`` would (the reason the pass sums by a
+    fixed tree)."""
+    from repro_torch.core.determinism import VERIFY_SCHEDULE, deterministic_torch
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import RING_SLACK
+
+    g = torch.Generator(device=DEV).manual_seed(12)
+    N, C, W = max(RING_ROWS), cfg.window + RING_SLACK, cfg.window
+    KV, D, dt = cfg.num_kv_heads, cfg.hd, getattr(torch, cfg.dtype)
+    lp = {k: v[0] for k, v in params["blocks"]["0"]["attn"].items()}
+    k = torch.randn((N, C, KV, D), generator=g, device=DEV).to(dt)
+    v = torch.randn((N, C, KV, D), generator=g, device=DEV).to(dt)
+    last = 3 * C + 17 * torch.arange(N, device=DEV)  # wrapped two times and more
+    ring = torch.arange(C, device=DEV)
+    pos = (last[:, None] - (last[:, None] - ring[None]) % C).to(torch.int32)
+    x = torch.randn((N, 1, cfg.d_model), generator=g, device=DEV).to(dt)
+    start = (last + 1).to(torch.int32)
+    outs = {}
+    with deterministic_torch():
+        for B in RING_ROWS:
+            cache = {"k": k[:B].clone(), "v": v[:B].clone(), "pos": pos[:B].clone()}
+            outs[B], _ = layers.attention_cached(lp, cfg, x[:B], cache, start[:B],
+                                                 VERIFY_SCHEDULE, W)
+        same = all(torch.equal(outs[B], outs[N][:B]) for B in RING_ROWS)
+        require(bool(torch.isfinite(outs[N].float()).all()), "ring pass: non-finite")
+        # the einsum path on the same ring (positions after the write)
+        q = torch.randn((N, 1, cfg.num_heads, D), generator=g, device=DEV) * D ** -0.5
+        kp, qp = pos[:, None, :], start[:, None, None]
+        mask = (kp >= 0) & (kp <= qp) & (kp > qp - W)
+        ein = {B: layers._softmax_attend(q[:B], k[:B], v[:B], mask[:B], VERIFY_SCHEDULE)
+               for B in RING_ROWS}
+        tree = {B: layers._ring_decode_attend(q[:B], k[:B], v[:B], mask[:B])
+                for B in RING_ROWS}
+    ein_same = all(torch.equal(ein[B], ein[N][:B]) for B in RING_ROWS)
+    tree_same = all(torch.equal(tree[B], tree[N][:B]) for B in RING_ROWS)
+    err = float((tree[N] - ein[N]).abs().max())
+    log(f"[variants] {cfg.name} ring W == 1 under the commit schedule, {C}-slot rings "
+        f"wrapped (positions up to {int(last.max())}), window {W}: rows bitwise "
+        f"identical for B in {RING_ROWS}: {same} (attention_cached); the fixed-tree "
+        f"attend alone {tree_same}; _softmax_attend's einsum {ein_same}; fixed tree vs "
+        f"einsum max_abs_err {err:.3e}")
+    require(same and tree_same, f"{cfg.name}: ring W == 1 rows change with B")
+    require(err <= 1e-5, f"{cfg.name}: fixed-tree ring attend disagrees with einsum")
+
+
+def moe_rows_invariant(torch, cfg, params) -> dict:
+    """``moe_ffn`` (layer 0's experts) under VERIFY_SCHEDULE gives each
+    token row the same bits at T in MOE_ROWS tokens: no drop, capacity T,
+    the rows landing in other bucket positions as T changes."""
+    from repro_torch.core.determinism import VERIFY_SCHEDULE, deterministic_torch
+    from repro_torch.models.layers import moe_ffn
+
+    g = torch.Generator(device=DEV).manual_seed(13)
+    lp = {k: v[0] for k, v in params["blocks"]["0"]["moe"].items()}
+    T = max(MOE_ROWS)
+    x = torch.randn((1, T, cfg.d_model), generator=g, device=DEV).to(getattr(torch, cfg.dtype))
+    fns = reset_launches()
+    with deterministic_torch():
+        full, aux = moe_ffn(lp, cfg, x, VERIFY_SCHEDULE)
+        ys = {t: moe_ffn(lp, cfg, x[:, :t], VERIFY_SCHEDULE)[0] for t in MOE_ROWS}
+    sync(torch)
+    same = all(torch.equal(ys[t][0], full[0, :t]) for t in MOE_ROWS)
+    launches = fns["gemm_batch_invariant"].launches
+    layer_ms = {}
+    for t in EXPERT_MS:  # one MoE layer: router, casts, 3E expert GEMMs
+        xt = torch.randn((1, t, cfg.d_model), generator=g, device=DEV).to(x.dtype)
+        layer_ms[t] = time_ms(torch, lambda: moe_ffn(lp, cfg, xt, VERIFY_SCHEDULE), reps=5)
+    log(f"[variants] {cfg.name} one moe_ffn layer under VERIFY_SCHEDULE: "
+        + ", ".join(f"T={t} {ms:.3f} ms" for t, ms in layer_ms.items()))
+    want = (1 + 3 * cfg.num_experts) * (1 + len(MOE_ROWS))
+    log(f"[variants] {cfg.name} moe_ffn under VERIFY_SCHEDULE: rows bitwise identical "
+        f"for T in {MOE_ROWS}: {same}; router load at T={T} "
+        f"{[round(float(a), 4) for a in aux['router_load']]}, dropped "
+        f"{float(aux['dropped_frac'])}; commit-GEMM launches {launches} "
+        f"(router + 3 x {cfg.num_experts} a call: {want})")
+    require(bool(torch.isfinite(full.float()).all()), "moe_ffn: non-finite output")
+    require(same, f"{cfg.name}: moe_ffn rows change with T")
+    require(launches == want and fns["gemm_splitk"].launches == 0,
+            f"{cfg.name}: moe_ffn launches {launches}, want {want}")
+    return layer_ms
+
+
+def long_prefill_gathered(torch, results) -> dict:
+    """The gathered lane's q-chunked prefill (a 3000-token prompt, bucket
+    4096 > CHUNK_THRESHOLD) at llama3-8b's width, 2 layers, capacity 4096:
+    LLM42 commits the paged lane's stream."""
+    from repro_torch import configs
+    from repro_torch.core.determinism import Mode
+    from repro_torch.models import layers
+    from repro_torch.models.base import init_params
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request, SamplingParams
+
+    cfg = dataclasses.replace(configs.get_config("llama3-8b"),
+                              num_layers=VARIANT_DEPTHS["llama3-8b"])
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    calls = []
+    real = layers._chunked_attend
+
+    def spy(q, *a):
+        calls.append(tuple(q.shape))
+        return real(q, *a)
+
+    streams, info = {}, {}
+    layers._chunked_attend = spy
+    try:
+        for lane in ("gathered", "paged"):
+            gc.collect()
+            sync(torch)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            eng = Engine(cfg, params, mode=Mode.LLM42, window=6, group=1, max_batch=2,
+                         capacity=4096, paged_attention=LANES[lane])
+            eng.submit(Request(rid=0, prompt=[(5 * k) % cfg.vocab_size for k in range(3000)],
+                               sampling=SamplingParams(max_new_tokens=16,
+                                                       is_deterministic=True)))
+            fns = reset_launches()
+            streams[lane] = eng.run()[0].committed
+            sync(torch)
+            counts = {name: fn.launches for name, fn in fns.items()}
+            require(counts == expected_launches(cfg, eng, LANES[lane]),
+                    f"long prefill {lane}: launches {counts}")
+            for name, c in counts.items():
+                results[name]["launches_by_mode"][f"variants/llama3-8b-long/{lane}"] = c
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            info[lane] = dict(peak_mem_gib=peak, seconds=time.perf_counter() - t0)
+            log(f"[variants] llama3-8b ({cfg.num_layers} layers) 3000-token exclusive "
+                f"prefill + 16 LLM42 tokens, {lane} lane: q-chunked calls so far "
+                f"{len(calls)}, launches {counts}, peak device memory {peak:.3f} GiB; "
+                f"{info[lane]['seconds']:.1f} s")
+            del eng
+    finally:
+        layers._chunked_attend = real
+    require(calls == [(1, 4096, cfg.num_heads, cfg.hd)] * cfg.num_layers,
+            f"the gathered prefill did not run q-chunked: {calls}")
+    same = streams["gathered"] == streams["paged"]
+    log(f"[variants] gathered lane's q-chunked prefill commits the paged lane's "
+        f"stream: {same}")
+    require(same and len(streams["paged"]) == 16, "long prefill: lanes differ")
+    del params
+    return dict(identical=same, **info)
+
+
+def phase_variants(torch, results, summary) -> None:
+    """Scout (MoE, paged) and its chunked8k variant (MoE + an 8192 window),
+    phi3-sw4k (a 4096 window) and the gathered lane's q-chunked prefill,
+    at published widths with depth cut per VARIANT_DEPTHS, random weights
+    from seed 0."""
+    from repro_torch import configs
+    from repro_torch.core.determinism import Mode
+    from repro_torch.models.base import init_params
+    from repro_torch.models.transformer import RING_SLACK
+
+    summary["variants"] = out = {}
+    both = (Mode.LLM42, Mode.BATCH_INVARIANT)
+
+    def step(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        sync(torch)
+        log(f"[variants] step {name}: {time.perf_counter() - t0:.1f} s")
+        return res
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+
+    # llama4-scout-17b-a16e: MoE, full attention, paged, heads 40/8 (G = 5)
+    arch = "llama4-scout-17b-a16e"
+    full = configs.get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=VARIANT_DEPTHS[arch])
+    log(f"[variants] {arch}: {cfg.num_layers} of {full.num_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} (group "
+        f"{cfg.num_heads // cfg.num_kv_heads}), head_dim {cfg.hd}, {cfg.num_experts} "
+        f"experts top-{cfg.top_k}, moe_d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}")
+    step("scout kernels at G = 5", check_config_kernels, torch, cfg, arch, results)
+    gemms = step("scout expert and router GEMMs", check_moe_gemms, torch, cfg, results)
+    fresh()
+    params = step("scout weights", init_params, cfg,
+                  torch.Generator(device=DEV).manual_seed(0), DEV)
+    sync(torch)
+    weights = torch.cuda.memory_allocated() / 2 ** 30
+    layer_ms = step("scout moe rows", moe_rows_invariant, torch, cfg, params)
+    scout = {"weights_gib": weights, "expert_gemms": gemms, "moe_layer_ms": layer_ms}
+    scout.update(step("scout serve", variant_serve, torch, cfg, arch, params, results,
+                      lanes=("paged", "gathered"), modes=both, prompts=(32, 32),
+                      max_new=16, neighbours=3, capacity=CAPACITY))
+    scout.update(step("scout nondet", variant_serve, torch, cfg, arch, params, results,
+                      lanes=("paged",), modes=(Mode.NONDET,), prompts=(32, 32),
+                      max_new=16, neighbours=3, capacity=CAPACITY))
+    same = scout["paged/llm42"]["streams"] == scout["gathered/llm42"]["streams"]
+    log(f"[variants] {arch} LLM42 streams of the gathered lane equal the paged lane's: "
+        f"{same}")
+    require(same, f"{arch}: LLM42 streams differ between the lanes")
+    scout["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out[arch] = scout
+
+    # llama4-scout-chunked8k: the same weights' first layers, window 8192
+    long = configs.get_long_config(arch)
+    ccfg = dataclasses.replace(long, num_layers=VARIANT_DEPTHS[long.name])
+    cparams = dict(params, blocks={"0": {
+        k: ({kk: vv[: ccfg.num_layers] for kk, vv in v.items()}
+            if isinstance(v, dict) else v[: ccfg.num_layers])
+        for k, v in params["blocks"]["0"].items()}})
+    log(f"[variants] {long.name}: {ccfg.num_layers} of {long.num_layers} layers (the "
+        f"first of the Scout weights), window {ccfg.window}, ring "
+        f"{ccfg.window + RING_SLACK} slots")
+    torch.cuda.reset_peak_memory_stats()
+    out[long.name] = step("chunked8k serve", variant_serve, torch, ccfg, long.name,
+                          cparams, results, lanes=("ring",), modes=(Mode.LLM42,),
+                          prompts=(8300,), max_new=48, neighbours=1,
+                          capacity=ccfg.window + RING_SLACK)
+    out[long.name]["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, cparams
+    fresh()
+
+    # phi3-mini-3.8b-sw4k: dense, window 4096
+    long = configs.get_long_config("phi3-mini-3.8b")
+    cfg = dataclasses.replace(long, num_layers=VARIANT_DEPTHS[long.name])
+    log(f"[variants] {long.name}: {cfg.num_layers} of {long.num_layers} layers, window "
+        f"{cfg.window}, ring {cfg.window + RING_SLACK} slots, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads}, head_dim {cfg.hd}")
+    params = step("phi3-sw4k weights", init_params, cfg,
+                  torch.Generator(device=DEV).manual_seed(0), DEV)
+    step("phi3-sw4k ring rows", ring_rows_invariant, torch, cfg, params)
+    out[long.name] = step("phi3-sw4k serve", variant_serve, torch, cfg, long.name, params,
+                          results, lanes=("ring",), modes=both, prompts=(4200, 4300),
+                          max_new=64, neighbours=3, capacity=cfg.window + RING_SLACK)
+    out[long.name]["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params
+    fresh()
+
+    out["llama3-8b-long-prefill"] = step("gathered long prefill", long_prefill_gathered,
+                                         torch, results)
+    fresh()
+    for name, entry in out.items():
+        peak = max(v["peak_mem_gib"] for v in entry.values()
+                   if isinstance(v, dict) and "peak_mem_gib" in v) \
+            if "peak_mem_gib" not in entry else entry["peak_mem_gib"]
+        log(f"[variants] {name}: peak device memory {peak:.3f} GiB")
+        for v in entry.values():
+            if isinstance(v, dict):
+                v.pop("streams", None)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: timings
 # ---------------------------------------------------------------------------
 
 
@@ -2267,6 +2733,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "configs" in phases:
         timed("configs", phase_configs, torch, results, summary)
+    if "variants" in phases:
+        timed("variants", phase_variants, torch, results, summary)
     if "timings" in phases:
         timed("timings", phase_timings, torch, cfg, results)
     log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f} s")

@@ -1,7 +1,9 @@
-"""Model configs ported so far: the dense full-attention family.
+"""Model configs ported so far: the dense family and llama4-scout (MoE),
+with their sliding-window long-context variants.
 
 Each module exposes ``config()`` (the exact architecture) and
-``smoke_config()`` (a reduced same-family variant for CPU tests), as in
+``smoke_config()`` (a reduced same-family variant for CPU tests), and
+where it has one ``long_config()`` (the sliding-window variant), as in
 ``repro.configs``.
 """
 
@@ -18,6 +20,7 @@ ARCH_IDS: List[str] = [
     "phi3_mini_3_8b",
     "internlm2_20b",
     "command_r_35b",
+    "llama4_scout_17b_a16e",
 ]
 
 #: canonical dashed ids -> module names
@@ -27,6 +30,7 @@ DASHED = {
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "internlm2-20b": "internlm2_20b",
     "command-r-35b": "command_r_35b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
 }
 
 
@@ -44,3 +48,14 @@ def get_config(name: str) -> ModelConfig:
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).smoke_config()
 
+
+def get_long_config(name: str) -> ModelConfig:
+    """The sliding-window long-context variant, or raise if there is none."""
+    mod = _module(name)
+    if not hasattr(mod, "long_config"):
+        raise ValueError(f"{name} has no sub-quadratic long-context variant")
+    return mod.long_config()
+
+
+def supports_long(name: str) -> bool:
+    return hasattr(_module(name), "long_config")

@@ -1,8 +1,8 @@
 """phi3-mini-3.8b [dense] — RoPE SwiGLU GQA [arXiv:2404.14219].
 
-kv=32 == num_heads: phi-3-mini is effectively MHA.  The sliding-window
-long-context variant (``long_config`` in the JAX package) waits for the
-port's sliding-window attention.
+kv=32 == num_heads: phi-3-mini is effectively MHA.  ``long_config``
+(``phi3-mini-3.8b-sw4k``) models long context with sliding-window
+attention, window 4096, kept in a ring of ``window + RING_SLACK`` slots.
 
 Field for field the JAX package's ``repro/configs/phi3_mini_3_8b.py``.
 """
@@ -27,6 +27,13 @@ def config() -> ModelConfig:
         max_seq_len=32768 + 128,
         dtype="bfloat16",
         source="arXiv:2404.14219 (Phi-3)",
+    )
+
+
+def long_config() -> ModelConfig:
+    return dataclasses.replace(
+        config(), name="phi3-mini-3.8b-sw4k", attn_kind="sliding", window=4096,
+        max_seq_len=524288 + 128,
     )
 
 

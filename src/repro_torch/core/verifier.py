@@ -24,7 +24,8 @@ pool through the block tables; ``paged=False`` gathers per-row views,
 replays on them and scatters them back (``serving.kv_cache.pool_forward``).
 Both run the same universal schedule over views whose content is
 position-for-position identical, so committed streams are bitwise equal
-between them.  Recurrent-state verification (``verify_recurrent``) waits
+between them.  Slot leaves (sliding rings) are row-packed by ``slots`` in
+either lane and written back after the replay.  Recurrent-state verification (``verify_recurrent``) waits
 for a later slice.
 """
 
@@ -75,8 +76,9 @@ def make_verify_body(
     (G,), ``inputs`` (G, W), ``cand`` (G, W-1) with -1 pads and
     ``cand_len`` (G,) are device tensors; ``seeds``, ``temps``, ``out_base``
     and ``top_ks`` are host sequences (each window position samples with
-    its own counter).  ``slots`` names each row's slot, which the dense
-    family's pool does not index.
+    its own counter).  ``slots`` names each row's slot (pad rows: the
+    scratch slot): slot leaves (sliding rings) are row-packed by it and
+    scattered back, paged leaves are repaired through ``tables``.
     ``margins`` (G, W) is the audit log's top-1/top-2 margin per position,
     computed unconditionally so the device program does not depend on
     auditing."""
@@ -98,7 +100,7 @@ def make_verify_body(
         top_ks: Sequence[int],
     ):
         logits, pool = pool_forward(
-            params, cfg, layout, pool, tables, start_pos, VERIFY_SCHEDULE,
+            params, cfg, layout, pool, slots, tables, start_pos, VERIFY_SCHEDULE,
             paged=paged, tokens=inputs,
         )
         v_tokens = sample_window(logits, seeds, out_base, temps, top_ks)

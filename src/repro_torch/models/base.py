@@ -1,20 +1,23 @@
-"""Model configs, parameter specs and the port's initializer (dense family).
+"""Model configs, parameter specs and the port's initializer (dense and MoE
+families, full and sliding-window attention).
 
 PyTorch counterpart of ``repro.models.base``.  ``ModelConfig`` is the JAX
 package's dataclass field for field, so configs read the same.  Parameters
 are nested dicts of tensors with the JAX tree's keys and layouts: decoder
 layers stacked along a leading ``layers`` dimension under
-``params["blocks"]["0"]`` (the dense family's block period is 1), weights
-stored ``(in, out)``.  ``models.convert.params_from_numpy`` turns the JAX
-package's tree into this one; ``init_params`` makes random weights without
-JAX.  A config with tied embeddings also carries ``unembed``: a
+``params["blocks"]["0"]`` (the ported configs' block period is 1), weights
+stored ``(in, out)``; a MoE layer's ``moe`` leaves stack the experts after
+the layer axis, ``(layers, experts, in, out)``.
+``models.convert.params_from_numpy`` turns the JAX package's tree into
+this one; ``init_params`` makes random weights without JAX.  A config with tied embeddings also carries ``unembed``: a
 (d_model, vocab) copy of ``embed.T``, made once by ``tie_unembedding``
 where params are made, so no forward transposes the embedding (at
 command-r's width that would be a 4.2 GB copy per pass).  It is not a
 parameter of its own: ``param_count`` does not count it.
 
-The other families (MoE, SSM, hybrid, enc-dec, multimodal) wait for later
-slices; ``param_specs`` raises on them.
+The other families (SSM, hybrid, enc-dec, multimodal) and the features
+``check_ported`` names wait for later slices; ``param_specs`` raises on
+them.
 """
 
 from __future__ import annotations
@@ -135,13 +138,26 @@ class ParamSpec:
         return f"ParamSpec({self.shape}, {self.axes})"
 
 
-def dense_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is the dense full-attention family this slice
-    of the port covers."""
-    if (cfg.family != "dense" or cfg.attn_kind != "full" or cfg.num_experts
-            or cfg.num_prefix_embeds or cfg.use_bias or cfg.first_k_dense):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense full-attention family is ported so far")
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise on what the port does not serve yet: the recurrent, hybrid and
+    enc-dec families, prefix embeddings, attention biases, ``first_k_dense``
+    head layers and block periods above one.  Dense and MoE configs with
+    full or sliding-window attention pass."""
+    missing = []
+    if cfg.family not in ("dense", "moe"):
+        missing.append(f"the {cfg.family} family")
+    if cfg.attn_kind not in ("full", "sliding"):
+        missing.append(f"attn_kind {cfg.attn_kind!r}")
+    if cfg.num_prefix_embeds:
+        missing.append("prefix embeddings")
+    if cfg.use_bias:
+        missing.append("attention biases")
+    if cfg.first_k_dense:
+        missing.append("first_k_dense head layers")
+    if cfg.block_period() != 1:
+        missing.append(f"block period {cfg.block_period()}")
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: not ported yet: {', '.join(missing)}")
 
 
 def attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -163,11 +179,24 @@ def dense_ffn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     }
 
 
+def moe_ffn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, f, e = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.num_experts
+    return {
+        "router": ParamSpec((d, e), ("embed", "experts"), scale=0.02),
+        "wi_gate": ParamSpec((e, d, f), ("experts", "embed", "ffn")),
+        "wi_up": ParamSpec((e, d, f), ("experts", "embed", "ffn")),
+        "wo": ParamSpec((e, f, d), ("experts", "ffn", "embed")),
+    }
+
+
 def layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
     specs: Dict[str, Any] = {"attn": attn_specs(cfg)}
     specs.update({f"norm{i}": ParamSpec((cfg.d_model,), ("embed",), init="ones")
                   for i in range(2)})
-    specs["ffn"] = dense_ffn_specs(cfg)
+    if cfg.ffn_kind(0) == "moe":
+        specs["moe"] = moe_ffn_specs(cfg)
+    else:
+        specs["ffn"] = dense_ffn_specs(cfg)
     return specs
 
 
@@ -178,8 +207,8 @@ def _stack(tree: Any, n: int) -> Any:
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """The dense family's parameter spec tree (the JAX tree's keys)."""
-    dense_supported(cfg)
+    """The parameter spec tree (the JAX tree's keys) of a ported config."""
+    check_ported(cfg)
     specs: Dict[str, Any] = {
         "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), scale=0.02),
         "final_norm": ParamSpec((cfg.d_model,), ("embed",), init="ones"),

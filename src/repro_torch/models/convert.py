@@ -2,7 +2,8 @@
 
 ``params_from_numpy`` takes the JAX package's parameter pytree converted to
 numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``: nested dicts,
-decoder layers stacked under ``blocks/0``) and returns the port's tree of
+decoder layers stacked under ``blocks/0``, a MoE config's experts under
+``blocks/0/moe/{router, wi_gate, wi_up, wo}``) and returns the port's tree of
 tensors, same keys, same layouts (a tied config's tree gains the
 ``unembed`` copy of ``embed.T``, ``models.base.tie_unembedding``).  Shapes
 are checked against the port's ``param_specs``.

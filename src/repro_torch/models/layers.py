@@ -1,5 +1,5 @@
-"""Shared layers, dense subset: RMSNorm, RoPE, GQA attention over the paged
-pool or over gathered per-row views, SwiGLU.
+"""Shared layers: RMSNorm, RoPE, GQA attention over the paged pool, over
+gathered per-row views or over sliding-window rings, SwiGLU and MoE.
 
 PyTorch counterpart of ``repro.models.layers``.  Every matrix multiply goes
 through ``core.determinism.matmul`` with an explicit ``Schedule``, so the
@@ -17,8 +17,14 @@ False``); its single-token passes go to the dense-cache decode kernel
 start_pos + 1``.  Both kernels scale the unscaled roped q in f32.
 Multi-token passes (verify windows, prefill) run the same plain tensor code
 (``einsum``, TF32 off) in both lanes, as the JAX package leaves them to
-XLA, so the commit path is bitwise the same in both.  Unlike the JAX code,
-which returns new caches, the leaves are updated in place.
+XLA, so the commit path is bitwise the same in both; passes longer than
+``CHUNK_THRESHOLD`` rows attend q-chunked (``_chunked_attend``).
+Sliding-window rings (``attention_cached`` with ``window > 0``) mask by
+the stored positions; their single-token passes run plain tensor code too,
+under one kv split by fixed halving trees (``_ring_decode_attend``).
+``moe_ffn`` routes in the schedule's GEMM and runs every expert in the
+commit GEMM.  Unlike the JAX code, which returns new caches, the leaves are
+updated in place.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.determinism import (
-    Schedule, _split_sizes, matmul, segment_reduce_sum, torch_dtype,
+    Schedule, _pairwise_sum, _split_sizes, matmul, segment_reduce_sum, torch_dtype,
 )
 from repro_torch.kernels import ops
 
@@ -127,9 +133,72 @@ def _softmax_attend(
     return out.reshape(B, T, H, D)
 
 
-#: above this many query rows the JAX package attends q-chunked
-#: (``_chunked_attend``); that path waits for a later slice
+#: above this many query rows, attention runs q-chunked (``_chunked_attend``)
+#: so the (B, T, S) score tensor is never materialized
 CHUNK_THRESHOLD = 2048
+Q_CHUNK = 512
+
+
+def _chunked_attend(
+    q: torch.Tensor,      # (B, T, H, D) f32, pre-scaled + roped
+    k: torch.Tensor,      # (B, S, KV, D)
+    v: torch.Tensor,      # (B, S, KV, D)
+    q_pos: torch.Tensor,  # (B, T) absolute positions
+    k_pos: torch.Tensor,  # (B, S) absolute positions (-1 = invalid)
+    schedule: Schedule,
+    logit_softcap: float,
+    window: int,
+) -> torch.Tensor:
+    """Query-chunked attention: q is padded to a multiple of ``Q_CHUNK``
+    (pad positions ``-(10**9)``, which no key precedes) and each chunk runs
+    ``_softmax_attend`` in order under the ``pos`` mask (and the window term
+    when ``window > 0``); per-chunk scores are (B, Q_CHUNK, S).  The JAX
+    ``lax.map`` is a Python loop: every chunk has one shape, so the commit
+    path does not follow the prompt's length."""
+    B, T, H, D = q.shape
+    pad = (-T) % Q_CHUNK
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        q_pos = F.pad(q_pos, (0, pad), value=-(10 ** 9))
+    kp = k_pos[:, None, :]
+    outs = []
+    for c in range(q.shape[1] // Q_CHUNK):
+        sl = slice(c * Q_CHUNK, (c + 1) * Q_CHUNK)
+        qp = q_pos[:, sl, None]
+        mask = (kp >= 0) & (kp <= qp)
+        if window > 0:
+            mask = mask & (kp > qp - window)
+        outs.append(_softmax_attend(q[:, sl], k, v, mask, schedule, logit_softcap))
+    return torch.cat(outs, dim=1)[:, :T]
+
+
+def _ring_decode_attend(
+    q: torch.Tensor,     # (B, 1, H, D) pre-scaled
+    k: torch.Tensor,     # (B, S, KV, D)
+    v: torch.Tensor,     # (B, S, KV, D)
+    mask: torch.Tensor,  # (B, 1, S) bool
+    logit_softcap: float = 0.0,
+) -> torch.Tensor:
+    """``_softmax_attend``'s one-split softmax for a single query row, with
+    every sum a fixed halving tree of elementwise adds (``_pairwise_sum``
+    over D for the scores, over S for the denominator and the weighted
+    values).  On CUDA an ``einsum`` is a batched cuBLAS GEMM whose kernel
+    follows the batch, so its rows change bits with B; these do not, which
+    the commit path's W == 1 ring passes (BATCH_INVARIANT decode at every
+    B) need."""
+    B, _, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, 1, KV, H // KV, D).to(F32)
+    s = _pairwise_sum(qg * k.to(F32)[:, :, :, None, :], axis=-1)  # (B, S, KV, G)
+    if logit_softcap > 0.0:
+        s = torch.tanh(s / logit_softcap) * logit_softcap
+    s = s.masked_fill(~mask.expand(B, 1, S)[:, 0, :, None, None], float("-inf"))
+    m = s.amax(dim=1, keepdim=True).clamp_min(-1e30)  # a max is exact in any order
+    e = torch.exp(s - m)
+    den = _pairwise_sum(e, axis=1)  # (B, KV, G)
+    o = _pairwise_sum(e[..., None] * v.to(F32)[:, :, :, None, :], axis=1)
+    out = o / den.clamp_min(1e-30)[..., None]
+    return out.reshape(B, 1, H, D)
 
 
 def attention_cached(
@@ -141,23 +210,30 @@ def attention_cached(
     schedule: Schedule,
     window: int = 0,
 ) -> Tuple[torch.Tensor, Dict]:
-    """Incremental attention over dense per-row views, full attention.
+    """Incremental attention over dense per-row views: full-attention views
+    (``window == 0``) or sliding-window rings (``window > 0``).
 
     Writes the W new tokens at slots ``abs_pos % C`` in place, then attends.
-    W == 1 (decode) goes to ``ops.decode_attention`` with the unscaled
-    roped q and ``lengths = start_pos + 1``: that mask equals the ``pos``
-    mask because slot s holds position s (no wrap: ``forward`` asserts that
-    every pass ends inside the view) and every position up to the query
-    has been written.  W > 1 scales q in the activation dtype and runs
+    The ring contract: a pass must not overwrite keys still inside any
+    query's window, so ``W + window - 1 <= C`` (asserted; the engine chunks
+    longer prefills).  Masks use the stored absolute ``pos`` (plus
+    ``kp > qp - window`` on a ring), so wraparound needs no special case.
+
+    Full-attention W == 1 (decode) goes to ``ops.decode_attention`` with the
+    unscaled roped q and ``lengths = start_pos + 1``: that mask equals the
+    ``pos`` mask because slot s holds position s (no wrap: ``forward``
+    asserts that every pass ends inside the view).  A ring breaks that, so
+    its W == 1 pass runs the ``pos`` mask in plain tensor code: under one
+    kv split ``_ring_decode_attend``, whose rows do not follow B, else
+    ``_softmax_attend``.  W > 1 scales q in the activation dtype and runs
     ``_softmax_attend`` under the ``pos`` mask, exactly as the paged lane
-    does.  Sliding rings (``window > 0``) and the q-chunked path wait."""
+    does, q-chunked (``_chunked_attend``) above ``CHUNK_THRESHOLD`` rows."""
     B, W, _ = x.shape
     C = cache["k"].shape[1]
-    if window > 0:
-        raise NotImplementedError("sliding-window rings wait for a later slice")
-    if W > CHUNK_THRESHOLD:
-        raise NotImplementedError(
-            f"a {W}-token pass needs the q-chunked attention, not ported yet")
+    need = W + (window - 1 if window > 0 else 0)
+    assert need <= C, (
+        f"pass of {W} tokens (+window {window}) exceeds cache capacity {C}; "
+        f"chunk it")
     q, k_new, v_new = _qkv(p, cfg, x, schedule)
     abs_pos = start_pos[:, None].to(torch.int32) + torch.arange(
         W, dtype=torch.int32, device=x.device)[None, :]
@@ -170,18 +246,29 @@ def attention_cached(
     cache["v"][b_idx, slots] = v_new.to(cache["v"].dtype)
     cache["pos"][b_idx, slots] = abs_pos
 
-    if W == 1 and cfg.logit_softcap == 0:
+    if W == 1 and window == 0 and cfg.logit_softcap == 0:
         # single-token decode: the dense-cache kernel, which scales q by
         # hd^-0.5 in f32 itself and masks by length
         out = ops.decode_attention(q[:, 0], cache["k"], cache["v"],
                                    abs_pos[:, 0] + 1, schedule)
     else:
         q = q * (cfg.hd ** -0.5)
-        kp = cache["pos"][:, None, :]
-        qp = abs_pos[:, :, None]
-        mask = (kp >= 0) & (kp <= qp)
-        out = _softmax_attend(q, cache["k"], cache["v"], mask, schedule,
-                              cfg.logit_softcap)
+        if W > CHUNK_THRESHOLD:
+            out = _chunked_attend(q.to(F32), cache["k"], cache["v"], abs_pos,
+                                  cache["pos"], schedule, cfg.logit_softcap, window)
+        else:
+            kp = cache["pos"][:, None, :]
+            qp = abs_pos[:, :, None]
+            mask = (kp >= 0) & (kp <= qp)
+            if window > 0:
+                mask = mask & (kp > qp - window)
+            splits = schedule.kv_splits
+            if W == 1 and (splits <= 1 or splits > C):
+                out = _ring_decode_attend(q, cache["k"], cache["v"], mask,
+                                          cfg.logit_softcap)
+            else:
+                out = _softmax_attend(q, cache["k"], cache["v"], mask, schedule,
+                                      cfg.logit_softcap)
     out = matmul(out.reshape(B, W, -1).to(x.dtype), p["wo"], schedule)
     return out, cache
 
@@ -254,3 +341,95 @@ def swiglu_ffn(p: Dict, x: torch.Tensor, schedule: Schedule) -> torch.Tensor:
     up = matmul(x, p["wi_up"], schedule)
     h = F.silu(gate.to(F32)).to(x.dtype) * up
     return matmul(h, p["wo"], schedule)
+
+
+#: the expert contractions' schedule: one f32 pass over K, the commit GEMM
+#: with one chunk under every pass schedule (the reference's expert einsums
+#: do not follow the schedule either)
+EXPERT_SCHEDULE = Schedule()
+
+
+def _top_k(logits: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: the k largest values, the lower
+    index first among equal values (a stable descending sort;
+    ``torch.topk`` promises no order among ties)."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_ffn(p: Dict, cfg, x: torch.Tensor, schedule: Schedule,
+            capacity_factor: float = 1.25) -> Tuple[torch.Tensor, Dict]:
+    """Top-k MoE with sort-based dispatch and static expert capacity, the
+    reference's integer arithmetic step for step.
+
+    The router runs in the schedule's GEMM, so its argmax can flip under
+    another reduction tree (where the paper expects O1 token flips).
+    Capacity C is T under ``moe_no_drop`` (the commit schedule), else
+    ``ceil(T*K*capacity_factor/E)`` rounded up to a multiple of 8 above 8;
+    routed slots past C go to the overflow bucket ``E*C`` and read zeros
+    back.  Every expert runs on its C-row bucket, f32 in and out, through
+    the commit GEMM with one chunk (``EXPERT_SCHEDULE``), one expert's
+    matrices cast to f32 at a time: 3E launches a layer a pass, whatever
+    the routing.  The top-k outputs sum left to right.  Returns ``(y,
+    aux)``, aux holding ``router_load``, ``aux_loss`` and
+    ``dropped_frac``."""
+    orig_shape = x.shape
+    d = orig_shape[-1]
+    xt = x.reshape(-1, d)
+    T = xt.shape[0]
+    E, K = cfg.num_experts, cfg.top_k
+    dev = x.device
+
+    logits = matmul(xt, p["router"], schedule).to(F32)  # (T, E)
+    gates, idx = _top_k(logits, K)
+    gates = torch.softmax(gates, dim=-1)
+
+    if schedule.moe_no_drop:
+        C = T  # every token routed to one expert still fits: never drop
+    else:
+        C = max(int(T * K * capacity_factor / E + 0.999), 1)
+        if C > 8:
+            C = (C + 7) // 8 * 8
+
+    flat_e = idx.reshape(-1)  # (T*K,)
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+    # bucket starts as exact counts #{assignments < e}: a fixed-structure
+    # reduction, as in the reference (not a binary search over T*K)
+    experts = torch.arange(E, device=dev)
+    starts = (sorted_e[None, :] < experts[:, None]).to(torch.int64).sum(dim=1)
+    pos_in_e = torch.arange(T * K, device=dev) - starts[sorted_e]
+    keep = pos_in_e < C
+    dest = torch.where(keep, sorted_e * C + pos_in_e, E * C)  # overflow bucket
+
+    xin = xt[order // K]  # the token each routed slot came from
+    buckets = torch.zeros((E * C + 1, d), dtype=xt.dtype, device=dev)
+    buckets[dest] = torch.where(keep[:, None], xin, torch.zeros_like(xin))
+    buckets = buckets[: E * C].reshape(E, C, d)
+
+    yb = torch.empty((E * C + 1, d), dtype=xt.dtype, device=dev)
+    yb[E * C] = 0  # dropped slots read this row
+    for e in range(E):
+        be = buckets[e].to(F32)
+        gate_h = matmul(be, p["wi_gate"][e].to(F32), EXPERT_SCHEDULE)
+        up_h = matmul(be, p["wi_up"][e].to(F32), EXPERT_SCHEDULE)
+        h = F.silu(gate_h) * up_h
+        yb[e * C:(e + 1) * C] = matmul(h, p["wo"][e].to(F32), EXPERT_SCHEDULE).to(xt.dtype)
+
+    y_routed = yb[dest]  # (T*K, d)
+    inv = torch.sort(order, stable=True).indices
+    y_per_k = y_routed[inv].reshape(T, K, d)
+    acc = y_per_k[:, 0].to(F32) * gates[:, 0, None]
+    for j in range(1, K):
+        acc = acc + y_per_k[:, j].to(F32) * gates[:, j, None]
+    y = acc.to(xt.dtype)
+
+    counts = (flat_e[None, :] == experts[:, None]).to(torch.int64).sum(dim=1)
+    load = counts.to(F32) / (T * K)
+    importance = torch.softmax(logits, dim=-1).mean(dim=0)
+    aux = {
+        "router_load": load,
+        "aux_loss": E * (load * importance).sum(),
+        "dropped_frac": 1.0 - keep.to(F32).mean(),
+    }
+    return y.reshape(orig_shape), aux

@@ -1,18 +1,24 @@
 """Fixed-size KV block pool: allocator + block-indexed device cache layout.
 
-PyTorch counterpart of ``repro.serving.blockpool``, attention-arch subset:
-every full-attention leaf (``k``/``v``/``pos``) is cut into one global pool
-of ``block_size``-token blocks, ``(layers, num_blocks + 2, block_size,
-...)``, addressed through per-request block tables.  Two sentinel blocks
-close the pool: ``null`` (frozen, ``pos == -1``; ``-1`` table entries read
-it) and ``scratch`` (absorbs writes past a table; never read).
+PyTorch counterpart of ``repro.serving.blockpool``, attention-arch subset.
+``build_layout`` classifies every cache leaf once, by shape, into one of
+two kinds:
+
+* ``paged``: every full-attention leaf (``k``/``v``/``pos``) is cut into
+  one global pool of ``block_size``-token blocks, ``(layers, num_blocks +
+  2, block_size, ...)``, addressed through per-request block tables.  Two
+  sentinel blocks close the pool: ``null`` (frozen, ``pos == -1``; ``-1``
+  table entries read it) and ``scratch`` (absorbs writes past a table;
+  never read).
+* ``slot``: dense per-slot leaves, ``(layers, num_slots + 1, ...)``, the
+  last row a scratch slot that verify pad rows write.  Sliding-window
+  rings (``window + RING_SLACK`` slots a row) are this slice's only slot
+  leaves; recurrent state and cross caches will join them.
 
 The JAX package threads an immutable pool through every step; here the
 leaves are updated in place (the paged forward writes through the tables,
-``scatter`` writes gathered views back, ``wipe_blocks`` resets freed
-blocks' positions).  Slot-shaped leaves
-(recurrent state, sliding rings, cross caches) belong to families not yet
-ported, so this pool holds paged leaves only.
+``scatter`` and ``scatter_mixed`` write gathered rows and views back,
+``wipe_blocks`` and ``wipe_slot`` reset freed blocks and slots).
 """
 
 from __future__ import annotations
@@ -25,18 +31,25 @@ import torch
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.transformer import cache_spec
 
+#: shape sentinels for leaf classification (never collide with real dims)
+_SENT_B = 1_000_003
+_SENT_C = 1_000_033
+
 #: default KV block size (tokens per block)
 DEFAULT_BLOCK_SIZE = 16
 
 
 @dataclasses.dataclass(frozen=True)
 class Layout:
-    """Static description of the paged cache layout."""
+    """Static description of the cache layout.  ``kinds`` mirrors the cache
+    tree with ``"paged"`` or ``"slot"`` per leaf; every leaf's batch axis
+    (paged: block axis) is axis 1, after the layer axis."""
 
+    kinds: Any
     block_size: int
     num_blocks: int  # real allocatable blocks (excludes null + scratch)
     blocks_per_table: int  # table width: ceil(capacity / block_size)
-    has_paged: bool = True
+    has_paged: bool
 
     @property
     def null_bid(self) -> int:
@@ -51,31 +64,57 @@ class Layout:
         return self.blocks_per_table * self.block_size
 
 
+def _map(fn, tree: Any, *rest: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _leaves(tree: Any) -> List[Any]:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
 def build_layout(
     cfg: ModelConfig, capacity: int, block_size: int, num_blocks: int
 ) -> Layout:
+    """Classify every cache leaf by shape (sentinel batch and capacity
+    dimensions): a leaf whose capacity axis follows its batch axis is
+    paged, any other (a ring caps its capacity at ``window + RING_SLACK``)
+    is slot-shaped."""
     if block_size < 1:
         raise ValueError(f"block_size {block_size} must be >= 1")
-    return Layout(block_size=block_size, num_blocks=num_blocks,
-                  blocks_per_table=-(-capacity // block_size))
+
+    def classify(leaf):
+        shape, _ = leaf
+        assert shape[1] == _SENT_B, f"batch axis must follow the layer axis in {shape}"
+        return "paged" if shape[2] == _SENT_C else "slot"
+
+    kinds = _map(classify, cache_spec(cfg, _SENT_B, _SENT_C))
+    return Layout(kinds=kinds, block_size=block_size, num_blocks=num_blocks,
+                  blocks_per_table=-(-capacity // block_size),
+                  has_paged="paged" in _leaves(kinds))
 
 
-def init_cache(cfg: ModelConfig, lay: Layout, device: torch.device) -> Any:
-    """Device storage: every leaf of ``cache_spec`` with its (batch,
-    capacity) axes replaced by (num_blocks + 2, block_size); positions
-    start at -1 (empty)."""
-    spec = cache_spec(cfg, 1, 1)
+def init_cache(cfg: ModelConfig, lay: Layout, num_slots: int,
+               device: torch.device) -> Any:
+    """Device storage: slot leaves carry ``num_slots + 1`` rows (the last
+    the scratch slot); paged leaves carry ``num_blocks + 2`` blocks of
+    ``block_size`` (+ null + scratch blocks).  Positions start at -1
+    (empty)."""
 
-    def make(leaf):
-        if isinstance(leaf, dict):
-            return {k: make(v) for k, v in leaf.items()}
+    def make(leaf, kind):
         shape, dtype = leaf
-        shape = (shape[0], lay.num_blocks + 2, lay.block_size) + shape[3:]
+        if kind == "slot":
+            shape = (shape[0], num_slots + 1) + shape[2:]
+        else:
+            shape = (shape[0], lay.num_blocks + 2, lay.block_size) + shape[3:]
         if dtype == torch.int32:
             return torch.full(shape, -1, dtype=dtype, device=device)
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    return make(spec)
+    return _map(make, cache_spec(cfg, _SENT_B, _SENT_C), lay.kinds)
 
 
 def wipe_blocks(pool: Any, lay: Layout, bids: List[int]) -> Any:
@@ -83,53 +122,90 @@ def wipe_blocks(pool: Any, lay: Layout, bids: List[int]) -> Any:
     positions never mask into a future owner's attention."""
     if not bids:
         return pool
-    pos = pool["blocks"]["0"]["pos"]
-    pos[:, torch.tensor(bids, dtype=torch.long, device=pos.device)] = -1
-    return pool
+
+    def wipe(leaf, kind):
+        if kind == "paged" and leaf.dtype == torch.int32:
+            leaf[:, torch.tensor(bids, dtype=torch.long, device=leaf.device)] = -1
+        return leaf
+
+    return _map(wipe, pool, lay.kinds)
+
+
+def wipe_slot(pool: Any, lay: Layout, slot: int) -> Any:
+    """Reset a slot's dense leaves in place (ring positions to -1, the rest
+    to zero), so a released or restored slot starts pristine."""
+
+    def wipe(leaf, kind):
+        if kind == "slot":
+            leaf[:, slot] = -1 if leaf.dtype == torch.int32 else 0
+        return leaf
+
+    return _map(wipe, pool, lay.kinds)
 
 
 # ---------------------------------------------------------------------------
-# device gather / scatter through block tables (the gathered lane)
+# device gather / scatter: slot leaves by slots, paged leaves by tables
 # ---------------------------------------------------------------------------
 
 
-def _map(fn, tree: Any, *rest: Any) -> Any:
-    if isinstance(tree, dict):
-        return {k: _map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    return fn(tree, *rest)
-
-
-def gather(pool: Any, lay: Layout, tables: torch.Tensor) -> Any:
-    """Per-row cache views: every leaf ``(layers, NB+2, bs, ...)`` becomes
-    ``(layers, B, view_capacity, ...)`` assembled from ``tables`` (B,
-    blocks_per_table); ``-1`` entries read the null block (positions -1,
-    always masked).  The views are copies."""
+def gather(pool: Any, lay: Layout, slots: torch.Tensor, tables: torch.Tensor) -> Any:
+    """Per-row cache views (copies): slot leaves take rows ``slots`` (B,);
+    paged leaves ``(layers, NB+2, bs, ...)`` become ``(layers, B,
+    view_capacity, ...)`` assembled from ``tables`` (B, blocks_per_table),
+    ``-1`` entries reading the null block (positions -1, always masked)."""
     B, nblk = tables.shape
     flat = torch.where(tables < 0, lay.null_bid, tables).reshape(-1).long()
 
-    def g(leaf):
+    def g(leaf, kind):
+        if kind == "slot":
+            return leaf[:, slots]
         out = leaf[:, flat]  # (layers, B*nblk, bs, ...)
         return out.reshape(leaf.shape[0], B, nblk * lay.block_size, *leaf.shape[3:])
 
-    return _map(g, pool)
+    return _map(g, pool, lay.kinds)
 
 
-def scatter(pool: Any, lay: Layout, tables: torch.Tensor, update: Any) -> Any:
-    """Write per-row views back into the pool in place: ``-1`` entries dump
-    into the scratch block (view tails and pad rows, duplicate indices);
-    duplicate real entries (prefix-shared blocks in one batch) carry
-    bitwise-identical content, so write order is immaterial.  Run under
-    ``core.determinism.deterministic_torch``, as the paged writes are."""
+def scatter(pool: Any, lay: Layout, slots: torch.Tensor, tables: torch.Tensor,
+            update: Any) -> Any:
+    """Write per-row views back into the pool in place: slot leaves by
+    ``slots`` (pad rows share the scratch slot); paged leaves through the
+    tables, ``-1`` entries dumping into the scratch block (view tails and
+    pad rows, duplicate indices); duplicate real entries (prefix-shared
+    blocks in one batch) carry bitwise-identical content, so write order is
+    immaterial.  Run under ``core.determinism.deterministic_torch``, as the
+    paged writes are."""
     B, nblk = tables.shape
     flat = torch.where(tables < 0, lay.scratch_bid, tables).reshape(-1).long()
 
-    def s(leaf, u):
+    def s(leaf, kind, u):
+        if kind == "slot":
+            leaf[:, slots] = u.to(leaf.dtype)
+            return leaf
         u2 = u.reshape(leaf.shape[0], B * nblk, lay.block_size, *leaf.shape[3:])
         for i in range(leaf.shape[0]):  # index the block axis of one layer
             leaf[i][flat] = u2[i].to(leaf.dtype)
         return leaf
 
-    return _map(s, pool, update)
+    return _map(s, pool, lay.kinds, update)
+
+
+def gather_mixed(pool: Any, lay: Layout, slots: torch.Tensor) -> Any:
+    """Row-pack slot leaves only (copies); paged leaves pass through whole,
+    for the paged forward to read and write in place through the tables."""
+    return _map(lambda leaf, kind: leaf if kind == "paged" else leaf[:, slots],
+                pool, lay.kinds)
+
+
+def scatter_mixed(pool: Any, lay: Layout, slots: torch.Tensor, update: Any) -> Any:
+    """Inverse of ``gather_mixed``: slot leaves write back by ``slots``;
+    paged leaves were updated in place by the forward."""
+
+    def sm(leaf, kind, u):
+        if kind == "slot":
+            leaf[:, slots] = u.to(leaf.dtype)
+        return leaf
+
+    return _map(sm, pool, lay.kinds, update)
 
 
 # ---------------------------------------------------------------------------

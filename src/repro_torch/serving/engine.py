@@ -39,8 +39,12 @@ scratch block through duplicate indices).  On the card every GEMM runs in
 the two hand-written GEMMs and single-token attention in the paged kernels
 (paged lane) or the dense-cache decode kernel (gathered lane).
 
-What waits for later slices: recurrent / enc-dec / prefix-embed /
-sliding-window archs and ``tp > 1``.  The constructor raises on each.
+Served families: dense and MoE, with full or sliding-window attention.
+A sliding config keeps per-slot rings (``window + RING_SLACK`` slots) in
+place of paged KV, so it has no paged lane and no prefix cache; its
+prefill runs in chunks the ring contract allows (``_ring_pass_cap``).
+What waits for later slices: recurrent / enc-dec / prefix-embed archs and
+``tp > 1``.  The constructor raises on each.
 """
 
 from __future__ import annotations
@@ -61,7 +65,8 @@ from repro_torch.core.determinism import (
     deterministic_torch,
 )
 from repro_torch.core.verifier import make_verify_body
-from repro_torch.models.base import ModelConfig, dense_supported
+from repro_torch.models.base import ModelConfig, check_ported
+from repro_torch.models.transformer import RING_SLACK
 from repro_torch.obs import Observability, TokenProvenance
 from repro_torch.serving import (
     blockpool, costmodel, kv_cache, prefixcache, statepool, streams,
@@ -106,7 +111,7 @@ class Engine:
         audit: bool = False,  # per-token determinism audit (obs.audit)
         tp: int = 1,  # fast-path tensor-parallel width
     ):
-        dense_supported(cfg)
+        check_ported(cfg)
         if tp != 1:
             raise NotImplementedError("tp > 1 waits for the distributed/ port")
         assert spec_depth >= 1, "at least one verify window must be allowed"
@@ -124,8 +129,11 @@ class Engine:
             cfg, max_batch, self.capacity, device=self.device,
             block_size=block_size, num_blocks=num_blocks,
         )
+        # commit-aware prefix sharing needs paged full-attention KV to share
+        # (a sliding config's rings are per slot)
         self.prefix_cache: Optional[prefixcache.PrefixCache] = (
-            prefixcache.PrefixCache(self.pool.block_size) if prefix_cache else None
+            prefixcache.PrefixCache(self.pool.block_size)
+            if (prefix_cache and self.pool.paged) else None
         )
         self.mem_policy = mem_policy or sched.BlockMemoryPolicy()
         self.spec_depth = int(spec_depth)
@@ -150,7 +158,8 @@ class Engine:
         self.preempted: List[Request] = []  # blocks evicted, restore pending
         self.finished: List[Request] = []
         self.events: List[Dict[str, Any]] = []
-        self._paged_fwd = bool(paged_attention)
+        # a pool without paged leaves (sliding rings only) has no paged lane
+        self._paged_fwd = self.pool.paged and bool(paged_attention)
         self._verify_body = make_verify_body(
             cfg, group, window, self.pool.layout, paged=self._paged_fwd)
         self._pad_row: Optional[torch.Tensor] = None
@@ -414,17 +423,18 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _forward(self, params, pool, tables, start_pos, schedule, **inputs):
+    def _forward(self, params, pool, slots, tables, start_pos, schedule, **inputs):
         """One forward over the pool in this engine's memory lane."""
         return kv_cache.pool_forward(
-            params, self.cfg, self.pool.layout, pool, tables, start_pos,
+            params, self.cfg, self.pool.layout, pool, slots, tables, start_pos,
             schedule, paged=self._paged_fwd, **inputs)
 
     def _decode_body(self, batch_size: int, schedule: Schedule):
         """One-token decode over the pool through the block tables."""
 
-        def step(params, pool, tables, tokens, pos, seeds, temps, out_pos, top_ks):
-            logits, pool = self._forward(params, pool, tables, pos, schedule,
+        def step(params, pool, slots, tables, tokens, pos, seeds, temps, out_pos,
+                 top_ks):
+            logits, pool = self._forward(params, pool, slots, tables, pos, schedule,
                                          tokens=tokens[:, None])
             nxt = sample_batch(logits[:, 0], seeds, out_pos, temps, top_ks)
             margins = top2_margin(logits[:, 0])
@@ -433,14 +443,14 @@ class Engine:
         return step
 
     # det: commit-path
-    def _prefill_pass(self, table: torch.Tensor, tokens: torch.Tensor):
+    def _prefill_pass(self, slot: int, table: torch.Tensor, tokens: torch.Tensor):
         """Exclusive whole-prompt pass at the prompt's bucket, verify-grade
         schedule in every mode.  The JAX engine gathers a per-row view and
         runs the dense attention on it (the gathered lane here too); the
         paged forward computes the same masked softmax over the same view,
         reading through the table."""
         logits, self.pool.data = self._forward(
-            self.params, self.pool.data, table[None], self._ints([0]),
+            self.params, self.pool.data, [slot], table[None], self._ints([0]),
             self._commit_schedule(), tokens=tokens)
         return logits
 
@@ -448,9 +458,9 @@ class Engine:
         """Fixed-shape C-token prefill chunk, verify-grade schedule."""
         schedule = self._commit_schedule()
 
-        def chunk(params, pool, table, embeds, start, last):
-            logits, pool = self._forward(params, pool, table[None], start[None],
-                                         schedule, inputs_embeds=embeds)
+        def chunk(params, pool, slot, table, embeds, start, last):
+            logits, pool = self._forward(params, pool, [slot], table[None],
+                                         start[None], schedule, inputs_embeds=embeds)
             return pool, logits
 
         return chunk
@@ -491,7 +501,10 @@ class Engine:
 
     def _check_capacity(self, req: Request) -> None:
         """Reject a request whose worst-case footprint exceeds the
-        per-request block-table reach or the whole pool."""
+        per-request block-table reach or the whole pool.  A sliding config
+        has no full attention: its rings wrap, so nothing is rejected."""
+        if self.cfg.attn_kind == "sliding":
+            return
         need = self._worst_need(req)
         total_blocks = self.pool.alloc_blocks.num_blocks
         need_blocks = self._blocks_for(need)
@@ -506,8 +519,19 @@ class Engine:
                 f"{self.pool.block_size}"
             )
 
+    def _ring_pass_cap(self, C: int) -> int:
+        """``C`` capped, for a sliding config, at the longest pass the ring
+        contract allows: ``window + RING_SLACK`` slots hold a pass of W
+        tokens only if ``W + window - 1`` fit, so W <= RING_SLACK + 1.  The
+        reference caps at ``window`` alone, which is the same cap wherever
+        ``window <= RING_SLACK + 1`` and trips the ring contract's assertion
+        above it (at every published window)."""
+        if self.cfg.attn_kind == "sliding":
+            C = min(C, self.cfg.window, RING_SLACK + 1)
+        return C
+
     def _chunk_size(self) -> int:
-        return max(1, self.prefill_chunk)
+        return max(1, self._ring_pass_cap(self.prefill_chunk))
 
     def _use_chunked(self, req: Request) -> bool:
         """Chunked lane only when the prompt spans more than one chunk."""
@@ -544,6 +568,8 @@ class Engine:
     def _ensure_blocks(self, req: Request, end_pos: int) -> bool:
         """Guarantee the table covers KV positions [0, end_pos), preempting
         LRU victims when the pool is dry.  False = unsatisfiable now."""
+        if not self.pool.paged:
+            return True
         target = self._blocks_for(min(end_pos, self.capacity))
         while not self._grow_blocks(req, target):
             cands = [
@@ -597,7 +623,7 @@ class Engine:
         # restore lane first, gated by the memory policy's hysteresis
         while self.preempted and len(self.running) < self.max_batch:
             req = self.preempted[0]
-            avail = self.pool.alloc_blocks.available()
+            avail = self.pool.alloc_blocks.available() if self.pool.paged else 10 ** 9
             need = self._blocks_for(self._worst_need(req))
             if not self.mem_policy.may_restore(req, avail, need, self._now):
                 break
@@ -621,15 +647,16 @@ class Engine:
             matched = self.prefix_cache.match(req.prompt, self._now)
             # the boundary block is never shared: T0's position must run
             matched = matched[: (req.prompt_len - 1) // self.pool.block_size]
-        need = self._blocks_for(L) - len(matched)
-        if not self.mem_policy.may_admit(alloc.available(), need):
-            return False
+        if self.pool.paged:
+            need = self._blocks_for(L) - len(matched)
+            if not self.mem_policy.may_admit(alloc.available(), need):
+                return False
         for bid in matched:
             alloc.incref(bid)
         req.blocks = list(matched)
         req.blocks_shared = len(matched)
         req.cached_prefix_tokens = len(matched) * self.pool.block_size
-        if not self._grow_blocks(req, self._blocks_for(L)):
+        if self.pool.paged and not self._grow_blocks(req, self._blocks_for(L)):
             self._release_blocks(req, insert=False)
             return False
         if self.prefix_cache is not None:
@@ -697,8 +724,11 @@ class Engine:
     def _restore(self, req: Request) -> None:
         """Re-admit a preempted request by deterministic recompute: replay
         prompt + committed[:-1] through the prefill lane (verify-grade
-        schedule), re-matching blocks still resident in the prefix cache."""
+        schedule), re-matching blocks still resident in the prefix cache.
+        The replay starts on a wiped slot: the slot survived preemption,
+        but its ring holds the victim's post-speculation content."""
         stream = list(req.prompt) + list(req.committed[:-1])
+        self.pool.reset_slot(req.slot)
         alloc = self.pool.alloc_blocks
         matched: List[int] = []
         if self.prefix_cache is not None:
@@ -710,7 +740,7 @@ class Engine:
         self._prepare_prefill(req, stream=stream)
         req.prefill_pos = len(matched) * self.pool.block_size
         req.replaying = True
-        ok = self._grow_blocks(req, self._blocks_for(len(stream)))
+        ok = not self.pool.paged or self._grow_blocks(req, self._blocks_for(len(stream)))
         assert ok, "restore gate admitted a replay the pool cannot hold"
         self.num_restores += 1
         replay = max(req.prefill_total - req.prefill_pos, 0)
@@ -733,10 +763,11 @@ class Engine:
 
     def _prefill_tail_sync(self, req: Request) -> None:
         """Exclusive prefill of the remaining ``[prefill_pos,
-        prefill_total)`` span at the tail's power-of-two bucket."""
+        prefill_total)`` span at the tail's power-of-two bucket, capped by
+        ``_ring_pass_cap`` (a sliding prompt runs several such passes)."""
         start = req.prefill_pos
         replay = req.replaying
-        C = _bucket(max(req.prefill_total - start, 1))
+        C = self._ring_pass_cap(_bucket(max(req.prefill_total - start, 1)))
         wall = 0.0
         while req.prefill_pos < req.prefill_total:
             wall += self._prefill_advance(req, C)["wall"]
@@ -826,7 +857,7 @@ class Engine:
             pad = self._pad_embed().expand(1, C - real, emb.shape[2])
             emb = torch.cat([emb, pad], dim=1)
         table = self.pool.table_array([req.blocks])[0]
-        args = (table, emb, self._ints(s), self._ints(max(real - 1, 0)))
+        args = (req.slot, table, emb, self._ints(s), self._ints(max(real - 1, 0)))
         return args, s, real
 
     def _prefill_chunk_post(self, req: Request, C: int, s: int, real: int,
@@ -861,11 +892,17 @@ class Engine:
     # det: commit-path
     def _prefill(self, req: Request) -> None:
         P = _bucket(req.prompt_len)
+        if self._ring_pass_cap(P) < P:
+            # ring contract: feed the prompt in chunks the ring allows (the
+            # reference's _prefill_sliding: the same fixed-chunk loop)
+            self._prepare_prefill(req)
+            self._prefill_tail_sync(req)
+            return
         tokens = self._ints([req.prompt + [0] * (P - req.prompt_len)])
         table = self.pool.table_array([req.blocks])[0]
         t0 = time.perf_counter()
         with deterministic_torch():
-            logits = self._prefill_pass(table, tokens)
+            logits = self._prefill_pass(req.slot, table, tokens)
             last = logits[0, req.prompt_len - 1]
             tok = int(sample_token(last, req.sampling.seed, 0,
                                    req.sampling.temperature, req.sampling.top_k))
@@ -916,6 +953,7 @@ class Engine:
     def _decode_prep(self, batch: List[Request]):
         """Device arguments for one decode pass over ``batch``."""
         tables = self.pool.table_array([r.blocks for r in batch])
+        slots = [r.slot for r in batch]
         last_tok, pos, out_pos, seeds, temps, top_ks = [], [], [], [], [], []
         for r in batch:
             seq = r.committed + r.speculation
@@ -926,7 +964,7 @@ class Engine:
             temps.append(r.sampling.temperature)
             top_ks.append(r.sampling.top_k)
             r.last_sched = self._now
-        args = (tables, self._ints(last_tok), self._ints(pos), seeds, temps,
+        args = (slots, tables, self._ints(last_tok), self._ints(pos), seeds, temps,
                 out_pos, top_ks)
         return args, pos
 
@@ -1413,7 +1451,10 @@ class Engine:
     def _ensure_memory(self) -> Set[int]:
         """Grow every running request's block table to cover this
         iteration's worst-case writes, preempting LRU victims on
-        exhaustion.  Returns the rids that could not be covered."""
+        exhaustion.  Returns the rids that could not be covered.  A pool
+        without paged leaves (sliding rings) has no blocks to grow."""
+        if not self.pool.paged:
+            return set()
         stalled: Set[int] = set()
         for r in list(self.running):
             if r not in self.running:

@@ -2,16 +2,18 @@
 
 PyTorch counterpart of ``repro.serving.kv_cache``, attention-arch subset.
 ``CachePool`` owns the device pool (``serving.blockpool``), the block
-allocator and the slot free list.  Slots carry no device state for the
-dense family (its only leaves are paged); they still bound concurrency and
-name the scratch row grouped verification pads with.  Pool leaves are
-updated in place.
+allocator and the slot free list.  Full-attention KV is paged; slots hold
+the slot-kind leaves (sliding-window rings), one row each plus the scratch
+row grouped verification pads with, and bound concurrency.  A freed slot
+is wiped.  Pool leaves are updated in place.
 
 ``pool_forward`` runs one forward pass over the pool in either memory
-lane: the paged lane reads and writes it in place through the block tables
+lane: the paged lane row-packs the slot leaves by ``slots`` and reads and
+writes paged leaves in place through the block tables
 (``models.layers.attention_paged``); the gathered lane
 (``paged_attention=False``) gathers per-row views, runs the dense forward
-on them and scatters them back, as the JAX engine's legacy path does.
+on them and scatters them back, as the JAX engine's legacy path does.  A
+pool with slot leaves only (a sliding config) has no paged lane.
 """
 
 from __future__ import annotations
@@ -27,32 +29,42 @@ from repro_torch.models.transformer import forward
 from repro_torch.serving import blockpool
 from repro_torch.serving.blockpool import BlockAllocator, Layout  # noqa: F401
 
-#: gathered-lane entry points (block-table addressing)
+#: gathered-lane entry points (slot + block-table addressing)
 gather = blockpool.gather
 scatter = blockpool.scatter
+
+#: paged-lane entry points: slot leaves row-packed, paged leaves whole
+gather_mixed = blockpool.gather_mixed
+scatter_mixed = blockpool.scatter_mixed
 
 
 def pool_forward(
     params: Dict, cfg: ModelConfig, lay: Layout, pool: Any,
-    tables: torch.Tensor, start_pos: torch.Tensor, schedule: Schedule, *,
-    paged: bool, tokens: Optional[torch.Tensor] = None,
+    slots: Sequence[int], tables: torch.Tensor, start_pos: torch.Tensor,
+    schedule: Schedule, *, paged: bool, tokens: Optional[torch.Tensor] = None,
     inputs_embeds: Optional[torch.Tensor] = None,
 ):
-    """``forward`` over the pool through ``tables``; returns ``(logits,
-    pool)``.  ``paged=True`` passes the pool whole and the forward updates
-    it in place; ``paged=False`` gathers ``(layers, B, view_capacity, ...)``
-    views, runs the dense-cache forward on them and scatters them back."""
+    """``forward`` over the pool for the rows' ``slots`` and ``tables``;
+    returns ``(logits, pool)``.  ``paged=True`` (a pool with paged leaves)
+    row-packs the slot leaves, passes the paged leaves whole for the
+    forward to update in place, and writes the rows back;
+    ``paged=False`` gathers ``(layers, B, view_capacity, ...)`` views and
+    slot rows, runs the dense-cache forward on them and scatters them
+    back."""
+    idx = torch.as_tensor(list(slots), dtype=torch.long, device=tables.device)
     if paged:
+        assert lay.has_paged, "a pool without paged leaves has no paged lane"
         pview = PagedView(lay.block_size, lay.null_bid, lay.scratch_bid)
-        logits, pool, _ = forward(
-            params, cfg, tokens, inputs_embeds=inputs_embeds, cache=pool,
+        cache = gather_mixed(pool, lay, idx)
+        logits, cache, _ = forward(
+            params, cfg, tokens, inputs_embeds=inputs_embeds, cache=cache,
             start_pos=start_pos, schedule=schedule, tables=tables, paged=pview)
-        return logits, pool
-    views = gather(pool, lay, tables)
+        return logits, scatter_mixed(pool, lay, idx, cache)
+    views = gather(pool, lay, idx, tables)
     logits, views, _ = forward(
         params, cfg, tokens, inputs_embeds=inputs_embeds, cache=views,
         start_pos=start_pos, schedule=schedule)
-    return logits, scatter(pool, lay, tables, views)
+    return logits, scatter(pool, lay, idx, tables, views)
 
 
 class CachePool:
@@ -79,7 +91,7 @@ class CachePool:
         if num_blocks is None:
             num_blocks = num_slots * bpt
         self.layout = blockpool.build_layout(cfg, capacity, block_size, num_blocks)
-        self.data = blockpool.init_cache(cfg, self.layout, device)
+        self.data = blockpool.init_cache(cfg, self.layout, num_slots, device)
         self.alloc_blocks = BlockAllocator(num_blocks)
         self._free: List[int] = list(range(num_slots))
 
@@ -93,7 +105,15 @@ class CachePool:
         return self._free.pop(0)
 
     def free(self, slot: int) -> None:
+        # wipe the slot's dense leaves so stale entries never mask in
+        self.reset_slot(slot)
         self._free.append(slot)
+
+    def reset_slot(self, slot: int) -> None:
+        """Wipe a slot's dense leaves (ring positions to -1) without
+        releasing it: a restore replays from the state a fresh slot has,
+        not from the victim's post-speculation ring."""
+        blockpool.wipe_slot(self.data, self.layout, slot)
 
     def num_free(self) -> int:
         return len(self._free)

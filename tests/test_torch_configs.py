@@ -1,6 +1,7 @@
-"""The dense configs the port serves, on the CPU.
+"""The configs the port serves, on the CPU.
 
-* ``configs.get_config`` / ``get_smoke_config`` serve all five dense ids,
+* ``configs.get_config`` / ``get_smoke_config`` (and ``get_long_config``
+  where a config has a sliding-window variant) serve every ported id,
   dashed and underscored, field for field the JAX package's configs, and
   ``param_count`` / ``active_param_count`` equal the JAX values exactly at
   full and smoke size.
@@ -46,7 +47,8 @@ from repro_torch.serving.request import Request, SamplingParams
 
 ROOT = Path(__file__).resolve().parents[1]
 DENSE = list(configs.DASHED)
-NEW = ["tinyllama-1.1b", "phi3-mini-3.8b", "internlm2-20b", "command-r-35b"]
+NEW = ["tinyllama-1.1b", "phi3-mini-3.8b", "internlm2-20b", "command-r-35b",
+       "llama4-scout-17b-a16e"]
 CAP, BS = 64, 16
 LOGIT_TOL = 2e-4
 
@@ -66,8 +68,15 @@ def test_configs_and_param_counts_equal_jax(arch):
     from repro import configs as jconfigs
 
     module = configs.DASHED[arch]
-    for get, jget in ((configs.get_config, jconfigs.get_config),
-                      (configs.get_smoke_config, jconfigs.get_smoke_config)):
+    getters = [(configs.get_config, jconfigs.get_config),
+               (configs.get_smoke_config, jconfigs.get_smoke_config)]
+    assert configs.supports_long(arch) == jconfigs.supports_long(arch)
+    if configs.supports_long(arch):
+        getters.append((configs.get_long_config, jconfigs.get_long_config))
+    else:
+        with pytest.raises(ValueError, match="long-context"):
+            configs.get_long_config(arch)
+    for get, jget in getters:
         cfg, jcfg = get(arch), jget(arch)
         assert get(module) == cfg
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)

@@ -182,15 +182,17 @@ def test_prefix_cache_hit_keeps_stream(port_params):
 
 
 def test_engine_refuses_unported_options(port_params):
-    """Tensor parallelism and the sliding-window family still wait; the
-    gathered lane and seeded sampling are ported (tests/test_torch_gathered.py,
-    tests/test_torch_sampler.py)."""
+    """Tensor parallelism, ``first_k_dense`` head layers and attention
+    biases still wait (the sliding-window family is ported since
+    tests/test_torch_sliding.py); the gathered lane and seeded sampling are
+    ported (tests/test_torch_gathered.py, tests/test_torch_sampler.py)."""
     import dataclasses
 
     with pytest.raises(NotImplementedError):
         Engine(CFG, port_params, tp=2)
-    with pytest.raises(NotImplementedError):
-        Engine(dataclasses.replace(CFG, attn_kind="sliding"), port_params)
+    for unported in (dict(first_k_dense=1), dict(use_bias=True)):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            Engine(dataclasses.replace(CFG, **unported), port_params)
     eng = Engine(CFG, port_params, capacity=64, paged_attention=False)
     eng.submit(Request(rid=0, prompt=[1, 2, 3], sampling=SamplingParams(
         max_new_tokens=4, temperature=0.8)))

@@ -3,7 +3,8 @@
 * ``serving.costmodel`` against the JAX package's, exactly: ``step_time``,
   ``simulate`` and ``simulate_streams`` on one event log from a port run
   plus synthetic ``overlap``, ``prefill_chunk``, ``fused``, ``tp=2`` and
-  sync-verify events, at the full width of every dense config, on
+  sync-verify events, at the full width of every ported config and its
+  sliding-window variant (the ring's read context, MoE's active FLOPs), on
   ``V5E`` and on the port's ``H100`` fields.
 * ``serving.online.run_online`` in NONDET against the JAX runner on
   shared smoke weights, requests and arrivals: the same latencies, TTFTs,
@@ -36,6 +37,8 @@ from repro_torch.training import data
 CFG = configs.get_smoke_config("llama3-8b")
 FULL = configs.get_config("llama3-8b")
 DENSE = list(configs.DASHED)
+#: every ported config, with the sliding-window variants (``:long``)
+ALL = DENSE + [f"{a}:long" for a in DENSE if configs.supports_long(a)]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -108,13 +111,17 @@ def _jax_hw(hw):
     return jcm.Hardware(**dataclasses.asdict(hw))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ALL)
 def test_cost_model_equals_jax(event_log, arch):
     pytest.importorskip("jax")
     from repro import configs as jconfigs
     from repro.serving import costmodel as jcm
 
-    cfg, jcfg = configs.get_config(arch), jconfigs.get_config(arch)
+    arch, _, long = arch.partition(":")
+    if long:
+        cfg, jcfg = configs.get_long_config(arch), jconfigs.get_long_config(arch)
+    else:
+        cfg, jcfg = configs.get_config(arch), jconfigs.get_config(arch)
     for hw in (costmodel.V5E, costmodel.H100):
         jhw = _jax_hw(hw)
         assert [costmodel.step_time(cfg, ev, hw) for ev in event_log] == [
