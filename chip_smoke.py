@@ -78,7 +78,19 @@ the main path) and the gathered lane (``paged_attention=False``):
            pass; no attention kernel on a ring), then the gathered lane's
            q-chunked prefill of a 3000-token prompt at llama3-8b's width
            against the paged lane; peak device memory per config;
-9. timings each kernel against its plain version and one PyTorch call,
+9. families kimi-k2-1t-a32b (2 of 61 layers: its first_k_dense head layer
+           and one MoE layer of 384 experts; heads 64/8 of 112) and rwkv6-3b
+           (all 32 layers, recurrent state) at full width: the attention
+           kernels at G = 8, D = 112 (rows across B) and their times at the
+           headline and serve shapes, each family's projection GEMMs, one
+           kimi MoE layer timed and its rows across T, kimi's LLM42 and
+           BATCH_INVARIANT streams alone and beside 3 on both lanes, rwkv's
+           ``time_mix`` rows across B under the commit schedule beside
+           ``einsum``'s, its streams beside 3, and its LLM42 run under
+           overlap at spec_depth 2 with a verify latency equal to the pause
+           run with the state pool at depth 2 (NONDET printed; launches
+           held to the passes; peak memory and device time per run);
+10. timings each kernel against its plain version and one PyTorch call,
            beside the least time the card could take (100 launches a
            reading); both GEMMs beside ``torch.matmul`` at every projection
            shape and serve-run M, their device time per forward, and the
@@ -92,8 +104,8 @@ the main path) and the gathered lane (``paged_attention=False``):
 The line before the last is a JSON object describing every kernel
 (``launches`` sums the serve runs and the rmsnorm entry-point run,
 ``launches_by_mode`` splits them by lane and mode and adds the online run's,
-each config's and each variants run's, ``max_abs_err_by_config`` holds the
-configs and variants phases' errors); the last line is
+each config's, each variants and families run's, ``max_abs_err_by_config``
+holds the configs, variants and families phases' errors); the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the script exits non-zero without a result when no CUDA device
 is visible or when it runs outside a checkout of the repository.
@@ -103,6 +115,7 @@ is visible or when it runs outside a checkout of the repository.
     python3 chip_smoke.py --phases build,timings
     python3 chip_smoke.py --phases build,online,configs
     python3 chip_smoke.py --phases build,variants
+    python3 chip_smoke.py --phases build,families
 """
 
 from __future__ import annotations
@@ -124,7 +137,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "serve", "determinism", "profile", "online", "configs",
-          "variants", "timings")
+          "variants", "families", "timings")
 
 #: per-request KV reach of the serve phase (128 blocks of 16).  The paged
 #: kernels' cost no longer follows the reach (the timings phase times them
@@ -252,7 +265,7 @@ def phase_build() -> None:
         f"{time.perf_counter() - t0:.1f} s -> {build.BUILD_DIR} "
         f"({version[-1] if version else 'nvcc version unknown'})")
     # ptxas -v for the GEMM partial tiles, the attention kernels (bf16,
-    # D = 128) and rmsnorm (bf16 x and scale, 4 vectors a lane: D = 4096):
+    # D = 128 and 112) and rmsnorm (bf16 x and scale, 4 vectors a lane: D = 4096):
     # registers, static shared memory, stack and spill bytes (the rings are
     # dynamic shared memory)
     for stem, text in logs.items():
@@ -260,14 +273,18 @@ def phase_build() -> None:
         for line in text.splitlines():
             if "Compiling entry function" in line:
                 found = re.search(r"(wgmma|fmaf)_partial_kernel", line)
-                if found is None and re.search(r"bfloat16Li4EE|merge_kernelILi4E", line):
-                    # the attention kernels at the main path's bf16, D = 128
+                head = re.search(r"(?:bfloat16|merge_kernelI)Li4ELi(128|112)EE", line)
+                if found is None and head:
+                    # the attention kernels at bf16, D = 128 (the main path's)
+                    # and D = 112 (kimi-k2's, lanes 28-31 masked)
                     found = re.search(
                         r"(paged_(attention|split|merge)|decode_attention)_kernel", line)
                 if found is None and re.search(r"rmsnorm_kernelI13__nv_bfloat16S\w*_Li4E",
                                                line):
                     found = re.search(r"rmsnorm_kernel", line)
                 kernel = found.group(0) if found else None
+                if found and head:
+                    kernel += f" D={head.group(1)}"
             elif kernel and "spill" in line:
                 spills = line.strip()
             elif kernel and "Used" in line:
@@ -1063,14 +1080,23 @@ PATH_KERNELS = {
 
 def forward_gemms(cfg):
     """GEMM launches of one forward: ``(in the schedule's GEMM, in the
-    commit GEMM whatever the schedule)``.  Per layer 4 attention projections
-    plus the dense FFN's 3 or a MoE layer's router in the schedule's GEMM,
-    plus the unembedding; a MoE layer's 3 contractions per expert (every
-    expert, on its capacity bucket) in the commit GEMM with one chunk."""
-    moe = cfg.num_experts > 0
-    per_layer = 4 + (1 if moe else 3)
-    experts = 3 * cfg.num_experts * cfg.num_layers if moe else 0
-    return per_layer * cfg.num_layers + 1, experts
+    commit GEMM whatever the schedule)``.  Per attention layer 4 projections
+    plus the dense FFN's 3 or a MoE layer's router in the schedule's GEMM
+    (a ``first_k_dense`` head layer is dense); per rwkv layer 10 (time
+    mixing: r, k, v, g, the decay LoRA's two, the output; channel mixing:
+    3); plus the unembedding; a MoE layer's 3 contractions per expert
+    (every expert, on its capacity bucket) in the commit GEMM with one
+    chunk."""
+    sched, experts = 1, 0
+    for i in range(cfg.num_layers):
+        if cfg.layer_kind(i) == "rwkv":
+            sched += 10
+        elif cfg.ffn_kind(i) == "moe":
+            sched += 4 + 1
+            experts += 3 * cfg.num_experts
+        else:
+            sched += 4 + 3
+    return sched, experts
 
 
 def expected_launches(cfg, eng, paged):
@@ -1080,13 +1106,14 @@ def expected_launches(cfg, eng, paged):
     one attention launch per layer: on the paged lane the fast paged kernel
     where its kv_splits divides the table reach, else the commit one; on
     the gathered lane the dense decode kernel.  A sliding config's ring
-    passes launch no attention kernel.  A ``prefill`` event covers
+    passes and an rwkv layer launch no attention kernel.  A ``prefill`` event covers
     ``padded`` over the engine's ring-pass cap passes (one, but for a
     sliding prompt longer than the cap)."""
     from repro_torch.core.determinism import Schedule
 
     gemms, experts = forward_gemms(cfg)
-    ring = cfg.attn_kind == "sliding"
+    n_attn = 0 if cfg.attn_kind == "sliding" else sum(
+        cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
     nblk = eng.pool.layout.blocks_per_table
     commit = eng._commit_schedule()
     want = dict.fromkeys(KERNELS, 0)
@@ -1106,13 +1133,13 @@ def expected_launches(cfg, eng, paged):
             want["gemm_batch_invariant"] += experts
         else:
             continue
-        if ring:
+        if not n_attn:
             continue
         if not paged:
-            want["decode_attention"] += cfg.num_layers
+            want["decode_attention"] += n_attn
         else:
             fast = s.kv_splits > 1 and nblk % s.kv_splits == 0
-            want["paged_attention_fast" if fast else "paged_attention"] += cfg.num_layers
+            want["paged_attention_fast" if fast else "paged_attention"] += n_attn
     return want
 
 
@@ -1925,16 +1952,17 @@ MOE_ROWS = (1, 3, 8, 13, 32)
 
 
 def variant_serve(torch, cfg, label, params, results, *, lanes, modes, prompts,
-                  max_new, neighbours, capacity):
+                  max_new, neighbours, capacity, phase="variants"):
     """Two (or ``len(prompts)``) tracked requests, greedy and seeded at
     temperature 0.8 with top-k 50, deterministic outside NONDET, alone and
     beside ``neighbours`` requests of 32 + 16 tokens, per lane ("paged",
-    "gathered", or "ring": a sliding config, whose pool has no paged
-    leaves) and mode,
+    "gathered", or "ring" / "state": a sliding or a recurrent config, whose
+    pool has no paged leaves) and mode,
     under the divergence demo's aggressive fast path.  Counts reset just
-    before each run and read just after, held to what the passes imply;
-    LLM42 and BATCH_INVARIANT streams must be identical (NONDET divergence
-    printed).  Returns a summary per run."""
+    before each run and read just after, held to what the passes imply
+    (a pool without paged leaves reads no attention kernel); LLM42 and
+    BATCH_INVARIANT streams must be identical (NONDET divergence printed).
+    Returns a summary per run, with each run's CUDA-event device time."""
     from repro_torch.core.determinism import Mode, ReductionPolicy
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import Request, SamplingParams
@@ -1945,7 +1973,7 @@ def variant_serve(torch, cfg, label, params, results, *, lanes, modes, prompts,
     out = {}
     for lane in lanes:
         for mode in modes:
-            run_name = f"variants/{label}/{lane}/{mode.value}"
+            run_name = f"{phase}/{label}/{lane}/{mode.value}"
             streams, info = {}, {}
             total = dict.fromkeys(KERNELS, 0)
             for n in (0, neighbours):
@@ -1967,15 +1995,18 @@ def variant_serve(torch, cfg, label, params, results, *, lanes, modes, prompts,
                 sync(torch)
                 torch.cuda.reset_peak_memory_stats()
                 fns = reset_launches()
+                ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                ev0.record()
                 done = {r.rid: r for r in eng.run()}
+                ev1.record()
                 sync(torch)
                 counts = {name: fn.launches for name, fn in fns.items()}
                 want = expected_launches(cfg, eng, eng._paged_fwd)
                 require(counts == want, f"{run_name} beside {n}: launches {counts} do not "
                         f"match the passes {want}")
-                if lane == "ring":  # no attention kernel reads a ring
+                if not eng.pool.paged:  # no attention kernel reads a ring or a state
                     require(not any(counts[k] for k in ATTENTION_KERNELS),
-                            f"{run_name}: an attention kernel ran on a ring")
+                            f"{run_name}: an attention kernel ran without paged leaves")
                 for name, c in counts.items():
                     total[name] += c
                 streams[n] = {rid: done[rid].committed for rid in range(len(prompts))}
@@ -1984,15 +2015,17 @@ def variant_serve(torch, cfg, label, params, results, *, lanes, modes, prompts,
                 peak = torch.cuda.max_memory_allocated() / 2 ** 30
                 info[n] = dict(iterations=eng._now, peak_mem_gib=peak,
                                rollbacks=[done[r].num_rollbacks for r in streams[n]],
-                               seconds=time.perf_counter() - t0)
-                log(f"[variants] {run_name} beside {n}: {eng._now} iterations, "
+                               seconds=time.perf_counter() - t0,
+                               device_s=ev0.elapsed_time(ev1) / 1e3)
+                log(f"[{phase}] {run_name} beside {n}: {eng._now} iterations, "
                     f"rollbacks by tracked rid {info[n]['rollbacks']}, kernel launches "
                     f"{counts} (= the "
-                    f"passes), peak device memory {peak:.3f} GiB; "
+                    f"passes), peak device memory {peak:.3f} GiB; device time "
+                    f"{info[n]['device_s']:.3f} s (CUDA events); "
                     f"{info[n]['seconds']:.1f} s")
                 del eng
             same = streams[0] == streams[neighbours]
-            log(f"[variants] {run_name}: streams alone and beside {neighbours} "
+            log(f"[{phase}] {run_name}: streams alone and beside {neighbours} "
                 f"identical={same}")
             if mode != Mode.NONDET:
                 require(same, f"{run_name}: streams changed beside {neighbours} neighbours")
@@ -2329,7 +2362,281 @@ def phase_variants(torch, results, summary) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: timings
+# phase 9: families (first_k_dense head layers at head_dim 112; recurrent state)
+# ---------------------------------------------------------------------------
+
+#: the families phase's depth cuts, for memory: kimi-k2 at published widths
+#: runs its dense head layer and one MoE layer (384 experts x 3 x 7168 x
+#: 2048 bf16 = 33.8 GB, embeddings 4.7 GB: about 38.9 GB; a second MoE
+#: layer would bring the weights to about 73 GB, before the pool and the
+#: f32 expert casts); rwkv6-3b runs its full 32 layers (about 6.1 GB)
+FAMILY_DEPTHS = {"kimi-k2-1t-a32b": 2, "rwkv6-3b": None}
+
+#: the projections (K, N) each family's forward gives the GEMMs, besides
+#: the LM head (``check_config_kernels``) and kimi's router and experts
+#: (``check_moe_gemms``): kimi's wq / wo, wk / wv and dense FFN; rwkv's
+#: r / k / v / g / o and cm_wr, the decay LoRA's two, cm_wk, cm_wv and its
+#: unembedding
+FAMILY_PROJECTIONS = {
+    "kimi-k2-1t-a32b": ((7168, 7168), (7168, 896), (7168, 2048), (2048, 7168)),
+    "rwkv6-3b": ((2560, 2560), (2560, 64), (64, 2560), (2560, 8960), (8960, 2560),
+                 (2560, 65536)),
+}
+
+#: batch sizes of the commit-schedule time_mix row check
+RWKV_ROWS = (1, 3, 8, 13)
+
+
+def check_projections(torch, arch, results) -> None:
+    """Both GEMMs at every (K, N) of ``FAMILY_PROJECTIONS[arch]`` in bf16:
+    the commit GEMM (4 chunks) at M in {1, 8, 32} within 2 bf16 ulps of
+    max|ref| and its rows bitwise across M; the split-K GEMM at the demo
+    policy's (M, splits) within 4 ulps."""
+    from repro_torch.core.determinism import CANONICAL_TP_SHARDS
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
+    from repro_torch.kernels.gemm_splitk import gemm_splitk
+
+    g = torch.Generator(device=DEV).manual_seed(18)
+    worst = {"gemm_batch_invariant": 0.0, "gemm_splitk": 0.0}
+    for K, N in FAMILY_PROJECTIONS[arch]:
+        w = (torch.randn((K, N), generator=g, device=DEV) * K ** -0.5).to(torch.bfloat16)
+        xb = torch.randn((200, K), generator=g, device=DEV).to(torch.bfloat16)
+        for M, splits in ((1, 16), (8, 4), (32, 4)):
+            x = xb[:M].contiguous()
+            for name, out, want, ulps in (
+                ("gemm_batch_invariant", gemm_batch_invariant(x, w, chunks=CANONICAL_TP_SHARDS),
+                 ref.gemm_batch_invariant(x, w, chunks=CANONICAL_TP_SHARDS), 2),
+                ("gemm_splitk", gemm_splitk(x, w, splits=splits, combine_dtype="bfloat16"),
+                 ref.gemm_splitk(x, w, splits, "bfloat16"), 4),
+            ):
+                err = float((out.float() - want.float()).abs().max())
+                tol = ulps * ulp_of(float(want.float().abs().max()), 7)
+                require(err <= tol, f"{arch}: {name} ({M},{K})@({K},{N}) disagrees: "
+                        f"{err} > {tol}")
+                worst[name] = max(worst[name], err)
+        commit_rows_invariant(torch, gemm_batch_invariant, xb, w, CANONICAL_TP_SHARDS)
+    log(f"[families] {arch} projections {FAMILY_PROJECTIONS[arch]} bf16: the commit GEMM "
+        f"(4 chunks) at M in (1, 8, 32) within 2 bf16 ulps (max_abs_err "
+        f"{worst['gemm_batch_invariant']:.3e}), rows bitwise for M in {ROW_MS}; split-K at "
+        f"16 / 4 / 4 splits within 4 ulps (max_abs_err {worst['gemm_splitk']:.3e})")
+    for name, e in worst.items():
+        results[name].setdefault("max_abs_err_by_config", {})[f"{arch} projections"] = e
+
+
+def time_family_attention(torch, cfg, arch, results) -> None:
+    """The three attention kernels at the config's heads, at the headline
+    and serve shapes, beside their plain versions and bounds (and
+    ``sdpa`` for ``decode_attention``), as the timings phase times them."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_fast
+
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    kw = dict(kv_splits=4, combine_dtype="bfloat16")
+    for label, inp in paged_shapes(torch, cfg, ("headline", "serve")).items():
+        time_paged_case(torch, cfg, results, scratch.zero_, "paged_attention",
+                        f"{arch} {label}", inp, lambda: paged_attention(*inp[:6]),
+                        lambda: ref.paged_attention(*inp[:6]), tag="families")
+        time_paged_case(torch, cfg, results, scratch.zero_, "paged_attention_fast",
+                        f"{arch} {label}, kv_splits=4",
+                        inp, lambda: paged_attention_fast(*inp[:6], **kw),
+                        lambda: ref.paged_attention_fast(*inp[:6], **kw), tag="families")
+    time_decode_attention(torch, cfg, results, scratch.zero_, names=("headline", "serve"),
+                          prefix=f"{arch} ", tag="families")
+    del scratch
+
+
+def rwkv_rows_invariant(torch, cfg, params) -> dict:
+    """``time_mix`` (layer 0's weights, one token, random shift and wkv
+    state) under the commit schedule gives each row the same bits (output,
+    shift and state) at B in RWKV_ROWS; prints whether the step's
+    ``einsum`` would (the reason the commit path sums by fixed trees) and
+    how far the two sums lie apart."""
+    from repro_torch.core.determinism import (
+        VERIFY_SCHEDULE, _pairwise_sum, deterministic_torch,
+    )
+    from repro_torch.models import rwkv6
+
+    g = torch.Generator(device=DEV).manual_seed(19)
+    N, D, hd = max(RWKV_ROWS), cfg.d_model, cfg.rwkv_head_dim
+    H, dt = D // hd, getattr(torch, cfg.dtype)
+    lp = {k: v[0] for k, v in params["blocks"]["0"]["rwkv"].items()}
+    x = torch.randn((N, 1, D), generator=g, device=DEV).to(dt)
+    prev = torch.randn((N, D), generator=g, device=DEV).to(dt)
+    wkv = 0.3 * torch.randn((N, H, hd, hd), generator=g, device=DEV)
+    with deterministic_torch():
+        outs = {B: rwkv6.time_mix(lp, cfg, x[:B], prev[:B], wkv[:B], VERIFY_SCHEDULE)
+                for B in RWKV_ROWS}
+        r = torch.randn((N, H, hd), generator=g, device=DEV)
+        a = 0.3 * torch.randn((N, H, hd, hd), generator=g, device=DEV)
+        tree = {B: _pairwise_sum(r[:B, :, :, None] * a[:B], axis=-2) for B in RWKV_ROWS}
+        ein = {B: torch.einsum("bhk,bhkv->bhv", r[:B], a[:B]) for B in RWKV_ROWS}
+    sync(torch)
+    same = all(torch.equal(outs[B][i], outs[N][i][:B]) for B in RWKV_ROWS
+               for i in range(3))
+    tree_same = all(torch.equal(tree[B], tree[N][:B]) for B in RWKV_ROWS)
+    ein_same = all(torch.equal(ein[B], ein[N][:B]) for B in RWKV_ROWS)
+    drift = max(float((ein[B] - ein[N][:B]).abs().max()) for B in RWKV_ROWS)
+    err = float((tree[N] - ein[N]).abs().max())
+    log(f"[families] {cfg.name} time_mix (W = 1) under the commit schedule: rows "
+        f"(output, shift, wkv state) bitwise identical for B in {RWKV_ROWS}: {same}; the "
+        f"step's fixed-tree contraction alone {tree_same}; its einsum {ein_same} (rows "
+        f"move by up to {drift:.3e} with B); fixed tree vs einsum max_abs_err {err:.3e}")
+    require(bool(torch.isfinite(outs[N][0].float()).all()), "time_mix: non-finite output")
+    require(same and tree_same, f"{cfg.name}: time_mix rows change with B")
+    require(err <= 1e-4, f"{cfg.name}: the fixed-tree contraction disagrees with einsum")
+    return dict(rows_bitwise=same, einsum_rows_bitwise=ein_same, einsum_drift=drift,
+                tree_vs_einsum=err)
+
+
+def rwkv_depth(torch, cfg, params, results) -> dict:
+    """The counterpart of the JAX ``TestRecurrentDepth`` at full width:
+    LLM42 under the pause scheduler, then under an overlap scheduler at
+    spec_depth 2 with a 20 ms verify latency (the costed clock), 4 requests
+    (2 deterministic) of 32 + 16 tokens under the demo's fast path; the
+    overlap run must commit the pause run's deterministic streams with the
+    state pool at depth 2 or more.  Launches held to the passes."""
+    from repro_torch.core.determinism import Mode, ReductionPolicy
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request, SamplingParams
+    from repro_torch.serving.scheduler import OverlapPolicy, PauseDecodePolicy
+
+    policy = ReductionPolicy(thresholds=((2, 16), (4, 8), (8, 4)),
+                             combine_dtype="bfloat16")
+    out, streams = {}, {}
+    for name, kw in (("pause", dict(scheduler=PauseDecodePolicy())),
+                     ("overlap depth 2", dict(scheduler=OverlapPolicy(), spec_depth=2,
+                                              verify_latency_ms=20.0))):
+        gc.collect()
+        eng = Engine(cfg, params, mode=Mode.LLM42, policy=policy, window=5, group=2,
+                     max_batch=8, capacity=CAPACITY, **kw)
+        for rid in range(4):
+            eng.submit(Request(rid=rid, prompt=[(5 * rid + 3 * k) % cfg.vocab_size
+                                                for k in range(32)],
+                               sampling=SamplingParams(max_new_tokens=16,
+                                                       is_deterministic=rid in (0, 2),
+                                                       seed=70 + rid)))
+        sync(torch)
+        fns = reset_launches()
+        t0 = time.perf_counter()
+        done = {r.rid: r for r in eng.run()}
+        sync(torch)
+        counts = {k: fn.launches for k, fn in fns.items()}
+        require(counts == expected_launches(cfg, eng, eng._paged_fwd),
+                f"{cfg.name} {name}: launches {counts}")
+        for k, c in counts.items():
+            results[k]["launches_by_mode"][f"families/{cfg.name}/{name}"] = c
+        streams[name] = {rid: done[rid].committed for rid in (0, 2)}
+        out[name] = dict(iterations=eng._now, peak_depth=eng.statepool.peak_depth,
+                         rollbacks=[done[r].num_rollbacks for r in range(4)],
+                         seconds=time.perf_counter() - t0)
+        log(f"[families] {cfg.name} LLM42 {name}: {eng._now} iterations, state pool "
+            f"peak depth {eng.statepool.peak_depth}, rollbacks by rid "
+            f"{out[name]['rollbacks']}, launches {counts} (= the passes); "
+            f"{out[name]['seconds']:.1f} s")
+        del eng
+    same = streams["pause"] == streams["overlap depth 2"]
+    log(f"[families] {cfg.name}: the overlap run at spec_depth 2 commits the pause "
+        f"run's deterministic streams: {same}")
+    require(same, f"{cfg.name}: spec_depth 2 changed the committed streams")
+    require(out["overlap depth 2"]["peak_depth"] >= 2,
+            f"{cfg.name}: the state pool never held two windows")
+    return out
+
+
+def phase_families(torch, results, summary) -> None:
+    """kimi-k2 (MoE with a first_k_dense head layer, heads 64/8 of 112) at 2
+    of 61 layers and rwkv6-3b (recurrent) at its full 32 layers, published
+    widths, random weights from seed 0."""
+    from repro_torch import configs
+    from repro_torch.core.determinism import Mode
+    from repro_torch.models.base import init_params
+
+    summary["families"] = out = {}
+    both = (Mode.LLM42, Mode.BATCH_INVARIANT)
+
+    def step(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        sync(torch)
+        log(f"[families] step {name}: {time.perf_counter() - t0:.1f} s")
+        return res
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+
+    # kimi-k2-1t-a32b: a dense head layer, then MoE; heads 64/8 (G = 8), D 112
+    arch = "kimi-k2-1t-a32b"
+    full = configs.get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=FAMILY_DEPTHS[arch])
+    log(f"[families] {arch}: {cfg.num_layers} of {full.num_layers} layers "
+        f"(first_k_dense {cfg.first_k_dense}), d_model {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} (group {cfg.num_heads // cfg.num_kv_heads}), "
+        f"head_dim {cfg.hd}, d_ff {cfg.d_ff}, {cfg.num_experts} experts top-{cfg.top_k}, "
+        f"moe_d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}")
+    step("kimi kernels at G = 8, D = 112", check_config_kernels, torch, cfg, arch, results)
+    step("kimi attention timings", time_family_attention, torch, cfg, arch, results)
+    step("kimi projections", check_projections, torch, arch, results)
+    gemms = step("kimi expert and router GEMMs", check_moe_gemms, torch, cfg, results)
+    fresh()
+    params = step("kimi weights", init_params, cfg,
+                  torch.Generator(device=DEV).manual_seed(0), DEV)
+    weights = torch.cuda.memory_allocated() / 2 ** 30
+    layer_ms = step("kimi moe rows", moe_rows_invariant, torch, cfg, params)
+    kimi = {"weights_gib": weights, "expert_gemms": gemms, "moe_layer_ms": layer_ms}
+    kimi.update(step("kimi serve", variant_serve, torch, cfg, arch, params, results,
+                     lanes=("paged", "gathered"), modes=both, prompts=(32, 32),
+                     max_new=16, neighbours=3, capacity=CAPACITY, phase="families"))
+    kimi.update(step("kimi nondet", variant_serve, torch, cfg, arch, params, results,
+                     lanes=("paged",), modes=(Mode.NONDET,), prompts=(32, 32),
+                     max_new=16, neighbours=3, capacity=CAPACITY, phase="families"))
+    same = kimi["paged/llm42"]["streams"] == kimi["gathered/llm42"]["streams"]
+    log(f"[families] {arch} LLM42 streams of the gathered lane equal the paged lane's: "
+        f"{same}")
+    require(same, f"{arch}: LLM42 streams differ between the lanes")
+    kimi["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[families] {arch}: weights {weights:.3f} GiB, peak device memory "
+        f"{kimi['peak_mem_gib']:.3f} GiB")
+    out[arch] = kimi
+    del params
+    fresh()
+
+    # rwkv6-3b: recurrent state, all 32 layers
+    arch = "rwkv6-3b"
+    cfg = configs.get_config(arch)
+    log(f"[families] {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.d_model // cfg.rwkv_head_dim} heads of {cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}")
+    step("rwkv projections", check_projections, torch, arch, results)
+    params = step("rwkv weights", init_params, cfg,
+                  torch.Generator(device=DEV).manual_seed(0), DEV)
+    weights = torch.cuda.memory_allocated() / 2 ** 30
+    rwkv = {"weights_gib": weights}
+    rwkv["time_mix_rows"] = step("rwkv rows", rwkv_rows_invariant, torch, cfg, params)
+    rwkv.update(step("rwkv serve", variant_serve, torch, cfg, arch, params, results,
+                     lanes=("state",), modes=both, prompts=(32, 32), max_new=16,
+                     neighbours=3, capacity=CAPACITY, phase="families"))
+    rwkv.update(step("rwkv nondet", variant_serve, torch, cfg, arch, params, results,
+                     lanes=("state",), modes=(Mode.NONDET,), prompts=(32, 32),
+                     max_new=16, neighbours=3, capacity=CAPACITY, phase="families"))
+    rwkv["depth"] = step("rwkv depth", rwkv_depth, torch, cfg, params, results)
+    rwkv["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[families] {arch}: weights {weights:.3f} GiB, peak device memory "
+        f"{rwkv['peak_mem_gib']:.3f} GiB")
+    out[arch] = rwkv
+    del params
+    fresh()
+    for entry in out.values():
+        for v in entry.values():
+            if isinstance(v, dict):
+                v.pop("streams", None)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: timings
 # ---------------------------------------------------------------------------
 
 
@@ -2562,7 +2869,8 @@ def time_paged_attention(torch, cfg, results, flush) -> None:
         del inp
 
 
-def time_paged_case(torch, cfg, results, flush, name, label, inp, kern, plain) -> None:
+def time_paged_case(torch, cfg, results, flush, name, label, inp, kern, plain,
+                    tag="timings") -> None:
     q, _, _, _, tab, _, ctx = inp
     b_ms, b_by = attention_bound(cfg, q, ctx, BLOCK, tab)
     ms = time_ms(torch, kern, flush=flush)
@@ -2573,25 +2881,28 @@ def time_paged_case(torch, cfg, results, flush, name, label, inp, kern, plain) -
     if label == "headline":
         results[name].update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                              bound_by=b_by)
-    log(f"[timings] {name} {label}: B={q.shape[0]}, nblk={tab.shape[1]}, "
+    log(f"[{tag}] {name} {label}: B={q.shape[0]}, nblk={tab.shape[1]}, "
         f"{int(ctx.sum())} keys: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.1f}% of it); no single PyTorch "
         f"call reads K/V through a block table (library_ms null)")
 
 
-def time_decode_attention(torch, cfg, results, flush) -> None:
-    """Kernel 5 at each of ``decode_shapes``, at FAST_PATH_POLICY's schedule
-    for B = 8 (kv_splits 4, bf16 combine) and the commit schedule (1, f32),
-    beside its plain version, ``scaled_dot_product_attention`` with a length
-    mask and GQA (the same function), and the bound of each shape.  The
-    headline shape's numbers fill the kernel's entry; every shape's go
-    under ``shapes``."""
+def time_decode_attention(torch, cfg, results, flush, names=DECODE_SHAPES,
+                          prefix="", tag="timings") -> None:
+    """Kernel 5 at each of ``decode_shapes`` (those of ``names``), at
+    FAST_PATH_POLICY's schedule for B = 8 (kv_splits 4, bf16 combine) and
+    the commit schedule (1, f32), beside its plain version,
+    ``scaled_dot_product_attention`` with a length mask and GQA (the same
+    function), and the bound of each shape.  The headline shape's numbers
+    fill the kernel's entry (without a ``prefix``: Llama-3-8B's heads);
+    every shape's go under ``shapes``, as ``prefix + label``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
 
-    for label, (q, k, v, lens) in decode_shapes(torch, cfg).items():
+    for label, (q, k, v, lens) in decode_shapes(torch, cfg, names).items():
+        label = prefix + label
         S = k.shape[1]
         b_ms, b_by = decode_bound(q, k, lens)
         mask = (torch.arange(S, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
@@ -2607,7 +2918,7 @@ def time_decode_attention(torch, cfg, results, flush) -> None:
                 q, k, v, lens, splits, cd), reps=5, flush=flush)
             suffix = "" if splits == 4 else "_kv_splits_1"
             row.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms})
-            log(f"[timings] decode_attention {label}: B={q.shape[0]} S={S}, "
+            log(f"[{tag}] decode_attention {label}: B={q.shape[0]} S={S}, "
                 f"{int(lens.sum())} valid keys, kv_splits={splits} {cd}: {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
                 f"({b_by}, {100 * b_ms / ms:.1f}% of it)")
@@ -2735,6 +3046,8 @@ def main() -> int:
         timed("configs", phase_configs, torch, results, summary)
     if "variants" in phases:
         timed("variants", phase_variants, torch, results, summary)
+    if "families" in phases:
+        timed("families", phase_families, torch, results, summary)
     if "timings" in phases:
         timed("timings", phase_timings, torch, cfg, results)
     log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f} s")

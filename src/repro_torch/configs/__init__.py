@@ -1,5 +1,6 @@
-"""Model configs ported so far: the dense family and llama4-scout (MoE),
-with their sliding-window long-context variants.
+"""Model configs ported so far: the dense family, llama4-scout and kimi-k2
+(MoE), with their sliding-window long-context variants, and rwkv6-3b (the
+recurrent ssm family).
 
 Each module exposes ``config()`` (the exact architecture) and
 ``smoke_config()`` (a reduced same-family variant for CPU tests), and
@@ -21,6 +22,8 @@ ARCH_IDS: List[str] = [
     "internlm2_20b",
     "command_r_35b",
     "llama4_scout_17b_a16e",
+    "kimi_k2_1t_a32b",
+    "rwkv6_3b",
 ]
 
 #: canonical dashed ids -> module names
@@ -31,6 +34,8 @@ DASHED = {
     "internlm2-20b": "internlm2_20b",
     "command-r-35b": "command_r_35b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 
@@ -50,7 +55,8 @@ def get_smoke_config(name: str) -> ModelConfig:
 
 
 def get_long_config(name: str) -> ModelConfig:
-    """The sliding-window long-context variant, or raise if there is none."""
+    """The long-context variant (a sliding window, or the config itself for
+    a natively sub-quadratic one), or raise if there is none."""
     mod = _module(name)
     if not hasattr(mod, "long_config"):
         raise ValueError(f"{name} has no sub-quadratic long-context variant")

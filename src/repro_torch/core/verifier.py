@@ -1,4 +1,4 @@
-"""Fixed-shape grouped verification pass (paper §4.2–4.3), attention archs.
+"""Fixed-shape grouped verification pass (paper §4.2–4.3).
 
 PyTorch counterpart of ``repro.core.verifier``: ``make_verify_body(cfg, G,
 W, layout, paged=True)`` returns the function that replays G requests × W
@@ -24,9 +24,17 @@ pool through the block tables; ``paged=False`` gathers per-row views,
 replays on them and scatters them back (``serving.kv_cache.pool_forward``).
 Both run the same universal schedule over views whose content is
 position-for-position identical, so committed streams are bitwise equal
-between them.  Slot leaves (sliding rings) are row-packed by ``slots`` in
-either lane and written back after the replay.  Recurrent-state verification (``verify_recurrent``) waits
-for a later slice.
+between them.  Slot leaves (sliding rings, recurrent state) are row-packed
+by ``slots`` in either lane and written back after the replay.
+
+Recurrent state (rwkv) cannot be truncated.  ``verify_recurrent`` replays
+from the state pool's anchor (``serving.statepool``), collects the state
+after every window position, and routes two selections through the pool:
+the state at index ``n_match`` (the window's commit checkpoint, which the
+engine writes to a ring buffer) and the state before the last real input
+(the anchor the next chained window starts from).  The live recurrent
+state is written back unchanged: the fast path may be speculating past
+the window right now.
 """
 
 from __future__ import annotations
@@ -41,7 +49,9 @@ from repro_torch.core.determinism import (
 from repro_torch.models.base import ModelConfig
 from repro_torch.serving import statepool
 from repro_torch.serving.blockpool import Layout
-from repro_torch.serving.kv_cache import pool_forward
+from repro_torch.models.layers import PagedView
+from repro_torch.models.transformer import forward
+from repro_torch.serving.kv_cache import pool_forward, pool_views, pool_writeback, slot_index
 from repro_torch.serving.sampler import sample_window, top2_margin
 
 # The commit path replays under the canonical mesh-reduction schedule.
@@ -81,9 +91,16 @@ def make_verify_body(
     scattered back, paged leaves are repaired through ``tables``.
     ``margins`` (G, W) is the audit log's top-1/top-2 margin per position,
     computed unconditionally so the device program does not depend on
-    auditing."""
+    auditing.
+
+    A config with recurrent state gets ``verify_recurrent(params, pool,
+    anchor, slots, ...) -> (pool, anchor, commit_rows, n_match,
+    commit_tok, v_tokens, margins)`` instead: ``anchor`` is the state
+    pool's replay-anchor tree (advanced in place to each row's next
+    chained start state), ``commit_rows`` each row's state at its commit
+    index, for the state pool's ring."""
     if statepool.has_recurrent_state(cfg):
-        raise NotImplementedError(f"{cfg.name}: recurrent verify is not ported")
+        return _verify_recurrent_body(cfg, W, layout, paged)
 
     def verify_attn(
         params: Dict,
@@ -109,3 +126,48 @@ def make_verify_body(
         return pool, n_match, commit_tok, v_tokens, margins
 
     return verify_attn
+
+
+def _verify_recurrent_body(cfg: ModelConfig, W: int, layout: Layout, paged: bool):
+    pview = (PagedView(layout.block_size, layout.null_bid, layout.scratch_bid)
+             if paged else None)
+
+    def verify_recurrent(
+        params: Dict,
+        pool: Any,
+        anchor: Any,  # state-pool replay-anchor tree
+        slots: Sequence[int],
+        tables: torch.Tensor,
+        start_pos: torch.Tensor,
+        inputs: torch.Tensor,
+        cand: torch.Tensor,
+        cand_len: torch.Tensor,
+        seeds: Sequence[int],
+        temps: Sequence[float],
+        out_base: Sequence[int],
+        top_ks: Sequence[int],
+    ):
+        idx = slot_index(pool, layout, slots, tables.device)
+        cache = pool_views(pool, layout, idx, tables, paged=paged)
+        live_rows = statepool.rows_from_cache(cache)
+        # the replay starts from the anchor: the state after everything
+        # preceding the window, minus its conditioning token (consumed first)
+        cache = statepool.merge_rows(cache, statepool.gather_rows(anchor, slots))
+        logits, cache, per_pos = forward(
+            params, cfg, inputs, cache=cache, start_pos=start_pos,
+            schedule=VERIFY_SCHEDULE, collect_states=True,
+            tables=tables if paged else None, paged=pview)
+        v_tokens = sample_window(logits, seeds, out_base, temps, top_ks)
+        n_match, commit_tok = _match_and_commit(v_tokens, cand, cand_len, W)
+        margins = top2_margin(logits)
+        # per_pos[j] = state after consuming inputs[j]
+        commit_rows = statepool.select_index(per_pos, n_match)
+        resume_rows = statepool.select_index(per_pos, (cand_len - 1).clamp_min(0))
+        anchor = statepool.scatter_rows(anchor, slots, resume_rows)
+        # KV repair reaches the live pool; recurrent state does not: the
+        # fast path may be speculating past this window right now
+        cache = statepool.merge_rows(cache, live_rows)
+        pool = pool_writeback(pool, layout, idx, tables, cache, paged=paged)
+        return pool, anchor, commit_rows, n_match, commit_tok, v_tokens, margins
+
+    return verify_recurrent

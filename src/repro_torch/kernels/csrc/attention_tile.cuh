@@ -3,13 +3,22 @@
 // (decode_attention.cu).
 //
 // A tile is 16 keys of one KV head: lane pair (2j, 2j+1) of a warp takes
-// key j, each lane half of its D = 32 * E elements, so a warp scores a
-// whole tile against one query row at once (tile_dot), and each lane then
-// accumulates E elements of o from the tile's V rows (accumulate_v).  K
-// rows are stored in shared memory rotated by 2j chunks of 16 bytes
-// (rotated), so the lanes of a shared-memory phase read distinct bank
-// groups.  Tiles reach shared memory by cp.async, 16 bytes a thread; the
-// kernels keep a ring of them in flight.
+// key j, each lane half of its D elements, so a warp scores a whole tile
+// against one query row at once (tile_dot), and each lane then accumulates
+// E = ceil(D / 32) elements of o, [lane * E, lane * E + E), from the tile's
+// V rows (accumulate_v).  K rows are stored in shared memory rotated by 2j
+// chunks of 16 bytes (rotated), so the lanes of a shared-memory phase read
+// distinct bank groups.  Tiles reach shared memory by cp.async, 16 bytes a
+// thread; the kernels keep a ring of them in flight.
+//
+// Head dims: D % 16 == 0, 16 <= D <= 256, so a row is a whole number of
+// 16-byte chunks (bf16: D * 2 bytes, 224 at D = 112) and every cp.async
+// row stays 16-byte aligned.  Where D = 32 * E (D = 64, 96, 128, ...) every
+// element of every lane lies in the row, the default of the templates'
+// D = 32 * E, and nothing is masked: those instantiations are the same
+// code as before.  Otherwise (D = 112: E = 4, lanes 28-31) the tail lanes'
+// elements at or past D are masked (live): never loaded, accumulated or
+// stored, so they add no term, not even a +0.0, to any real element.
 //
 // Everything here has internal linkage (an unnamed namespace): state in a
 // header that two kernel libraries include must not be shared between them
@@ -27,9 +36,20 @@ constexpr int MAX_SMEM = 232448;  // dynamic shared memory a CTA may use
 
 static_assert(2 * TILE_KEYS == 32, "a lane pair per key of a tile");
 
-// bytes of one K or V row (D = 32 * E elements)
-template <typename T, int E>
-__host__ __device__ constexpr int row_bytes() { return 32 * E * (int)sizeof(T); }
+// bytes of one K or V row (D elements)
+template <typename T, int E, int D = 32 * E>
+__host__ __device__ constexpr int row_bytes() { return D * (int)sizeof(T); }
+
+// Whether element e of lane `lane`, row element lane * E + e, lies in the
+// row: always at D = 32 * E, else not in the masked tail.
+template <int E, int D>
+__device__ __forceinline__ bool live(int lane, int e) {
+  if constexpr (D == 32 * E) {
+    return true;
+  } else {
+    return lane * E + e < D;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // async copies, warp reductions
@@ -118,10 +138,10 @@ __device__ __forceinline__ void chunk_dot(const uint4& w, const float* qc,
 // chunks c = hh, hh + 2, ... of the row; the pair adds its halves, so both
 // lanes of the pair return the same bits.  Every lane of the warp must
 // call it.
-template <typename T, int E>
+template <typename T, int E, int D = 32 * E>
 __device__ __forceinline__ float tile_dot(const float* qrow, const char* ks,
                                           int kt, int lane) {
-  constexpr int ROWB = row_bytes<T, E>();
+  constexpr int ROWB = row_bytes<T, E, D>();
   constexpr int NCH = ROWB / 16;
   constexpr int EPC = 16 / (int)sizeof(T);  // elements per chunk
   const int j = lane >> 1, hh = lane & 1;
@@ -141,11 +161,22 @@ __device__ __forceinline__ float tile_dot(const float* qrow, const char* ks,
 }
 
 // elements [lane * E, lane * E + E) of a V row, as f32, in the widest
-// aligned loads
-template <typename T, int E>
+// aligned loads; a masked element (D < 32 * E) is not read and reads 0
+template <typename T, int E, int D = 32 * E>
 __device__ __forceinline__ void load_dims(const char* vrow, int lane, float* v) {
   const T* p = reinterpret_cast<const T*>(vrow) + lane * E;
-  if constexpr (sizeof(T) == 2 && E % 4 == 0) {
+  if constexpr (D != 32 * E && D % E == 0) {
+    // whole lanes: the first D / E lanes hold the row, the rest none
+    if (lane < D / E) {
+      load_dims<T, E>(vrow, lane, v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) v[e] = 0.f;
+    }
+  } else if constexpr (D != 32 * E) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) v[e] = live<E, D>(lane, e) ? to_f32(p[e]) : 0.f;
+  } else if constexpr (sizeof(T) == 2 && E % 4 == 0) {
 #pragma unroll
     for (int k = 0; k < E / 4; ++k) {
       const uint2 w = reinterpret_cast<const uint2*>(p)[k];
@@ -177,31 +208,32 @@ __device__ __forceinline__ void load_dims(const char* vrow, int lane, float* v) 
 }
 
 // o[e] += weight of key jj (held by lane 2 jj) * V[jj][lane * E + e], keys
-// in tile order
-template <typename T, int E>
+// in tile order; a masked element takes no term
+template <typename T, int E, int D = 32 * E>
 __device__ __forceinline__ void accumulate_v(const char* vs, float w, int kt,
                                              int lane, float* o) {
-  constexpr int ROWB = row_bytes<T, E>();
+  constexpr int ROWB = row_bytes<T, E, D>();
   for (int jj = 0; jj < kt; ++jj) {
     const float wj = __shfl_sync(FULL, w, 2 * jj);
     float v[E];
-    load_dims<T, E>(vs + jj * ROWB, lane, v);
+    load_dims<T, E, D>(vs + jj * ROWB, lane, v);
 #pragma unroll
-    for (int e = 0; e < E; ++e) o[e] = fmaf(wj, v[e], o[e]);
+    for (int e = 0; e < E; ++e)
+      if (live<E, D>(lane, e)) o[e] = fmaf(wj, v[e], o[e]);
   }
 }
 
 // The G * D elements of q for one (row, KV head), in 16-byte loads: at
 // most QCH a thread at 32 * G threads.  load() issues them; store() writes
-// them to shared memory as f32 scaled in f32 (the plain version's rounding
-// point), once the other prologue loads are in flight too.
-template <typename T, int E>
+// them to shared memory, [G][D], as f32 scaled in f32 (the plain version's
+// rounding point), once the other prologue loads are in flight too.
+template <typename T, int E, int D = 32 * E>
 struct QTile {
   static constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16 bytes
   static constexpr int QCH = (E * (int)sizeof(T) + 15) / 16;
   uint4 w[QCH];
   __device__ __forceinline__ void load(const T* src, int G) {
-    const int n = G * 32 * E / EPC;
+    const int n = G * D / EPC;
 #pragma unroll
     for (int k = 0; k < QCH; ++k) {
       const int c = threadIdx.x + k * blockDim.x;
@@ -209,7 +241,7 @@ struct QTile {
     }
   }
   __device__ __forceinline__ void store(float* dst, int G, float scale) const {
-    const int n = G * 32 * E / EPC;
+    const int n = G * D / EPC;
 #pragma unroll
     for (int k = 0; k < QCH; ++k) {
       const int c = threadIdx.x + k * blockDim.x;
@@ -246,16 +278,19 @@ cudaError_t allow_smem(K kernel, int bytes, int* granted) {
 
 }  // namespace
 
-// Calls CALL with E_ = D / 32 as a compile-time constant (D in 32..256).
-#define REPRO_DISPATCH_E(D, CALL)                 \
-  switch ((D) / 32) {                             \
-    case 1: { constexpr int E_ = 1; CALL; }       \
-    case 2: { constexpr int E_ = 2; CALL; }       \
-    case 3: { constexpr int E_ = 3; CALL; }       \
-    case 4: { constexpr int E_ = 4; CALL; }       \
-    case 5: { constexpr int E_ = 5; CALL; }       \
-    case 6: { constexpr int E_ = 6; CALL; }       \
-    case 7: { constexpr int E_ = 7; CALL; }       \
-    case 8: { constexpr int E_ = 8; CALL; }       \
-    default: return (int)cudaErrorInvalidValue;   \
+// Calls CALL with D_ = D and E_ = ceil(D / 32) as compile-time constants,
+// D % 16 == 0 in 16..256: D = 32 * E_ (32, 64, ..., 256) and the masked
+// widths 16, 48, ..., 240 (112: kimi-k2's heads), each an instantiation of
+// its own.
+#define REPRO_CASE_D(DV, CALL) \
+  case DV: { constexpr int D_ = DV, E_ = (DV + 31) / 32; CALL; }
+#define REPRO_DISPATCH_D(D, CALL)                                             \
+  switch (D) {                                                                \
+    REPRO_CASE_D(16, CALL) REPRO_CASE_D(32, CALL) REPRO_CASE_D(48, CALL)       \
+    REPRO_CASE_D(64, CALL) REPRO_CASE_D(80, CALL) REPRO_CASE_D(96, CALL)       \
+    REPRO_CASE_D(112, CALL) REPRO_CASE_D(128, CALL) REPRO_CASE_D(144, CALL)    \
+    REPRO_CASE_D(160, CALL) REPRO_CASE_D(176, CALL) REPRO_CASE_D(192, CALL)    \
+    REPRO_CASE_D(208, CALL) REPRO_CASE_D(224, CALL) REPRO_CASE_D(240, CALL)    \
+    REPRO_CASE_D(256, CALL)                                                   \
+    default: return (int)cudaErrorInvalidValue;                               \
   }

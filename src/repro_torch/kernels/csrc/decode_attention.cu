@@ -37,8 +37,8 @@
 // 3. One update per tile.  The CTA's G warps score a whole tile at once,
 //    warp g against query head h * G + g (a lane pair per key, each lane
 //    half of D; q in shared memory, scaled in f32), and update their
-//    online softmax once per tile; each lane accumulates D / 32 elements of
-//    o from the tile's V rows.  A rank finds its next tile by moving a
+//    online softmax once per tile; each lane accumulates E = ceil(D / 32)
+//    elements of o from the tile's V rows.  A rank finds its next tile by moving a
 //    cursor, not by searching the chunks.
 // 4. Enough CTAs.  A (row, KV head) is spread over a thread-block cluster
 //    of DA_CLUSTER CTAs along the key axis (512 CTAs at B = 8, KV = 8,
@@ -59,9 +59,10 @@
 // * the chunk's triple is its ranks' partials merged with their max first:
 //   M = max over ranks of m (from -1e30), then d_c = sum_r l_r exp(m_r - M)
 //   and o_c = sum_r o_r exp(m_r - M), summed in rank order 0, 1, ...; rank
-//   R merges elements [R * D / DA_CLUSTER, (R + 1) * D / DA_CLUSTER) of o
-//   (every rank stores its partial's share into the shared memory of the
-//   rank that merges it before the barrier) and every rank d and m;
+//   R merges the E elements of lanes [R * 32 / DA_CLUSTER, (R + 1) * 32 /
+//   DA_CLUSTER) of o (those at or past D masked; every rank stores its
+//   partial's share into the shared memory of the rank that merges it
+//   before the barrier) and every rank d and m;
 // * the chunk triples then merge into the running triple in split order,
 //   with d and o rounded through combine_dtype at the first chunk and
 //   after every merge, exactly as the plain version.
@@ -78,8 +79,9 @@
 // not on S.
 //
 // Contract on shapes (the wrapper checks them, the entry point refuses the
-// rest): D % 32 == 0, D <= 256, G = H / KV <= GMAX; q, k, v share one
-// dtype (bf16 or f32) and are 16-byte aligned; 1 <= kv_splits <= S.
+// rest): D % 16 == 0, 16 <= D <= 256 (attention_tile.cuh: at D = 112, kimi-
+// k2's heads, lanes 28-31 are masked), G = H / KV <= GMAX; q, k, v share
+// one dtype (bf16 or f32) and are 16-byte aligned; 1 <= kv_splits <= S.
 #include "attention_tile.cuh"
 
 #include <cooperative_groups.h>
@@ -97,7 +99,9 @@ constexpr int DA_MAX_ROUND = 8;        // chunks merged per cluster barrier, at 
 constexpr int GMAX = 8;                // query heads per KV head
 
 static_assert(DA_TILE_KEYS == TILE_KEYS, "a lane pair per key of a tile");
-static_assert(32 % DA_CLUSTER == 0, "each rank merges the D / 32 elements of whole lanes");
+static_assert(32 % DA_CLUSTER == 0,
+              "each rank merges the E = ceil(D / 32) elements of whole lanes "
+              "(a masked element is not stored)");
 
 struct DecodeArgs {
   const int* lengths;  // (B,) valid keys per row
@@ -106,7 +110,7 @@ struct DecodeArgs {
 };
 
 // The partial of one (chunk, rank, query head) that a rank receives: m, l
-// and the rank's slice of o, D / DA_CLUSTER elements.
+// and the rank's slice of o, 32 * E / DA_CLUSTER elements.
 template <int E>
 __host__ __device__ constexpr int slot_floats() { return 2 + 32 * E / DA_CLUSTER; }
 
@@ -124,12 +128,12 @@ struct Layout {
   int q, ring, recv, bytes;
 };
 
-template <typename T, int E>
+template <typename T, int E, int D>
 __host__ __device__ Layout layout(int G, int splits) {
   Layout L{};
   int off = 0;
   L.q = off;    off += G * 32 * E * 4;                                    // f32 scaled q
-  L.ring = off; off += DA_STAGES * 2 * DA_TILE_KEYS * row_bytes<T, E>();  // K, V
+  L.ring = off; off += DA_STAGES * 2 * DA_TILE_KEYS * row_bytes<T, E, D>();  // K, V
   L.recv = off; off += round_chunks(splits) * DA_CLUSTER * G * slot_floats<E>() * 4;
   L.bytes = off;
   return L;
@@ -176,7 +180,7 @@ struct Cursor {
 
 // Grid (DA_CLUSTER, KV, B), one cluster per (row, KV head); 32 * G threads,
 // warp g serving query head h * G + g.
-template <typename T, int E>
+template <typename T, int E, int D>
 __global__ void __cluster_dims__(DA_CLUSTER, 1, 1) __launch_bounds__(32 * GMAX)
     decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, DecodeArgs a,
@@ -184,8 +188,7 @@ __global__ void __cluster_dims__(DA_CLUSTER, 1, 1) __launch_bounds__(32 * GMAX)
   extern __shared__ __align__(16) char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   cluster_arrive();
-  constexpr int D = 32 * E;
-  constexpr int ROWB = row_bytes<T, E>();
+  constexpr int ROWB = row_bytes<T, E, D>();
   constexpr int NCH = ROWB / 16;
   constexpr int TILEB = DA_TILE_KEYS * ROWB;
   constexpr int LPR = 32 / DA_CLUSTER, SLICE = LPR * E;
@@ -194,12 +197,12 @@ __global__ void __cluster_dims__(DA_CLUSTER, 1, 1) __launch_bounds__(32 * GMAX)
   const int h = blockIdx.y, b = blockIdx.z;
   const int G = a.H / a.KV;
   const int g = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const Layout L = layout<T, E>(G, a.splits);
+  const Layout L = layout<T, E, D>(G, a.splits);
   float* qs = reinterpret_cast<float*>(smem + L.q);
   char* ring = smem + L.ring;
   float* recv = reinterpret_cast<float*>(smem + L.recv);  // [round chunk][rank][G][SLOT]
 
-  QTile<T, E> qt;
+  QTile<T, E, D> qt;
   qt.load(q + ((size_t)b * a.H + (size_t)h * G) * D, G);
   const Chunks ch{a.S / a.splits, a.S % a.splits, min(max(a.lengths[b], 0), a.S), r};
   const int nc = ch.count();
@@ -279,7 +282,7 @@ __global__ void __cluster_dims__(DA_CLUSTER, 1, 1) __launch_bounds__(32 * GMAX)
         for (int e = 0; e < E; ++e) o[e] = 0.f;
       }
       const char* ks = ring + (u % DA_STAGES) * 2 * TILEB;
-      const float dot = tile_dot<T, E>(qrow, ks, kt, lane);
+      const float dot = tile_dot<T, E, D>(qrow, ks, kt, lane);
       const float s = (lane >> 1) < kt ? dot : -INFINITY;
       const float mn = fmaxf(m, pair_max(s));  // >= -1e30: finite
       const float alpha = expf(m - mn);
@@ -287,7 +290,7 @@ __global__ void __cluster_dims__(DA_CLUSTER, 1, 1) __launch_bounds__(32 * GMAX)
       l = l * alpha + ((lane & 1) ? 0.f : p);  // this lane's keys
 #pragma unroll
       for (int e = 0; e < E; ++e) o[e] *= alpha;
-      accumulate_v<T, E>(ks + TILEB, p, kt, lane, o);
+      accumulate_v<T, E, D>(ks + TILEB, p, kt, lane, o);
       m = mn;
       if (u == cu.first + cu.n - 1) publish(cu.c - c0, m, warp_sum(l), o);
     }
@@ -338,21 +341,22 @@ __global__ void __cluster_dims__(DA_CLUSTER, 1, 1) __launch_bounds__(32 * GMAX)
     const float den = fmaxf(d_run, 1e-30f);
     T* dst = out + ((size_t)b * a.H + (size_t)h * G + g) * D + r * SLICE + lane * E;
 #pragma unroll
-    for (int e = 0; e < E; ++e) store_as(dst + e, o_run[e] / den);
+    for (int e = 0; e < E; ++e)
+      if (live<E, D>(r * LPR + lane, e)) store_as(dst + e, o_run[e] / den);
   }
 }
 
-// Launch with E = D / 32 as a compile-time constant.  B enters the grid
-// only as its count of rows.
-template <typename T, int E>
+// Launch with D and E = ceil(D / 32) as compile-time constants.  B enters
+// the grid only as its count of rows.
+template <typename T, int E, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const DecodeArgs& a, void* out, int B, cudaStream_t s) {
   static int granted = 48 * 1024;
   const int G = a.H / a.KV;
-  const int smem = layout<T, E>(G, a.splits).bytes;
-  const cudaError_t e = allow_smem(decode_attention_kernel<T, E>, smem, &granted);
+  const int smem = layout<T, E, D>(G, a.splits).bytes;
+  const cudaError_t e = allow_smem(decode_attention_kernel<T, E, D>, smem, &granted);
   if (e != cudaSuccess) return e;
-  decode_attention_kernel<T, E><<<dim3(DA_CLUSTER, a.KV, B), 32 * G, smem, s>>>(
+  decode_attention_kernel<T, E, D><<<dim3(DA_CLUSTER, a.KV, B), 32 * G, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), a,
       static_cast<T*>(out));
   return cudaGetLastError();
@@ -367,7 +371,7 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
                                       int combine, int dtype, void* stream) {
   const int G = KV > 0 ? H / KV : 0;
   if (B < 0 || B > 65535 || KV < 1 || KV > 65535 || H % KV || G < 1 || G > GMAX ||
-      D % 32 || D < 32 || D > 256 || S < 1 || splits < 1 || splits > S ||
+      D % 16 || D < 16 || D > 256 || S < 1 || splits < 1 || splits > S ||
       reinterpret_cast<uintptr_t>(q) % 16 || reinterpret_cast<uintptr_t>(k) % 16 ||
       reinterpret_cast<uintptr_t>(v) % 16)
     return (int)cudaErrorInvalidValue;
@@ -375,9 +379,9 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DecodeArgs a{static_cast<const int*>(lengths), H, KV, S, splits, combine, scale};
   if (dtype == DT_BF16) {
-    REPRO_DISPATCH_E(D, return (int)(launch<__nv_bfloat16, E_>(q, k, v, a, out, B, s)));
+    REPRO_DISPATCH_D(D, return (int)(launch<__nv_bfloat16, E_, D_>(q, k, v, a, out, B, s)));
   }
-  REPRO_DISPATCH_E(D, return (int)(launch<float, E_>(q, k, v, a, out, B, s)));
+  REPRO_DISPATCH_D(D, return (int)(launch<float, E_, D_>(q, k, v, a, out, B, s)));
 }
 
 extern "C" const char* repro_error_string(int code) {

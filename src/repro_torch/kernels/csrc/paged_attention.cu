@@ -41,7 +41,7 @@
 //    (2j, 2j+1) takes key j of the tile and each lane half of its D
 //    elements (q in shared memory, scaled in f32), so a tile's scores come
 //    at once; the online softmax then updates once per tile, and each lane
-//    accumulates D / 32 elements of o from the tile's V rows.  K rows are
+//    accumulates E = ceil(D / 32) elements of o from the tile's V rows.  K rows are
 //    stored rotated by 2j chunks of 16 bytes, so the 8 lanes of a
 //    shared-memory phase read 8 distinct bank groups.
 // 4. Enough CTAs.  A (row, KV head) is spread over a thread-block cluster
@@ -66,10 +66,11 @@
 //   tile summed by a fixed xor butterfly; it ends with a partial (m, l, o);
 // * the partials merge with their max first: M = max over ranks of m
 //   (from -1e30), then l = sum_c l_c exp(m_c - M) and o = sum_c o_c
-//   exp(m_c - M), summed in rank order 0, 1, ...; rank c merges elements
-//   [c * D / PA_CLUSTER, (c + 1) * D / PA_CLUSTER) of o, which every rank
-//   stores into its shared memory before the one cluster barrier; the
-//   output is o / max(l, 1e-30).
+//   exp(m_c - M), summed in rank order 0, 1, ...; rank c merges the E
+//   elements of lanes [c * 32 / PA_CLUSTER, (c + 1) * 32 / PA_CLUSTER) of o
+//   (elements [c * 32 E / PA_CLUSTER, (c + 1) * 32 E / PA_CLUSTER), those
+//   at or past D masked), which every rank stores into its shared memory
+//   before the one cluster barrier; the output is o / max(l, 1e-30).
 // A rank whose columns hold no valid key yields the neutral partial
 // (m = -1e30, l = 0, o = 0).  Merging it changes no bit: once any rank has
 // a valid key, M is at least that key's finite score, so the neutral
@@ -92,8 +93,9 @@
 // the split kernel runs and waits for that grid's completion on the card.
 //
 // Contract on shapes (the wrapper checks them, the entry points refuse the
-// rest): D % 32 == 0, D <= 256, G = H / KV <= 32; q and the pools share one
-// dtype (bf16 or f32); q and the pools 16-byte aligned.
+// rest): D % 16 == 0, 16 <= D <= 256 (attention_tile.cuh: at D = 112, kimi-
+// k2's heads, lanes 28-31 are masked), G = H / KV <= 32; q and the pools
+// share one dtype (bf16 or f32); q and the pools 16-byte aligned.
 #include "attention_tile.cuh"
 
 #include <cooperative_groups.h>
@@ -116,18 +118,20 @@ constexpr int PF_SCORE_FLOATS = 2048;  // pass-1 scores kept for pass 2
 
 static_assert(PA_TILE_KEYS == TILE_KEYS, "a lane pair per key of a tile");
 static_assert(32 % PA_CLUSTER == 0 && 32 % PF_CLUSTER == 0,
-              "each rank merges the D / 32 elements of whole lanes");
+              "each rank merges the E = ceil(D / 32) elements of whole lanes "
+              "(a masked element is neither summed nor stored)");
 
 struct PagedArgs {
   const int* pos;   // (NB, bs) absolute positions, -1 = empty
   const int* tab;   // (B, nblk) block ids, -1 = unallocated
   const int* qpos;  // (B,)
-  int H, KV, D, bs, nblk;
+  int H, KV, bs, nblk;  // D is the kernels' template parameter
   float scale;
 };
 
 // The partial of one (rank, query head) that a rank receives: `head`
-// floats (m and l, or d) and the rank's slice of o, D / cluster elements.
+// floats (m and l, or d) and the rank's slice of o, 32 * E / cluster
+// elements.
 template <int E, int CLUSTER, int HEAD>
 __host__ __device__ constexpr int slot_floats() { return HEAD + 32 * E / CLUSTER; }
 
@@ -138,7 +142,7 @@ struct Layout {
 
 // fast: the split kernel's (maxima, score buffer, PF_CLUSTER partials),
 // else the commit kernel's (PA_CLUSTER partials)
-template <typename T, int E>
+template <typename T, int E, int D>
 __host__ __device__ Layout layout(int G, bool fast) {
   const int recv = fast ? PF_CLUSTER * G * slot_floats<E, PF_CLUSTER, 1>()
                         : PA_CLUSTER * G * slot_floats<E, PA_CLUSTER, 2>();
@@ -149,7 +153,7 @@ __host__ __device__ Layout layout(int G, bool fast) {
   L.wsum = off;  off += 32 * 4;                                    // per-warp counts
   L.misc = off;  off += PF_CLUSTER * 32 * 4;                       // ranks' maxima
   L.pos = off;   off += 2 * PA_STAGES * PA_TILE_KEYS * 4;          // ring: positions
-  L.ring = off;  off += PA_STAGES * 2 * PA_TILE_KEYS * row_bytes<T, E>();  // K, V
+  L.ring = off;  off += PA_STAGES * 2 * PA_TILE_KEYS * row_bytes<T, E, D>();  // K, V
   L.recv = off;  off += (recv + 3) / 4 * 16;                       // partials received
   L.score = off; off += fast ? PF_SCORE_FLOATS * 4 : 0;
   L.bytes = off;
@@ -209,13 +213,13 @@ __device__ int compact(const Slice& sl, int i0, int i1, int* list, int* wsum) {
 // every thread has used it.  The ring holds PA_STAGES slots of K and V, or
 // twice as many of one of them.  use(u, k, v, pos, kt) consumes a tile of
 // kt <= PA_TILE_KEYS keys, in every thread, in tile order.
-template <typename T, int E, bool WITH_K, bool WITH_V, typename Use>
+template <typename T, int E, int D, bool WITH_K, bool WITH_V, typename Use>
 __device__ __forceinline__ void stream_tiles(const T* kp, const T* vp,
                                              const int* pos, int bs, int KV,
                                              int h, const int* list,
                                              int ntiles, int tpb, char* ring,
                                              int* pring, Use&& use) {
-  constexpr int ROWB = row_bytes<T, E>();
+  constexpr int ROWB = row_bytes<T, E, D>();
   constexpr int NCH = ROWB / 16;
   constexpr int TILEB = PA_TILE_KEYS * ROWB;
   constexpr bool BOTH = WITH_K && WITH_V;
@@ -266,11 +270,11 @@ __device__ __forceinline__ void stream_tiles(const T* kp, const T* vp,
 // The score of key j of a tile against query row qrow (f32, scaled), masked
 // to -inf unless j < kt and 0 <= pos[j] <= qp.  Every lane of the warp must
 // call it.
-template <typename T, int E>
+template <typename T, int E, int D>
 __device__ __forceinline__ float tile_score(const float* qrow, const char* ks,
                                             const int* ps, int kt, int qp,
                                             int lane) {
-  const float s = tile_dot<T, E>(qrow, ks, kt, lane);
+  const float s = tile_dot<T, E, D>(qrow, ks, kt, lane);
   const int j = lane >> 1;
   const bool ok = j < kt && ps[j] >= 0 && ps[j] <= qp;
   return ok ? s : -INFINITY;
@@ -282,7 +286,7 @@ __device__ __forceinline__ float tile_score(const float* qrow, const char* ks,
 
 // Grid (PA_CLUSTER, KV, B), one cluster per (row, KV head); 32 * G threads,
 // warp g serving query head h * G + g.
-template <typename T, int E>
+template <typename T, int E, int D>
 __global__ void __cluster_dims__(PA_CLUSTER, 1, 1) __launch_bounds__(1024, 1)
     paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                            const T* __restrict__ vp, PagedArgs a,
@@ -293,16 +297,15 @@ __global__ void __cluster_dims__(PA_CLUSTER, 1, 1) __launch_bounds__(1024, 1)
   const int r = (int)cluster.block_rank();
   const int h = blockIdx.y, b = blockIdx.z;
   const int G = a.H / a.KV;
-  constexpr int D = 32 * E;
   const int g = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const Layout L = layout<T, E>(G, false);
+  const Layout L = layout<T, E, D>(G, false);
   float* qs = reinterpret_cast<float*>(smem + L.q);
   int* list = reinterpret_cast<int*>(smem + L.list);
   int* wsum = reinterpret_cast<int*>(smem + L.wsum);
   int* pring = reinterpret_cast<int*>(smem + L.pos);
   char* ring = smem + L.ring;
 
-  QTile<T, E> qt;
+  QTile<T, E, D> qt;
   qt.load(q + ((size_t)b * a.H + (size_t)h * G) * D, G);
   const int qp = a.qpos[b];
   const Slice sl{a.tab + (size_t)b * a.nblk, 0, a.nblk, r, PA_CLUSTER, PA_CHUNK_BLOCKS};
@@ -316,17 +319,17 @@ __global__ void __cluster_dims__(PA_CLUSTER, 1, 1) __launch_bounds__(1024, 1)
   for (int w0 = 0; w0 < n; w0 += PA_WINDOW) {
     const int nv = compact(sl, w0, min(n, w0 + PA_WINDOW), list, wsum);
     if (w0 == 0) qt.store(qs, G, a.scale);  // read after stream_tiles' barrier
-    stream_tiles<T, E, true, true>(
+    stream_tiles<T, E, D, true, true>(
         kp, vp, a.pos, a.bs, a.KV, h, list, nv * tpb, tpb, ring, pring,
         [&](int, const char* ks, const char* vs, const int* ps, int kt) {
-          const float s = tile_score<T, E>(qrow, ks, ps, kt, qp, lane);
+          const float s = tile_score<T, E, D>(qrow, ks, ps, kt, qp, lane);
           const float mn = fmaxf(m, pair_max(s));  // >= -1e30: finite
           const float alpha = expf(m - mn);
           const float p = expf(s - mn);  // 0 for a masked key
           l = l * alpha + ((lane & 1) ? 0.f : p);  // this lane's keys
 #pragma unroll
           for (int e = 0; e < E; ++e) o[e] *= alpha;
-          accumulate_v<T, E>(vs, p, kt, lane, o);
+          accumulate_v<T, E, D>(vs, p, kt, lane, o);
           m = mn;
         });
   }
@@ -366,7 +369,8 @@ __global__ void __cluster_dims__(PA_CLUSTER, 1, 1) __launch_bounds__(1024, 1)
     const float den = fmaxf(Lsum, 1e-30f);
     float* dst = out + ((size_t)b * a.H + (size_t)h * G + g) * D + r * SLICE + lane * E;
 #pragma unroll
-    for (int e = 0; e < E; ++e) dst[e] = O[e] / den;
+    for (int e = 0; e < E; ++e)
+      if (live<E, D>(r * LPR + lane, e)) dst[e] = O[e] / den;
   }
 }
 
@@ -378,7 +382,7 @@ __global__ void __cluster_dims__(PA_CLUSTER, 1, 1) __launch_bounds__(1024, 1)
 // 32 * G threads.  Writes the split's (m_c, d_c, o_c) to the workspace
 // (B, KV, splits, G[, D]).
 // det: fastpath
-template <typename T, int E>
+template <typename T, int E, int D>
 __global__ void __cluster_dims__(PF_CLUSTER, 1, 1) __launch_bounds__(1024, 1)
     paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                        const T* __restrict__ vp, PagedArgs a, int splits,
@@ -392,9 +396,8 @@ __global__ void __cluster_dims__(PF_CLUSTER, 1, 1) __launch_bounds__(1024, 1)
   const int r = (int)cluster.block_rank(), sp = blockIdx.x / PF_CLUSTER;
   const int h = blockIdx.y, b = blockIdx.z;
   const int G = a.H / a.KV;
-  constexpr int D = 32 * E;
   const int g = threadIdx.x >> 5, lane = threadIdx.x & 31, j = lane >> 1;
-  const Layout L = layout<T, E>(G, true);
+  const Layout L = layout<T, E, D>(G, true);
   float* qs = reinterpret_cast<float*>(smem + L.q);
   int* list = reinterpret_cast<int*>(smem + L.list);
   int* wsum = reinterpret_cast<int*>(smem + L.wsum);
@@ -404,7 +407,7 @@ __global__ void __cluster_dims__(PF_CLUSTER, 1, 1) __launch_bounds__(1024, 1)
   const int cap = PF_SCORE_FLOATS / G;  // score slots per query head
   float* sc = reinterpret_cast<float*>(smem + L.score) + g * cap;
 
-  QTile<T, E> qt;
+  QTile<T, E, D> qt;
   qt.load(q + ((size_t)b * a.H + (size_t)h * G) * D, G);
   const int qp = a.qpos[b];
   const int per = a.nblk / splits;
@@ -422,10 +425,10 @@ __global__ void __cluster_dims__(PF_CLUSTER, 1, 1) __launch_bounds__(1024, 1)
     nv = compact(sl, w0, min(n, w0 + PA_WINDOW), list, wsum);
     if (w0 == 0) qt.store(qs, G, a.scale);  // read after stream_tiles' barrier
     keep = n <= PA_WINDOW && nv * tpb * PA_TILE_KEYS <= cap;
-    stream_tiles<T, E, true, false>(
+    stream_tiles<T, E, D, true, false>(
         kp, vp, a.pos, a.bs, a.KV, h, list, nv * tpb, tpb, ring, pring,
         [&](int u, const char* ks, const char*, const int* ps, int kt) {
-          const float s = tile_score<T, E>(qrow, ks, ps, kt, qp, lane);
+          const float s = tile_score<T, E, D>(qrow, ks, ps, kt, qp, lane);
           if (keep && !(lane & 1)) sc[u * PA_TILE_KEYS + j] = s;
           mloc = fmaxf(mloc, s);  // this lane's keys
         });
@@ -447,18 +450,18 @@ __global__ void __cluster_dims__(PF_CLUSTER, 1, 1) __launch_bounds__(1024, 1)
   for (int e = 0; e < E; ++e) o[e] = 0.f;
   auto use = [&](int u, const char* ks, const char* vs, const int* ps, int kt) {
     const float s = keep ? sc[u * PA_TILE_KEYS + j]
-                         : tile_score<T, E>(qrow, ks, ps, kt, qp, lane);
+                         : tile_score<T, E, D>(qrow, ks, ps, kt, qp, lane);
     const float ex = round_to(expf(s - mc), combine);  // 0 for a masked key
     d += (lane & 1) ? 0.f : ex;  // this lane's keys
-    accumulate_v<T, E>(vs, ex, kt, lane, o);
+    accumulate_v<T, E, D>(vs, ex, kt, lane, o);
   };
   if (keep) {  // one window: its list is still in place
-    stream_tiles<T, E, false, true>(kp, vp, a.pos, a.bs, a.KV, h, list, nv * tpb,
+    stream_tiles<T, E, D, false, true>(kp, vp, a.pos, a.bs, a.KV, h, list, nv * tpb,
                                     tpb, ring, pring, use);
   } else {
     for (int w0 = 0; w0 < n; w0 += PA_WINDOW) {
       nv = compact(sl, w0, min(n, w0 + PA_WINDOW), list, wsum);
-      stream_tiles<T, E, true, true>(kp, vp, a.pos, a.bs, a.KV, h, list, nv * tpb,
+      stream_tiles<T, E, D, true, true>(kp, vp, a.pos, a.bs, a.KV, h, list, nv * tpb,
                                      tpb, ring, pring, use);
     }
   }
@@ -491,19 +494,19 @@ __global__ void __cluster_dims__(PF_CLUSTER, 1, 1) __launch_bounds__(1024, 1)
       d_part[row] = dd;
     }
 #pragma unroll
-    for (int e = 0; e < E; ++e) o_part[row * D + r * SLICE + lane * E + e] = O[e];
+    for (int e = 0; e < E; ++e)
+      if (live<E, D>(r * LPR + lane, e)) o_part[row * D + r * SLICE + lane * E + e] = O[e];
   }
 }
 
 // Merges the splits in f32 in split order.  Grid (B, KV),
 // 32 * G threads.
 // det: fastpath
-template <int E>
+template <int E, int D>
 __global__ void paged_merge_kernel(const float* __restrict__ m_part,
                                    const float* __restrict__ d_part,
                                    const float* __restrict__ o_part, int H,
-                                   int KV, int D, int splits,
-                                   float* __restrict__ out) {
+                                   int KV, int splits, float* __restrict__ out) {
   // launched as a programmatic dependent of the split kernel: wait until
   // that grid has completed and its workspace writes are visible
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -513,7 +516,7 @@ __global__ void paged_merge_kernel(const float* __restrict__ m_part,
   const size_t row0 = (((size_t)b * KV + h) * splits) * G + g;
   float m = m_part[row0], d = d_part[row0], acc[E];
 #pragma unroll
-  for (int e = 0; e < E; ++e) acc[e] = o_part[row0 * D + lane * E + e];
+  for (int e = 0; e < E; ++e) acc[e] = live<E, D>(lane, e) ? o_part[row0 * D + lane * E + e] : 0.f;
   for (int sp = 1; sp < splits; ++sp) {
     const size_t row = row0 + (size_t)sp * G;
     const float m_c = m_part[row];
@@ -522,13 +525,14 @@ __global__ void paged_merge_kernel(const float* __restrict__ m_part,
     d = d * a_prev + d_part[row] * a_c;
   #pragma unroll
     for (int e = 0; e < E; ++e)
-      acc[e] = acc[e] * a_prev + o_part[row * D + lane * E + e] * a_c;
+      if (live<E, D>(lane, e)) acc[e] = acc[e] * a_prev + o_part[row * D + lane * E + e] * a_c;
     m = m_new;
   }
   const float denom = fmaxf(d, 1e-30f);
   float* dst = out + ((size_t)b * H + h * G + g) * D + lane * E;
 #pragma unroll
-  for (int e = 0; e < E; ++e) dst[e] = acc[e] / denom;
+  for (int e = 0; e < E; ++e)
+    if (live<E, D>(lane, e)) dst[e] = acc[e] / denom;
 }
 
 // ---------------------------------------------------------------------------
@@ -536,48 +540,47 @@ __global__ void paged_merge_kernel(const float* __restrict__ m_part,
 // ---------------------------------------------------------------------------
 
 PagedArgs make_args(const void* pos, const void* tab, const void* qpos, int H,
-                    int KV, int D, int bs, int nblk, float scale) {
+                    int KV, int bs, int nblk, float scale) {
   PagedArgs a;
   a.pos = static_cast<const int*>(pos);
   a.tab = static_cast<const int*>(tab);
   a.qpos = static_cast<const int*>(qpos);
   a.H = H;
   a.KV = KV;
-  a.D = D;
   a.bs = bs;
   a.nblk = nblk;
   a.scale = scale;
   return a;
 }
 
-// Launch with E = D / 32 as a compile-time constant.  B enters the grid
-// only as its count of rows.
-template <typename T, int E>
+// Launch with D and E = ceil(D / 32) as compile-time constants.  B enters
+// the grid only as its count of rows.
+template <typename T, int E, int D>
 cudaError_t launch_commit(const void* q, const void* kp, const void* vp,
                           const PagedArgs& a, float* out, int B,
                           cudaStream_t s) {
   static int granted = 48 * 1024;
   const int G = a.H / a.KV;
-  const int smem = layout<T, E>(G, false).bytes;
-  const cudaError_t e = allow_smem(paged_attention_kernel<T, E>, smem, &granted);
+  const int smem = layout<T, E, D>(G, false).bytes;
+  const cudaError_t e = allow_smem(paged_attention_kernel<T, E, D>, smem, &granted);
   if (e != cudaSuccess) return e;
-  paged_attention_kernel<T, E><<<dim3(PA_CLUSTER, a.KV, B), 32 * G, smem, s>>>(
+  paged_attention_kernel<T, E, D><<<dim3(PA_CLUSTER, a.KV, B), 32 * G, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), a, out);
   return cudaGetLastError();
 }
 
-template <typename T, int E>
+template <typename T, int E, int D>
 cudaError_t launch_fast(const void* q, const void* kp, const void* vp,
                         const PagedArgs& a, int combine, float* mp, float* dp,
                         float* op, float* out, int B, int splits,
                         cudaStream_t s) {
   static int granted = 48 * 1024;
   const int G = a.H / a.KV;
-  const int smem = layout<T, E>(G, true).bytes;
-  cudaError_t e = allow_smem(paged_split_kernel<T, E>, smem, &granted);
+  const int smem = layout<T, E, D>(G, true).bytes;
+  cudaError_t e = allow_smem(paged_split_kernel<T, E, D>, smem, &granted);
   if (e != cudaSuccess) return e;
-  paged_split_kernel<T, E><<<dim3(PF_CLUSTER * splits, a.KV, B), 32 * G, smem, s>>>(
+  paged_split_kernel<T, E, D><<<dim3(PF_CLUSTER * splits, a.KV, B), 32 * G, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), a, splits, combine, mp, dp, op);
   e = cudaGetLastError();
@@ -593,9 +596,9 @@ cudaError_t launch_fast(const void* q, const void* kp, const void* vp,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, paged_merge_kernel<E>, static_cast<const float*>(mp),
+  return cudaLaunchKernelEx(&cfg, paged_merge_kernel<E, D>, static_cast<const float*>(mp),
                             static_cast<const float*>(dp), static_cast<const float*>(op),
-                            a.H, a.KV, a.D, splits, out);
+                            a.H, a.KV, splits, out);
 }
 
 // What both kernels take (the wrapper checks the same before a launch).
@@ -603,7 +606,7 @@ bool shapes_ok(const void* q, const void* kp, const void* vp, int B, int H,
                int KV, int D, int bs, int nblk) {
   const int G = KV > 0 ? H / KV : 0;
   return B >= 0 && B <= 65535 && KV >= 1 && KV <= 65535 && H % KV == 0 &&
-         G >= 1 && G <= 32 && D % 32 == 0 && D >= 32 && D <= 256 && bs >= 1 &&
+         G >= 1 && G <= 32 && D % 16 == 0 && D >= 16 && D <= 256 && bs >= 1 &&
          nblk >= 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(kp) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(vp) % 16 == 0;
@@ -620,14 +623,14 @@ extern "C" int repro_paged_attention(const void* q, const void* kp,
   if (!shapes_ok(q, kp, vp, B, H, KV, D, bs, nblk)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const PagedArgs a = make_args(pos, tab, qpos, H, KV, D, bs, nblk, scale);
+  const PagedArgs a = make_args(pos, tab, qpos, H, KV, bs, nblk, scale);
   float* o = static_cast<float*>(out);
   if (dtype == DT_BF16) {
-    REPRO_DISPATCH_E(D, return (int)(launch_commit<__nv_bfloat16, E_>(
+    REPRO_DISPATCH_D(D, return (int)(launch_commit<__nv_bfloat16, E_, D_>(
                             q, kp, vp, a, o, B, s)));
   }
-  REPRO_DISPATCH_E(D, return (int)(launch_commit<float, E_>(q, kp, vp, a, o,
-                                                               B, s)));
+  REPRO_DISPATCH_D(D, return (int)(launch_commit<float, E_, D_>(q, kp, vp, a, o,
+                                                                   B, s)));
 }
 
 extern "C" int repro_paged_attention_fast(
@@ -639,17 +642,17 @@ extern "C" int repro_paged_attention_fast(
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const PagedArgs a = make_args(pos, tab, qpos, H, KV, D, bs, nblk, scale);
+  const PagedArgs a = make_args(pos, tab, qpos, H, KV, bs, nblk, scale);
   float* mp = static_cast<float*>(m_part);
   float* dp = static_cast<float*>(d_part);
   float* op = static_cast<float*>(o_part);
   float* o = static_cast<float*>(out);
   if (dtype == DT_BF16) {
-    REPRO_DISPATCH_E(D, return (int)(launch_fast<__nv_bfloat16, E_>(
+    REPRO_DISPATCH_D(D, return (int)(launch_fast<__nv_bfloat16, E_, D_>(
                             q, kp, vp, a, combine, mp, dp, op, o, B, splits,
                             s)));
   }
-  REPRO_DISPATCH_E(D, return (int)(launch_fast<float, E_>(
+  REPRO_DISPATCH_D(D, return (int)(launch_fast<float, E_, D_>(
                           q, kp, vp, a, combine, mp, dp, op, o, B, splits,
                           s)));
 }

@@ -47,9 +47,9 @@ def decode_attention(
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, lengths "
                          f"{tuple(lengths.shape)}")
     S, KV = k.shape[1], k.shape[2]
-    if H % KV or H // KV > MAX_GROUP or D % 32 or D > 256:
+    if H % KV or H // KV > MAX_GROUP or D % 16 or not 16 <= D <= 256:
         raise ValueError(f"decode_attention: H={H}, KV={KV} (group <= {MAX_GROUP}), "
-                         f"D={D} (multiple of 32, <= 256)")
+                         f"D={D} (multiple of 16, 16..256)")
     if not 1 <= kv_splits <= S:
         raise ValueError(f"decode_attention: kv_splits={kv_splits} (1..S={S})")
     if combine_dtype not in build.DTYPE_CODES:

@@ -35,7 +35,7 @@ def _check(q, k_pool, v_pool, pos_pool, tables, q_pos, null_bid, name):
     NB, bs, KV, D2 = k_pool.shape
     if (v_pool.shape != k_pool.shape or pos_pool.shape != (NB, bs) or D2 != D
             or tables.dim() != 2 or tables.shape[0] != B or q_pos.shape != (B,)
-            or H % KV or H // KV > 32 or D % 32 or D > 256):
+            or H % KV or H // KV > 32 or D % 16 or not 16 <= D <= 256):
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, pools "
                          f"{tuple(k_pool.shape)}, pos {tuple(pos_pool.shape)}, "
                          f"tables {tuple(tables.shape)}, q_pos {tuple(q_pos.shape)}")

@@ -1,5 +1,6 @@
 """Model configs, parameter specs and the port's initializer (dense and MoE
-families, full and sliding-window attention).
+families with full or sliding-window attention, ``first_k_dense`` head
+layers, and the recurrent ssm family: rwkv6).
 
 PyTorch counterpart of ``repro.models.base``.  ``ModelConfig`` is the JAX
 package's dataclass field for field, so configs read the same.  Parameters
@@ -7,7 +8,9 @@ are nested dicts of tensors with the JAX tree's keys and layouts: decoder
 layers stacked along a leading ``layers`` dimension under
 ``params["blocks"]["0"]`` (the ported configs' block period is 1), weights
 stored ``(in, out)``; a MoE layer's ``moe`` leaves stack the experts after
-the layer axis, ``(layers, experts, in, out)``.
+the layer axis, ``(layers, experts, in, out)``; the ``first_k_dense`` head
+layers are unstacked, ``params["head_layers"][str(i)]``, as in the JAX
+tree; an rwkv layer's weights sit under ``rwkv`` (time and channel mixing).
 ``models.convert.params_from_numpy`` turns the JAX package's tree into
 this one; ``init_params`` makes random weights without JAX.  A config with tied embeddings also carries ``unembed``: a
 (d_model, vocab) copy of ``embed.T``, made once by ``tie_unembedding``
@@ -15,7 +18,7 @@ where params are made, so no forward transposes the embedding (at
 command-r's width that would be a 4.2 GB copy per pass).  It is not a
 parameter of its own: ``param_count`` does not count it.
 
-The other families (SSM, hybrid, enc-dec, multimodal) and the features
+The other families (hybrid, enc-dec, multimodal) and the features
 ``check_ported`` names wait for later slices; ``param_specs`` raises on
 them.
 """
@@ -139,12 +142,12 @@ class ParamSpec:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise on what the port does not serve yet: the recurrent, hybrid and
-    enc-dec families, prefix embeddings, attention biases, ``first_k_dense``
-    head layers and block periods above one.  Dense and MoE configs with
-    full or sliding-window attention pass."""
+    """Raise on what the port does not serve yet: the hybrid and enc-dec
+    families, prefix embeddings, attention biases and block periods above
+    one.  Dense and MoE configs with full or sliding-window attention (and
+    ``first_k_dense`` head layers) and the ssm family (rwkv6) pass."""
     missing = []
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         missing.append(f"the {cfg.family} family")
     if cfg.attn_kind not in ("full", "sliding"):
         missing.append(f"attn_kind {cfg.attn_kind!r}")
@@ -152,8 +155,6 @@ def check_ported(cfg: ModelConfig) -> None:
         missing.append("prefix embeddings")
     if cfg.use_bias:
         missing.append("attention biases")
-    if cfg.first_k_dense:
-        missing.append("first_k_dense head layers")
     if cfg.block_period() != 1:
         missing.append(f"block period {cfg.block_period()}")
     if missing:
@@ -189,11 +190,47 @@ def moe_ffn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     }
 
 
-def layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    specs: Dict[str, Any] = {"attn": attn_specs(cfg)}
-    specs.update({f"norm{i}": ParamSpec((cfg.d_model,), ("embed",), init="ones")
-                  for i in range(2)})
-    if cfg.ffn_kind(0) == "moe":
+def rwkv_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    n_heads = d // cfg.rwkv_head_dim
+    hd = cfg.rwkv_head_dim
+    return {
+        # time mixing (attention analogue)
+        "mu_r": ParamSpec((d,), ("embed",), scale=0.1),
+        "mu_k": ParamSpec((d,), ("embed",), scale=0.1),
+        "mu_v": ParamSpec((d,), ("embed",), scale=0.1),
+        "mu_w": ParamSpec((d,), ("embed",), scale=0.1),
+        "mu_g": ParamSpec((d,), ("embed",), scale=0.1),
+        "wr": ParamSpec((d, d), ("embed", "heads")),
+        "wk": ParamSpec((d, d), ("embed", "heads")),
+        "wv": ParamSpec((d, d), ("embed", "heads")),
+        "wg": ParamSpec((d, d), ("embed", "heads")),
+        "w_decay": ParamSpec((d,), ("embed",), scale=0.1),  # data-dep decay base
+        "w_lora_a": ParamSpec((d, 64), ("embed", "state"), scale=0.02),
+        "w_lora_b": ParamSpec((64, d), ("state", "embed"), scale=0.02),
+        "u_bonus": ParamSpec((n_heads, hd), ("heads", "state"), scale=0.1),
+        "wo": ParamSpec((d, d), ("heads", "embed")),
+        "ln_x_scale": ParamSpec((d,), ("embed",), init="ones"),
+        # channel mixing (FFN analogue)
+        "cm_mu_k": ParamSpec((d,), ("embed",), scale=0.1),
+        "cm_mu_r": ParamSpec((d,), ("embed",), scale=0.1),
+        "cm_wk": ParamSpec((d, cfg.d_ff), ("embed", "ffn")),
+        "cm_wv": ParamSpec((cfg.d_ff, d), ("ffn", "embed")),
+        "cm_wr": ParamSpec((d, d), ("embed", "heads")),
+    }
+
+
+def layer_specs(cfg: ModelConfig, i: int) -> Dict[str, Any]:
+    """Specs of decoder layer ``i``: attention or rwkv mixing, two norms,
+    and the layer's dense or MoE FFN (rwkv's channel mixing is its FFN)."""
+    kind = cfg.layer_kind(i)
+    specs: Dict[str, Any] = (
+        {"rwkv": rwkv_specs(cfg)} if kind == "rwkv" else {"attn": attn_specs(cfg)})
+    specs.update({f"norm{j}": ParamSpec((cfg.d_model,), ("embed",), init="ones")
+                  for j in range(2)})
+    if kind == "rwkv":
+        pass  # rwkv_specs already includes the channel-mix FFN
+    elif cfg.ffn_kind(i) == "moe":
         specs["moe"] = moe_ffn_specs(cfg)
     else:
         specs["ffn"] = dense_ffn_specs(cfg)
@@ -215,7 +252,12 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         specs["unembed"] = ParamSpec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
-    specs["blocks"] = {"0": _stack(layer_specs(cfg), cfg.num_layers)}
+    # first_k_dense head layers break homogeneity: unstacked, as in the JAX
+    # tree; the rest stack along their layer axis (block period 1)
+    fkd = cfg.first_k_dense
+    if fkd:
+        specs["head_layers"] = {str(i): layer_specs(cfg, i) for i in range(fkd)}
+    specs["blocks"] = {"0": _stack(layer_specs(cfg, fkd), cfg.num_layers - fkd)}
     return specs
 
 

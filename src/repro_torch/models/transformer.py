@@ -1,25 +1,34 @@
-"""Incremental forward pass, attention families (prefill / decode / verify).
+"""Incremental forward pass for the attention and rwkv families (prefill /
+decode / verify).
 
-PyTorch counterpart of ``repro.models.transformer``: ``cache_spec``, the
-attention branch of ``_apply_layer`` with its dense or MoE FFN,
-``_embed``, ``_unembed`` and ``forward``.  Full-attention layers run over
-the paged pool (``tables`` and ``paged`` given) or over dense per-row
-cache views (neither given; the gathered lane); sliding-window layers keep
-dense per-slot rings of ``min(capacity, window + RING_SLACK)`` slots and
-are never paged.  The
-JAX ``lax.scan`` over the stacked layer block is a Python loop over the
-stacked leaves; cache leaves are updated in place.  Every entry point
-takes an explicit reduction ``Schedule``: the schedule, not the code,
-decides between fast-path and verifier-grade numerics.
+PyTorch counterpart of ``repro.models.transformer``: ``cache_spec``,
+``_apply_layer`` (attention with its dense or MoE FFN, or rwkv's time and
+channel mixing), ``_embed``, ``_unembed`` and ``forward`` with
+``collect_states``.  Full-attention layers run over the paged pool
+(``tables`` and ``paged`` given) or over dense per-row cache views
+(neither given; the gathered lane); sliding-window layers keep dense
+per-slot rings of ``min(capacity, window + RING_SLACK)`` slots and are
+never paged; rwkv layers keep their O(1) state per row.  The ``first_k_dense``
+head layers run first, one by one, then the JAX ``lax.scan`` over the
+stacked layer block is a Python loop over the stacked leaves; cache leaves
+are updated in place.  Every entry point takes an explicit reduction
+``Schedule``: the schedule, not the code, decides between fast-path and
+verifier-grade numerics.
+
+Cache and per-position trees lead with a layer axis everywhere: the JAX
+tree's ``head_layers/{i}`` leaves, unstacked there (slot axis 0), carry a
+layer axis of one here, so every leaf's row axis is axis 1, which
+``serving.blockpool.Layout`` and ``serving.statepool`` rely on.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core.determinism import Schedule, VERIFY_SCHEDULE, matmul
+from repro_torch.models import rwkv6
 from repro_torch.models.base import ModelConfig, check_ported
 from repro_torch.models.layers import (
     PagedView, attention_cached, attention_paged, moe_ffn, rms_norm, swiglu_ffn,
@@ -33,21 +42,42 @@ F32 = torch.float32
 RING_SLACK = 128
 
 
-def cache_spec(cfg: ModelConfig, batch: int, capacity: int) -> Dict[str, Any]:
-    """``(shape, dtype)`` tree of the dense cache, the JAX tree's keys:
-    ``blocks/0/{k,v}`` (layers, batch, cap, KV, HD) and ``pos`` (layers,
-    batch, cap) int32, cap = ``capacity`` for full attention and
-    ``min(capacity, window + RING_SLACK)`` for a sliding window's ring."""
-    check_ported(cfg)
+def _layer_cache_shape(cfg: ModelConfig, kind: str, n: int, batch: int,
+                       capacity: int) -> Dict[str, Any]:
+    """``(shape, dtype)`` leaves of ``n`` stacked layers of ``kind``."""
     dtype = getattr(torch, cfg.dtype)
+    if kind == "rwkv":
+        h = cfg.d_model // cfg.rwkv_head_dim
+        return {
+            "tm_shift": ((n, batch, cfg.d_model), dtype),
+            "cm_shift": ((n, batch, cfg.d_model), dtype),
+            "wkv": ((n, batch, h, cfg.rwkv_head_dim, cfg.rwkv_head_dim), F32),
+        }
     cap = (min(capacity, cfg.window + RING_SLACK) if cfg.attn_kind == "sliding"
            else capacity)
-    kv = (cfg.num_layers, batch, cap, cfg.num_kv_heads, cfg.hd)
-    return {"blocks": {"0": {
-        "k": (kv, dtype),
-        "v": (kv, dtype),
-        "pos": ((cfg.num_layers, batch, cap), torch.int32),
-    }}}
+    kv = (n, batch, cap, cfg.num_kv_heads, cfg.hd)
+    return {"k": (kv, dtype), "v": (kv, dtype), "pos": ((n, batch, cap), torch.int32)}
+
+
+def cache_spec(cfg: ModelConfig, batch: int, capacity: int) -> Dict[str, Any]:
+    """``(shape, dtype)`` tree of the dense cache, the JAX tree's keys.
+    Attention layers: ``{k,v}`` (layers, batch, cap, KV, HD) and ``pos``
+    (layers, batch, cap) int32, cap = ``capacity`` for full attention and
+    ``min(capacity, window + RING_SLACK)`` for a sliding window's ring.
+    rwkv layers: ``tm_shift`` and ``cm_shift`` (layers, batch, d_model),
+    ``wkv`` (layers, batch, H, hd, hd) f32.  ``blocks/0`` stacks the block
+    layers; ``head_layers/{i}`` holds head layer i with a layer axis of
+    one."""
+    check_ported(cfg)
+    fkd = cfg.first_k_dense
+    spec: Dict[str, Any] = {}
+    if fkd:
+        spec["head_layers"] = {
+            str(i): _layer_cache_shape(cfg, cfg.layer_kind(i), 1, batch, capacity)
+            for i in range(fkd)}
+    spec["blocks"] = {"0": _layer_cache_shape(
+        cfg, cfg.layer_kind(fkd), cfg.num_layers - fkd, batch, capacity)}
+    return spec
 
 
 def _index(tree: Any, i: int) -> Any:
@@ -57,14 +87,42 @@ def _index(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _stack_states(per_layer: List[Optional[Dict[str, torch.Tensor]]]) -> Any:
+    """Per-layer per-position states stacked along a leading layer axis;
+    None (an attention layer's placeholder) when the layers hold none."""
+    if per_layer[0] is None:
+        return None
+    return {k: torch.stack([pp[k] for pp in per_layer]) for k in per_layer[0]}
+
+
 def _apply_layer(
-    cfg: ModelConfig, lp: Dict, x: torch.Tensor, lc: Dict,
+    cfg: ModelConfig, i: int, lp: Dict, x: torch.Tensor, lc: Dict,
     tables: Optional[torch.Tensor], start_pos: torch.Tensor,
-    schedule: Schedule, paged: Optional[PagedView],
-) -> torch.Tensor:
-    """One decoder layer (attention + dense or MoE FFN); ``lc`` updated in
+    schedule: Schedule, paged: Optional[PagedView], collect_states: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Decoder layer ``i``; returns ``(x, per_pos)``.  ``lc`` is updated in
     place: through the block tables when ``paged`` is given (full attention
-    only: rings are never paged), else as dense views or rings."""
+    only: rings are never paged), else as dense views or rings; an rwkv
+    layer's state rows take the state after the pass's last position.
+    ``per_pos`` (rwkv with ``collect_states``) holds the state after each
+    position, ``{tm_shift, cm_shift: (B, W, D), wkv: (B, W, H, hd, hd)}``;
+    None for an attention layer."""
+    if cfg.layer_kind(i) == "rwkv":
+        h_tm = rms_norm(x, lp["norm0"], cfg.norm_eps, schedule)
+        tm_out, tm_shift, wkv, pp_wkv = rwkv6.time_mix(
+            lp["rwkv"], cfg, h_tm, lc["tm_shift"], lc["wkv"], schedule, collect_states)
+        x = x + tm_out
+        h_cm = rms_norm(x, lp["norm1"], cfg.norm_eps, schedule)
+        cm_out, cm_shift = rwkv6.channel_mix(lp["rwkv"], cfg, h_cm, lc["cm_shift"],
+                                             schedule)
+        x = x + cm_out
+        lc["tm_shift"].copy_(tm_shift)
+        lc["cm_shift"].copy_(cm_shift)
+        lc["wkv"].copy_(wkv)
+        per_pos = ({"tm_shift": h_tm, "cm_shift": h_cm, "wkv": pp_wkv}
+                   if collect_states else None)
+        return x, per_pos
+
     window = cfg.window if cfg.attn_kind == "sliding" else 0
     h = rms_norm(x, lp["norm0"], cfg.norm_eps, schedule)
     if paged is not None and window == 0:
@@ -79,7 +137,7 @@ def _apply_layer(
         out, _aux = moe_ffn(lp["moe"], cfg, h, schedule)
     else:
         out = swiglu_ffn(lp["ffn"], h, schedule)
-    return x + out
+    return x + out, None
 
 
 def _embed(params, cfg, tokens, inputs_embeds):
@@ -103,33 +161,54 @@ def forward(
     cache: Dict,
     start_pos: torch.Tensor,  # (B,) absolute position of tokens[:, 0]
     schedule: Schedule = VERIFY_SCHEDULE,
+    collect_states: bool = False,
     tables: Optional[torch.Tensor] = None,  # (B, nblk) block tables
     paged: Optional[PagedView] = None,
-) -> Tuple[torch.Tensor, Dict, None]:
+) -> Tuple[torch.Tensor, Dict, Any]:
     """Incremental forward.
 
     With ``tables`` and ``paged``, a full-attention ``cache`` holds
-    pool-shaped leaves (``blocks/0/{k,v,pos}`` with a leading layer axis,
-    no batch axis) and attention reads and writes them in place through
-    ``tables``.  With neither, ``cache`` holds dense per-row views
-    ``(layers, B, C, ...)``, updated in place; a full-attention pass must
-    end inside the view (no wrap), which the W == 1 length mask relies on.
-    A sliding config's ``cache`` holds per-row rings in either case, which
-    wrap by design.  Returns ``(logits (B, W, V)
-    f32, cache, None)``, the JAX signature's ``(logits, new_cache,
-    per_pos)``; this slice has no recurrent state, so ``per_pos`` is None."""
+    pool-shaped leaves (a leading layer axis, no batch axis) and attention
+    reads and writes them in place through ``tables``.  With neither,
+    ``cache`` holds dense per-row views ``(layers, B, C, ...)``, updated in
+    place; a full-attention pass must end inside the view (no wrap), which
+    the W == 1 length mask relies on.  A sliding config's ``cache`` holds
+    per-row rings in either case, which wrap by design, and an rwkv
+    config's per-row state.  Returns ``(logits (B, W, V) f32, cache,
+    per_pos)``, the JAX signature's ``(logits, new_cache, per_pos)``:
+    with ``collect_states``, ``per_pos`` mirrors the cache tree, each rwkv
+    leaf with a window axis after the row axis (the state after each
+    position: ``blocks/0`` (L, B, W, ...), ``head_layers/{i}`` (1, B, W,
+    ...)) and None in place of an attention layer's leaves; else None."""
     if (paged is None) != (tables is None):
         raise ValueError("pass both tables and paged (paged pool) or neither "
                          "(gathered views)")
     x = _embed(params, cfg, tokens, inputs_embeds)
+    fkd = cfg.first_k_dense
     blocks, pool = params["blocks"]["0"], cache["blocks"]["0"]
+    heads = cache.get("head_layers", {})
     if paged is None and cfg.attn_kind != "sliding":
-        C = pool["k"].shape[2]
-        assert int(start_pos.max()) + x.shape[1] <= C, (
-            f"a pass ending past the view capacity {C} would wrap")
-    for i in range(cfg.num_layers):
-        x = _apply_layer(cfg, _index(blocks, i), x, _index(pool, i), tables,
-                         start_pos, schedule, paged)
+        for leaves in [pool] + list(heads.values()):
+            if "k" in leaves:
+                C = leaves["k"].shape[2]
+                assert int(start_pos.max()) + x.shape[1] <= C, (
+                    f"a pass ending past the view capacity {C} would wrap")
+    per_head = {}
+    for i in range(fkd):
+        x, pp = _apply_layer(cfg, i, params["head_layers"][str(i)], x,
+                             _index(heads[str(i)], 0), tables, start_pos, schedule,
+                             paged, collect_states)
+        per_head[str(i)] = _stack_states([pp])
+    pps = []
+    for i in range(cfg.num_layers - fkd):
+        x, pp = _apply_layer(cfg, fkd + i, _index(blocks, i), x, _index(pool, i),
+                             tables, start_pos, schedule, paged, collect_states)
+        pps.append(pp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, schedule)
     logits = _unembed(params, cfg, x, schedule).to(F32)
-    return logits, cache, None
+    per_pos = None
+    if collect_states:
+        per_pos = {"blocks": {"0": _stack_states(pps)}}
+        if fkd:
+            per_pos["head_layers"] = per_head
+    return logits, cache, per_pos

@@ -12,8 +12,17 @@ two kinds:
   never read).
 * ``slot``: dense per-slot leaves, ``(layers, num_slots + 1, ...)``, the
   last row a scratch slot that verify pad rows write.  Sliding-window
-  rings (``window + RING_SLACK`` slots a row) are this slice's only slot
-  leaves; recurrent state and cross caches will join them.
+  rings (``window + RING_SLACK`` slots a row) and recurrent state (rwkv's
+  ``tm_shift``, ``cm_shift`` and ``wkv``) are slot leaves; cross caches
+  will join them.  Every scatter into slot leaves is an ``index_put_``,
+  whose duplicate indices are nondeterministic on CUDA: pad rows may share
+  the scratch slot, but no real slot may take two rows of one scatter
+  (``check_slots``).
+
+``head_layers`` leaves (the ``first_k_dense`` layers) lead with a layer
+axis of one, so they are classified and addressed like the block stack's:
+full-attention head layers are paged on the paged lane and gathered on the
+gathered lane.
 
 The JAX package threads an immutable pool through every step; here the
 leaves are updated in place (the paged forward writes through the tables,
@@ -24,7 +33,7 @@ leaves are updated in place (the paged forward writes through the tables,
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Set
+from typing import Any, List, Optional, Sequence, Set
 
 import torch
 
@@ -117,6 +126,25 @@ def init_cache(cfg: ModelConfig, lay: Layout, num_slots: int,
     return _map(make, cache_spec(cfg, _SENT_B, _SENT_C), lay.kinds)
 
 
+def check_slots(slots: Sequence[int], scratch: int) -> None:
+    """Raise unless every slot but ``scratch`` appears at most once: pad
+    rows all write the scratch slot, and a real slot written twice by one
+    ``index_put_`` would take either row on CUDA."""
+    real = [s for s in slots if s != scratch]
+    if len(set(real)) != len(real):
+        raise AssertionError(f"slots {list(slots)}: a real slot takes two rows "
+                             "of one scatter")
+
+
+def scratch_slot(pool: Any, lay: Layout) -> Optional[int]:
+    """The scratch slot of ``pool`` (its slot leaves' last row), or None
+    when it has no slot leaves."""
+    for leaf, kind in zip(_leaves(pool), _leaves(lay.kinds)):
+        if kind == "slot":
+            return leaf.shape[1] - 1
+    return None
+
+
 def wipe_blocks(pool: Any, lay: Layout, bids: List[int]) -> Any:
     """Reset freed blocks' positions to -1 in place, so stale absolute
     positions never mask into a future owner's attention."""
@@ -132,8 +160,9 @@ def wipe_blocks(pool: Any, lay: Layout, bids: List[int]) -> Any:
 
 
 def wipe_slot(pool: Any, lay: Layout, slot: int) -> Any:
-    """Reset a slot's dense leaves in place (ring positions to -1, the rest
-    to zero), so a released or restored slot starts pristine."""
+    """Reset a slot's dense leaves in place (ring positions to -1, the rest,
+    recurrent state included, to zero), so a released or restored slot
+    starts pristine."""
 
     def wipe(leaf, kind):
         if kind == "slot":

@@ -39,12 +39,19 @@ scratch block through duplicate indices).  On the card every GEMM runs in
 the two hand-written GEMMs and single-token attention in the paged kernels
 (paged lane) or the dense-cache decode kernel (gathered lane).
 
-Served families: dense and MoE, with full or sliding-window attention.
-A sliding config keeps per-slot rings (``window + RING_SLACK`` slots) in
-place of paged KV, so it has no paged lane and no prefix cache; its
-prefill runs in chunks the ring contract allows (``_ring_pass_cap``).
-What waits for later slices: recurrent / enc-dec / prefix-embed archs and
-``tp > 1``.  The constructor raises on each.
+Served families: dense and MoE (``first_k_dense`` head layers included),
+with full or sliding-window attention, and the recurrent ssm family
+(rwkv6).  A sliding config keeps per-slot rings (``window + RING_SLACK``
+slots) in place of paged KV, so it has no paged lane and no prefix cache;
+its prefill runs in chunks the ring contract allows (``_ring_pass_cap``).
+A recurrent config keeps O(1) state per slot, advanced irreversibly by the
+fast path: the double-buffered state pool (``serving.statepool``) carries
+the verify replay's anchor and one commit checkpoint per in-flight window,
+so speculation runs ``spec_depth`` windows deep; its prefill passes keep
+the state after their last real position (pads never enter it), and it
+has no paged lane and no prefix cache either.  What waits for later
+slices: hybrid / enc-dec / prefix-embed archs and ``tp > 1``.  The
+constructor raises on each.
 """
 
 from __future__ import annotations
@@ -130,14 +137,22 @@ class Engine:
             block_size=block_size, num_blocks=num_blocks,
         )
         # commit-aware prefix sharing needs paged full-attention KV to share
-        # (a sliding config's rings are per slot)
+        # (a sliding config's rings are per slot) and no recurrent state (an
+        # O(1) state at the match point cannot be rebuilt from shared KV)
+        shareable = self.pool.paged and not statepool.has_recurrent_state(cfg)
         self.prefix_cache: Optional[prefixcache.PrefixCache] = (
             prefixcache.PrefixCache(self.pool.block_size)
-            if (prefix_cache and self.pool.paged) else None
+            if (prefix_cache and shareable) else None
         )
         self.mem_policy = mem_policy or sched.BlockMemoryPolicy()
+        # recurrent archs advance their state irreversibly on the fast path;
+        # the state pool carries the verify replay anchor + per-window
+        # rollback checkpoints so speculation can run spec_depth windows
+        # deep.  For attention archs it is host-side telemetry only.
+        self.has_recurrent_state = statepool.has_recurrent_state(cfg)
         self.spec_depth = int(spec_depth)
-        self.statepool = statepool.StatePool(cfg, max_batch, self.spec_depth)
+        self.statepool = statepool.StatePool(cfg, max_batch, self.spec_depth,
+                                             device=self.device)
         self.scheduler = scheduler if scheduler is not None else sched.default_policy(mode)
         assert verify_latency_ms is None or verify_latency_ms >= 0.0
         self.verify_latency_ms = verify_latency_ms
@@ -429,6 +444,12 @@ class Engine:
             params, self.cfg, self.pool.layout, pool, slots, tables, start_pos,
             schedule, paged=self._paged_fwd, **inputs)
 
+    def _state_at(self, last: torch.Tensor) -> Optional[torch.Tensor]:
+        """A prefill pass's ``state_at``: on a recurrent config the state
+        kept is the one after the pass's last real position, so padding
+        never enters it; None (no per-position states) otherwise."""
+        return last.reshape(1) if self.has_recurrent_state else None
+
     def _decode_body(self, batch_size: int, schedule: Schedule):
         """One-token decode over the pool through the block tables."""
 
@@ -443,24 +464,30 @@ class Engine:
         return step
 
     # det: commit-path
-    def _prefill_pass(self, slot: int, table: torch.Tensor, tokens: torch.Tensor):
+    def _prefill_pass(self, slot: int, table: torch.Tensor, tokens: torch.Tensor,
+                      last: torch.Tensor):
         """Exclusive whole-prompt pass at the prompt's bucket, verify-grade
         schedule in every mode.  The JAX engine gathers a per-row view and
         runs the dense attention on it (the gathered lane here too); the
         paged forward computes the same masked softmax over the same view,
-        reading through the table."""
+        reading through the table.  ``last``: the prompt's last position
+        (a recurrent config's state is kept there)."""
         logits, self.pool.data = self._forward(
             self.params, self.pool.data, [slot], table[None], self._ints([0]),
-            self._commit_schedule(), tokens=tokens)
+            self._commit_schedule(), tokens=tokens, state_at=self._state_at(last))
         return logits
 
     def _prefill_chunk_body(self, C: int):
-        """Fixed-shape C-token prefill chunk, verify-grade schedule."""
+        """Fixed-shape C-token prefill chunk, verify-grade schedule.  A
+        recurrent config keeps the state after ``last``, the chunk's final
+        real position, so final-chunk pads never advance it: the chunk
+        schedule stays size-invariant."""
         schedule = self._commit_schedule()
 
         def chunk(params, pool, slot, table, embeds, start, last):
             logits, pool = self._forward(params, pool, [slot], table[None],
-                                         start[None], schedule, inputs_embeds=embeds)
+                                         start[None], schedule, inputs_embeds=embeds,
+                                         state_at=self._state_at(last))
             return pool, logits
 
         return chunk
@@ -501,9 +528,10 @@ class Engine:
 
     def _check_capacity(self, req: Request) -> None:
         """Reject a request whose worst-case footprint exceeds the
-        per-request block-table reach or the whole pool.  A sliding config
-        has no full attention: its rings wrap, so nothing is rejected."""
-        if self.cfg.attn_kind == "sliding":
+        per-request block-table reach or the whole pool.  A config without
+        full attention (sliding rings wrap, recurrent state is O(1)) rejects
+        nothing."""
+        if not self.pool.paged:
             return
         need = self._worst_need(req)
         total_blocks = self.pool.alloc_blocks.num_blocks
@@ -685,7 +713,10 @@ class Engine:
         return True
 
     def _flush_pipeline(self, req: Request) -> None:
-        """Force-apply every in-flight verdict in submission order."""
+        """Force-apply every in-flight verdict in submission order.  Device
+        state work is skipped: the caller is about to evict the slot's KV,
+        and the restore replay rebuilds recurrent state from the committed
+        stream."""
         for outcome in pipeline.apply_ready(req, self.window, float("inf")):
             self._note_splice(req, outcome)
             self.statepool.note_splice(req.slot, len(outcome.cascaded))
@@ -726,7 +757,9 @@ class Engine:
         prompt + committed[:-1] through the prefill lane (verify-grade
         schedule), re-matching blocks still resident in the prefix cache.
         The replay starts on a wiped slot: the slot survived preemption,
-        but its ring holds the victim's post-speculation content."""
+        but its ring or recurrent state holds the victim's post-speculation
+        content; the replay rebuilds the state and, at its end, the replay
+        anchor, bitwise as an un-preempted run holds them."""
         stream = list(req.prompt) + list(req.committed[:-1])
         self.pool.reset_slot(req.slot)
         alloc = self.pool.alloc_blocks
@@ -838,6 +871,10 @@ class Engine:
                 float(top2_margin(logits[0, last_rel]))
                 if self.obs.audit.enabled else None
             ))
+        # commit point == post-stream state: the verify replay anchor (on a
+        # replay, the state after committed[:-1], exactly what the next
+        # anchored window starts from)
+        self.statepool.set_commit_point(self.pool.data, req.slot)
         if req.prefill_time < 0:
             req.prefill_time = self._now
         req.state = State.RUNNING
@@ -902,13 +939,16 @@ class Engine:
         table = self.pool.table_array([req.blocks])[0]
         t0 = time.perf_counter()
         with deterministic_torch():
-            logits = self._prefill_pass(req.slot, table, tokens)
+            logits = self._prefill_pass(req.slot, table, tokens,
+                                        self._ints(req.prompt_len - 1))
             last = logits[0, req.prompt_len - 1]
             tok = int(sample_token(last, req.sampling.seed, 0,
                                    req.sampling.temperature, req.sampling.top_k))
             marg = top2_margin(last)
         wall = time.perf_counter() - t0
         req.last_sched = self._now
+        # commit point == post-prompt state: the first verify replay anchor
+        self.statepool.set_commit_point(self.pool.data, req.slot)
         req.committed.append(tok)  # T0: deterministic by construction
         self._note_t0(req, float(marg) if self.obs.audit.enabled else None)
         req.prefill_time = self._now
@@ -1091,11 +1131,11 @@ class Engine:
 
     def _verify_postlaunch(self, rows: List[Request], fls, ev: Dict[str, Any],
                            ring_idxs, slots, starts, n_match, commit_tok,
-                           margins=None) -> None:
+                           commit_rows=None, margins=None) -> None:
         """Land the host side of one deferred verify pass: stream-clock
-        launch, verdict payloads into the placeholder FIFO records, and the
-        post-submit state rule (evaluated after this iteration's decode
-        bookkeeping)."""
+        launch, state-pool checkpoints, verdict payloads into the
+        placeholder FIFO records, and the post-submit state rule (evaluated
+        after this iteration's decode bookkeeping)."""
         W = self.window
         ready_at = self.runtime.launch_verify(ev, sync=False)
         submitted_at = self.runtime.now
@@ -1105,6 +1145,7 @@ class Engine:
                          self._trace_args(ev))
         self._c_windows.inc(len(rows))
         audit = self.obs.audit.enabled
+        self.statepool.checkpoint(ring_idxs, slots, commit_rows)
         n_match = [int(n) for n in n_match.tolist()]
         commit_tok = [int(t) for t in commit_tok.tolist()]
         marg = margins.tolist() if (audit and margins is not None) else None
@@ -1143,11 +1184,22 @@ class Engine:
         return groups
 
     def _run_verify(self, args):
+        """One grouped verify pass on the pool; returns ``(n_match,
+        commit_tok, margins, commit_rows)``.  A recurrent config's pass
+        replays from the state pool's anchor and advances it; its
+        ``commit_rows`` (each row's commit-index state) go to the ring,
+        else None."""
+        commit_rows = None
         with deterministic_torch():
-            pool, n_match, commit_tok, _v, margins = self._verify_body(
-                self.params, self.pool.data, *args)
+            if self.has_recurrent_state:
+                (pool, self.statepool.anchor, commit_rows, n_match, commit_tok,
+                 _v, margins) = self._verify_body(
+                    self.params, self.pool.data, self.statepool.anchor, *args)
+            else:
+                pool, n_match, commit_tok, _v, margins = self._verify_body(
+                    self.params, self.pool.data, *args)
         self.pool.data = pool
-        return n_match, commit_tok, margins
+        return n_match, commit_tok, margins, commit_rows
 
     def _verify_step(self, group: List[Request], *, defer: bool = False,
                      n_decodable: int = 0) -> Dict[str, Any]:
@@ -1162,12 +1214,12 @@ class Engine:
         if defer:
             args, fls, ring_idxs, slots, starts, n_pad = self._verify_prelaunch(rows)
             t0 = time.perf_counter()
-            n_match, commit_tok, margins = self._run_verify(args)
+            n_match, commit_tok, margins, commit_rows = self._run_verify(args)
             self._sync()
             ev = self._verify_event(rows, starts, n_pad,
                                     time.perf_counter() - t0, n_decodable, True)
             self._verify_postlaunch(rows, fls, ev, ring_idxs, slots, starts,
-                                    n_match, commit_tok, margins)
+                                    n_match, commit_tok, commit_rows, margins)
             return ev
         # ---- sync path: FIFOs are empty, the verdict applies on the spot
         assert len({id(r) for r in rows}) == len(rows), (
@@ -1200,7 +1252,8 @@ class Engine:
         t0 = time.perf_counter()
         args = self._verify_args(inputs, cands, cand_lens, starts, bases,
                                  slots, seeds, temps, tks, table_rows)
-        n_match, commit_tok, margins = self._run_verify(args)
+        n_match, commit_tok, margins, commit_rows = self._run_verify(args)
+        self.statepool.checkpoint(ring_idxs, slots, commit_rows)
         n_match = [int(n) for n in n_match.tolist()]
         commit_tok = [int(t) for t in commit_tok.tolist()]
         wall = time.perf_counter() - t0
@@ -1239,6 +1292,10 @@ class Engine:
                         rollback=nrej > 0,
                         margin=float(marg[i][j]),
                     ))
+            if self.statepool.active:
+                # live state + replay anchor <- the commit-index state the
+                # pass just checkpointed (ring 0)
+                self.pool.data = self.statepool.restore(self.pool.data, r.slot, 0)
         return ev
 
     def _fused_step(self, plan: sched.Plan, view: sched.SchedulerView):
@@ -1308,13 +1365,13 @@ class Engine:
         for (rows, _args, fls, ring_idxs, slots, starts, n_pad), vout in zip(
             vstates, vouts
         ):
-            n_match, commit_tok, vmarg = vout
+            n_match, commit_tok, vmarg, commit_rows = vout
             ev = self._verify_event(rows, starts, n_pad, share, n_decodable, True)
             if not lead:
                 ev["fused"] = True
             lead = False
             self._verify_postlaunch(rows, fls, ev, ring_idxs, slots, starts,
-                                    n_match, commit_tok, vmarg)
+                                    n_match, commit_tok, commit_rows, vmarg)
             if vev is None:
                 vev = ev
             else:
@@ -1473,7 +1530,11 @@ class Engine:
 
     def _apply_due_verdicts(self) -> bool:
         """Land in-flight verify results whose deadline has been reached,
-        per request strictly in submission order."""
+        per request strictly in submission order.  On a recurrent config a
+        rollback splice, or one that leaves no surviving speculation,
+        restores the slot's live state (and replay anchor) from the
+        window's state-pool checkpoint; a splice that drains the FIFO with
+        live speculation surviving only moves the anchor."""
         applied = False
         now = self.runtime.now
         for r in self.running:
@@ -1481,6 +1542,18 @@ class Engine:
                 applied = True
                 self._note_splice(r, outcome)
                 self.statepool.note_splice(r.slot, len(outcome.cascaded))
+                if not self.statepool.active or (
+                    r.finished() and not (r.pipeline or r.candidates)
+                ):
+                    # no device work for a request about to retire with
+                    # nothing left to verify (an EOS-finished request with
+                    # a surviving tail still verifies it, from the anchor)
+                    continue
+                if outcome.restore_state:
+                    self.pool.data = self.statepool.restore(
+                        self.pool.data, r.slot, outcome.record.ring_idx)
+                elif outcome.reanchor:
+                    self.statepool.reanchor(r.slot, outcome.record.ring_idx)
         return applied
 
     def run(self, max_iters: int = 100000) -> List[Request]:

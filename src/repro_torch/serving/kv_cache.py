@@ -1,11 +1,11 @@
 """Paged cache manager: request slots + the KV block pool.
 
-PyTorch counterpart of ``repro.serving.kv_cache``, attention-arch subset.
-``CachePool`` owns the device pool (``serving.blockpool``), the block
-allocator and the slot free list.  Full-attention KV is paged; slots hold
-the slot-kind leaves (sliding-window rings), one row each plus the scratch
-row grouped verification pads with, and bound concurrency.  A freed slot
-is wiped.  Pool leaves are updated in place.
+PyTorch counterpart of ``repro.serving.kv_cache``, attention and rwkv
+archs.  ``CachePool`` owns the device pool (``serving.blockpool``), the
+block allocator and the slot free list.  Full-attention KV is paged; slots
+hold the slot-kind leaves (sliding-window rings, recurrent state), one row
+each plus the scratch row grouped verification pads with, and bound
+concurrency.  A freed slot is wiped.  Pool leaves are updated in place.
 
 ``pool_forward`` runs one forward pass over the pool in either memory
 lane: the paged lane row-packs the slot leaves by ``slots`` and reads and
@@ -13,7 +13,10 @@ writes paged leaves in place through the block tables
 (``models.layers.attention_paged``); the gathered lane
 (``paged_attention=False``) gathers per-row views, runs the dense forward
 on them and scatters them back, as the JAX engine's legacy path does.  A
-pool with slot leaves only (a sliding config) has no paged lane.
+pool with slot leaves only (a sliding or an rwkv config) has no paged
+lane.  ``pool_views`` and ``pool_writeback`` are its two halves, for
+callers that run their own forward between them (``core.verifier``'s
+recurrent replay).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from repro_torch.core.determinism import Schedule
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.layers import PagedView
 from repro_torch.models.transformer import forward
-from repro_torch.serving import blockpool
+from repro_torch.serving import blockpool, statepool
 from repro_torch.serving.blockpool import BlockAllocator, Layout  # noqa: F401
 
 #: gathered-lane entry points (slot + block-table addressing)
@@ -38,11 +41,42 @@ gather_mixed = blockpool.gather_mixed
 scatter_mixed = blockpool.scatter_mixed
 
 
+def slot_index(pool: Any, lay: Layout, slots: Sequence[int],
+               device: torch.device) -> torch.Tensor:
+    """``slots`` as a device index, after ``blockpool.check_slots``: no
+    real slot may take two rows of one pass's scatter."""
+    scratch = blockpool.scratch_slot(pool, lay)
+    if scratch is not None:
+        blockpool.check_slots(slots, scratch)
+    return torch.as_tensor(list(slots), dtype=torch.long, device=device)
+
+
+def pool_views(pool: Any, lay: Layout, idx: torch.Tensor, tables: torch.Tensor,
+               *, paged: bool) -> Any:
+    """The cache tree a forward over rows ``idx`` reads: slot leaves
+    row-packed (copies) and paged leaves whole (``paged=True``), or
+    ``(layers, B, view_capacity, ...)`` views gathered through ``tables``."""
+    if paged:
+        assert lay.has_paged, "a pool without paged leaves has no paged lane"
+        return gather_mixed(pool, lay, idx)
+    return gather(pool, lay, idx, tables)
+
+
+def pool_writeback(pool: Any, lay: Layout, idx: torch.Tensor, tables: torch.Tensor,
+                   cache: Any, *, paged: bool) -> Any:
+    """Inverse of ``pool_views``: slot rows (and gathered views) written
+    back in place; paged leaves were updated in place by the forward."""
+    if paged:
+        return scatter_mixed(pool, lay, idx, cache)
+    return scatter(pool, lay, idx, tables, cache)
+
+
 def pool_forward(
     params: Dict, cfg: ModelConfig, lay: Layout, pool: Any,
     slots: Sequence[int], tables: torch.Tensor, start_pos: torch.Tensor,
     schedule: Schedule, *, paged: bool, tokens: Optional[torch.Tensor] = None,
     inputs_embeds: Optional[torch.Tensor] = None,
+    state_at: Optional[torch.Tensor] = None,
 ):
     """``forward`` over the pool for the rows' ``slots`` and ``tables``;
     returns ``(logits, pool)``.  ``paged=True`` (a pool with paged leaves)
@@ -50,21 +84,19 @@ def pool_forward(
     forward to update in place, and writes the rows back;
     ``paged=False`` gathers ``(layers, B, view_capacity, ...)`` views and
     slot rows, runs the dense-cache forward on them and scatters them
-    back."""
-    idx = torch.as_tensor(list(slots), dtype=torch.long, device=tables.device)
-    if paged:
-        assert lay.has_paged, "a pool without paged leaves has no paged lane"
-        pview = PagedView(lay.block_size, lay.null_bid, lay.scratch_bid)
-        cache = gather_mixed(pool, lay, idx)
-        logits, cache, _ = forward(
-            params, cfg, tokens, inputs_embeds=inputs_embeds, cache=cache,
-            start_pos=start_pos, schedule=schedule, tables=tables, paged=pview)
-        return logits, scatter_mixed(pool, lay, idx, cache)
-    views = gather(pool, lay, idx, tables)
-    logits, views, _ = forward(
-        params, cfg, tokens, inputs_embeds=inputs_embeds, cache=views,
-        start_pos=start_pos, schedule=schedule)
-    return logits, scatter(pool, lay, idx, tables, views)
+    back.  ``state_at`` (B,) (a config with recurrent state): each row's
+    state written back is the one after pass position ``state_at[b]``, the
+    last real position of a padded prefill, so pads never advance it."""
+    idx = slot_index(pool, lay, slots, tables.device)
+    cache = pool_views(pool, lay, idx, tables, paged=paged)
+    pview = PagedView(lay.block_size, lay.null_bid, lay.scratch_bid) if paged else None
+    logits, cache, per_pos = forward(
+        params, cfg, tokens, inputs_embeds=inputs_embeds, cache=cache,
+        start_pos=start_pos, schedule=schedule, collect_states=state_at is not None,
+        tables=tables if paged else None, paged=pview)
+    if state_at is not None:
+        cache = statepool.merge_rows(cache, statepool.select_index(per_pos, state_at))
+    return logits, pool_writeback(pool, lay, idx, tables, cache, paged=paged)
 
 
 class CachePool:
@@ -144,8 +176,10 @@ class CachePool:
             self.alloc_blocks.release(bid)
 
     def table_array(self, blocks_list: Sequence[Sequence[int]]) -> torch.Tensor:
-        """(B, blocks_per_table) int32 tables on the pool's device, ``-1``-padded."""
-        nblk = self.layout.blocks_per_table
+        """(B, blocks_per_table) int32 tables on the pool's device, ``-1``-padded;
+        zero-width for a pool without paged leaves, which addresses nothing
+        through them."""
+        nblk = self.layout.blocks_per_table if self.paged else 0
         rows = []
         for blocks in blocks_list:
             assert len(blocks) <= nblk, "block table exceeds view capacity"

@@ -93,7 +93,7 @@ def test_configs_and_param_counts_equal_jax(arch):
 def test_registry_refuses_unported_archs():
     assert sorted(configs.ARCH_IDS) == sorted(configs.DASHED.values())
     with pytest.raises(ValueError, match="not ported"):
-        configs.get_config("rwkv6-3b")
+        configs.get_config("jamba-1.5-large-398b")
 
 
 def _shared(arch):

@@ -182,15 +182,17 @@ def test_prefix_cache_hit_keeps_stream(port_params):
 
 
 def test_engine_refuses_unported_options(port_params):
-    """Tensor parallelism, ``first_k_dense`` head layers and attention
-    biases still wait (the sliding-window family is ported since
-    tests/test_torch_sliding.py); the gathered lane and seeded sampling are
-    ported (tests/test_torch_gathered.py, tests/test_torch_sampler.py)."""
+    """Tensor parallelism, the hybrid family and attention biases still
+    wait (the sliding-window family is ported since
+    tests/test_torch_sliding.py, ``first_k_dense`` head layers and rwkv
+    since tests/test_torch_kimi.py and tests/test_torch_recurrent.py); the
+    gathered lane and seeded sampling are ported
+    (tests/test_torch_gathered.py, tests/test_torch_sampler.py)."""
     import dataclasses
 
     with pytest.raises(NotImplementedError):
         Engine(CFG, port_params, tp=2)
-    for unported in (dict(first_k_dense=1), dict(use_bias=True)):
+    for unported in (dict(family="hybrid", attn_every=2), dict(use_bias=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             Engine(dataclasses.replace(CFG, **unported), port_params)
     eng = Engine(CFG, port_params, capacity=64, paged_attention=False)

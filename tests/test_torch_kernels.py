@@ -672,7 +672,7 @@ def test_decode_partition_is_literal():
         assert name in consts, name
     src = "decode_attention.cu"
     assert "__cluster_dims__(DA_CLUSTER, 1, 1)" in _source_part(
-        src, "template <typename T, int E>\n__global__", "decode_attention_kernel(")
+        src, "template <typename T, int E, int D>\n__global__", "decode_attention_kernel(")
     kernel = _source_part(src, "decode_attention_kernel(const T*", "cudaError_t launch(")
     chunks = _source_part(src, "struct Chunks {", "};")
     # tile t of a chunk: rank t % DA_CLUSTER (the rank's tiles r, r + C, ...)
@@ -1112,3 +1112,98 @@ def test_chip_smoke_refuses_without_card(tmp_path):
                              cwd=script.parent, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# head dims off the 32-element grid (kimi-k2's D = 112)
+# ---------------------------------------------------------------------------
+
+#: the head dims the attention kernels take: D % 16 == 0, 16 <= D <= 256
+HEAD_DIMS = tuple(range(16, 257, 16))
+
+
+def test_attention_dispatch_instantiates_every_head_dim():
+    """``REPRO_DISPATCH_D`` gives each head dim an instantiation of its own
+    (D = 112 among them), with E = ceil(D / 32) lanes' worth a lane; both
+    attention sources dispatch through it with ``E_, D_`` and refuse the
+    same dims their entry points check."""
+    import re
+
+    tile = _strip_comments((CSRC / "attention_tile.cuh").read_text())
+    cases = [int(d) for d in re.findall(r"REPRO_CASE_D\((\d+), CALL\)", tile)]
+    assert tuple(cases) == HEAD_DIMS
+    assert "constexpr int D_ = DV, E_ = (DV + 31) / 32;" in tile
+    assert "REPRO_DISPATCH_E" not in tile
+    for name in ("paged_attention.cu", "decode_attention.cu"):
+        text = _strip_comments((CSRC / name).read_text())
+        dispatches = re.findall(r"REPRO_DISPATCH_D\(D, return \(int\)\((\w+)<([^>]*)>", text)
+        assert dispatches and all(args.endswith("E_, D_") for _, args in dispatches), name
+    paged = _strip_comments((CSRC / "paged_attention.cu").read_text())
+    assert "D % 16 == 0 && D >= 16 && D <= 256" in paged
+    dense = _strip_comments((CSRC / "decode_attention.cu").read_text())
+    assert "D % 16 || D < 16 || D > 256" in dense
+
+
+def test_d32_instantiations_mask_nothing():
+    """At D = 32 * E the templates' default D and ``live`` (a compile-time
+    ``true``) leave those instantiations unmasked, the code they had before
+    masked widths existed; a masked element (D < 32 * E) is never loaded,
+    accumulated or stored: every store of o in both sources and every V
+    term sits behind ``live``."""
+    import re
+
+    tile = _strip_comments((CSRC / "attention_tile.cuh").read_text())
+    assert "template <typename T, int E, int D = 32 * E>" in tile
+    live = tile[tile.index("bool live(int lane, int e)"):]
+    live = live[:live.index("\n}\n")]
+    assert "if constexpr (D == 32 * E) {\n    return true;" in live
+    assert "if (live<E, D>(lane, e)) o[e] = fmaf(wj, v[e], o[e]);" in tile
+    for name, stores in (("paged_attention.cu", (r"dst\[e\] = ", r"o_part\[row \* D")),
+                         ("decode_attention.cu", (r"store_as\(dst \+ e",))):
+        text = _strip_comments((CSRC / name).read_text())
+        for pattern in stores:
+            found = list(re.finditer(pattern, text))
+            assert found, (name, pattern)
+            for m in found:
+                line = text[text.rindex("\n", 0, m.start()) + 1:m.start()]
+                assert "if (live<E, D>(" in line, (name, line)
+
+
+def test_wrappers_take_every_head_dim_the_kernels_take():
+    """The wrappers refuse, before a launch, the head dims the entry points
+    refuse: the same ``D % 16`` and ``16 <= D <= 256``."""
+    for name in ("paged_attention.py", "decode_attention.py"):
+        text = (PORT / "kernels" / name).read_text()
+        assert "D % 16 or not 16 <= D <= 256" in text, name
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_commit_paged_model_matches_refs_at_d112(seed):
+    """kimi-k2's heads (G = 8, D = 112): the commit kernel's order against
+    the plain version (1e-6) and the JAX oracle (1e-5), rows independent of
+    the batch."""
+    problem = _paged_problem(30 + seed, H=16, KV=2, D=112)
+    got = _commit_model(*_t(problem))
+    want = ref.paged_attention(*_t(problem), null_bid=problem[6])
+    assert float((got - want).abs().max()) <= 1e-6
+    np.testing.assert_allclose(got.numpy(), _jax_ref(problem), atol=1e-5, rtol=0)
+    q, k, v, pos, tab, qp = _t(problem)
+    assert torch.equal(_commit_model(q[1:2], k, v, pos, tab[1:2], qp[1:2])[0], got[1])
+
+
+@pytest.mark.parametrize("splits,cd", [(1, "float32"), (4, "bfloat16")])
+def test_decode_model_matches_refs_at_d112(splits, cd):
+    """The dense kernel's order at G = 8, D = 112 against its plain version
+    and the Pallas kernel (interpret mode), tolerances as at D = 64."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.decode_attention import decode_attention as pallas
+
+    problem = _decode_problem(50 + splits, H=16, KV=2, D=112)
+    got = _decode_model(*(torch.from_numpy(a) for a in problem), splits, cd)
+    want = ref.decode_attention(*(torch.from_numpy(a) for a in problem), splits, cd)
+    jax_want = np.asarray(pallas(*(jnp.asarray(a) for a in problem), kv_splits=splits,
+                                 combine_dtype=cd, interpret=True))
+    tol = 1e-6 if cd == "float32" else float(want.abs().max()) * 2.0 ** -7
+    assert float((got - want).abs().max()) <= tol
+    np.testing.assert_allclose(got.numpy(), jax_want, atol=tol, rtol=0)
