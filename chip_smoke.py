@@ -90,7 +90,28 @@ the main path) and the gathered lane (``paged_attention=False``):
            overlap at spec_depth 2 with a verify latency equal to the pause
            run with the state pool at depth 2 (NONDET printed; launches
            held to the passes; peak memory and device time per run);
-10. timings each kernel against its plain version and one PyTorch call,
+10. modalities seamless-m4t-medium (encoder-decoder: 12 encoder and 12
+           decoder layers, 1024 encoder frames) and llava-next-mistral-7b
+           (2880 prefix embeddings before the prompt, all 32 layers) at
+           full width, stub frontend embeddings from
+           ``models/multimodal.py``: ``decode_attention`` at the cross shape
+           (H = KV = 16, D = 64, 1024 valid keys) against its plain version
+           with rows across B, timed beside ``sdpa``; seamless's head
+           shapes and its LM head padded to N = 256208 (rows across M, the
+           padded columns zero, timed beside ``torch.matmul``); both GEMMs
+           at seamless's projections, the commit GEMM also at the encoder's
+           M = 1024; one encoder build's device time and launches;
+           cross-attention's W == 1 rows bitwise across B under the commit
+           schedule; the paged lane's cross gather at B = 8 timed beside a
+           whole decode pass; both configs' LLM42
+           and BATCH_INVARIANT streams alone and beside 3 on both lanes, the
+           lanes equal (NONDET printed); a preempted and restored seamless
+           request (its cross cache rebuilt bitwise) committing the
+           unpressured stream; llava's chunked prefill at two chunk sizes
+           that cut the prefix inside a chunk committing the exclusive
+           prefill's streams (launches held to the passes, peak memory per
+           config);
+11. timings each kernel against its plain version and one PyTorch call,
            beside the least time the card could take (100 launches a
            reading); both GEMMs beside ``torch.matmul`` at every projection
            shape and serve-run M, their device time per forward, and the
@@ -104,8 +125,9 @@ the main path) and the gathered lane (``paged_attention=False``):
 The line before the last is a JSON object describing every kernel
 (``launches`` sums the serve runs and the rmsnorm entry-point run,
 ``launches_by_mode`` splits them by lane and mode and adds the online run's,
-each config's, each variants and families run's, ``max_abs_err_by_config``
-holds the configs, variants and families phases' errors); the last line is
+each config's, each variants, families and modalities run's,
+``max_abs_err_by_config`` holds the configs, variants, families and
+modalities phases' errors); the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the script exits non-zero without a result when no CUDA device
 is visible or when it runs outside a checkout of the repository.
@@ -116,6 +138,7 @@ is visible or when it runs outside a checkout of the repository.
     python3 chip_smoke.py --phases build,online,configs
     python3 chip_smoke.py --phases build,variants
     python3 chip_smoke.py --phases build,families
+    python3 chip_smoke.py --phases build,modalities
 """
 
 from __future__ import annotations
@@ -137,7 +160,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "serve", "determinism", "profile", "online", "configs",
-          "variants", "families", "timings")
+          "variants", "families", "modalities", "timings")
 
 #: per-request KV reach of the serve phase (128 blocks of 16).  The paged
 #: kernels' cost no longer follows the reach (the timings phase times them
@@ -390,7 +413,9 @@ def decode_shapes(torch, cfg, names=DECODE_SHAPES):
     serve rows in a view of cfg.max_seq_len slots, the engine's default
     capacity; the slots past 2048 hold other random keys, which no valid
     length reaches), ``B=64`` (the headline's lengths) and ``long`` (B = 8
-    over 16384 slots, lengths in [8192, 16384))."""
+    over 16384 slots, lengths in [8192, 16384)); on request (not in
+    DECODE_SHAPES) ``cross``: an encoder-decoder config's cross-attention,
+    B = 8 over its encoder_seq_len frames, every key valid."""
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     serve = decode_inputs(torch, 8, 2048, H, KV, D, seed=8, min_len=33, max_len=56)
 
@@ -412,6 +437,9 @@ def decode_shapes(torch, cfg, names=DECODE_SHAPES):
                                       min_len=512, max_len=2048),
         "long": lambda: decode_inputs(torch, 8, 16384, H, KV, D, seed=14,
                                       min_len=8192, max_len=16384),
+        "cross": lambda: decode_inputs(torch, 8, cfg.encoder_seq_len, H, KV, D, seed=20,
+                                       min_len=cfg.encoder_seq_len,
+                                       max_len=cfg.encoder_seq_len + 1),
     }
     return {name: shapes[name]() for name in names}
 
@@ -709,8 +737,9 @@ def projections(cfg):
 
 
 def commit_rows_invariant(torch, gemm, xb, w, chunks) -> None:
-    """The first M rows of ``xb`` (200 rows) alone give the bits they give
-    in the whole batch, for every M in ROW_MS; the call repeats bitwise."""
+    """The first M rows of ``xb`` (200 rows or more) alone give the bits
+    they give in the whole batch, for every M in ROW_MS; the call repeats
+    bitwise."""
     full = gemm(xb, w, chunks=chunks)
     for M in ROW_MS:
         part = gemm(xb[:M].contiguous(), w, chunks=chunks)
@@ -1086,8 +1115,11 @@ def forward_gemms(cfg):
     mixing: r, k, v, g, the decay LoRA's two, the output; channel mixing:
     3); plus the unembedding; a MoE layer's 3 contractions per expert
     (every expert, on its capacity bucket) in the commit GEMM with one
-    chunk."""
+    chunk; an encoder-decoder decoder layer adds its cross-attention's wq
+    and wo."""
     sched, experts = 1, 0
+    if cfg.family == "encdec":
+        sched += 2 * cfg.num_layers
     for i in range(cfg.num_layers):
         if cfg.layer_kind(i) == "rwkv":
             sched += 10
@@ -1099,6 +1131,13 @@ def forward_gemms(cfg):
     return sched, experts
 
 
+def encoder_gemms(cfg):
+    """Commit-GEMM launches of one encoder build (``build_cross_cache``):
+    per encoder layer 4 projections and the FFN's 3, per decoder layer the
+    cross-attention's wk and wv."""
+    return 7 * cfg.num_encoder_layers + 2 * cfg.num_layers
+
+
 def expected_launches(cfg, eng, paged):
     """Kernel launches implied by the passes the engine reports: every
     forward runs ``forward_gemms``' launches, and every single-token forward
@@ -1108,15 +1147,21 @@ def expected_launches(cfg, eng, paged):
     the gathered lane the dense decode kernel.  A sliding config's ring
     passes and an rwkv layer launch no attention kernel.  A ``prefill`` event covers
     ``padded`` over the engine's ring-pass cap passes (one, but for a
-    sliding prompt longer than the cap)."""
+    sliding prompt longer than the cap).  An encoder-decoder config's
+    single-token forwards also run the dense decode kernel once a layer
+    (cross-attention, on both lanes), and each encoder build
+    (``eng.num_cross_builds``) ``encoder_gemms`` commit GEMMs."""
     from repro_torch.core.determinism import Schedule
 
     gemms, experts = forward_gemms(cfg)
     n_attn = 0 if cfg.attn_kind == "sliding" else sum(
         cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
+    n_cross = cfg.num_layers if cfg.family == "encdec" else 0
     nblk = eng.pool.layout.blocks_per_table
     commit = eng._commit_schedule()
     want = dict.fromkeys(KERNELS, 0)
+    if n_cross:
+        want["gemm_batch_invariant"] += eng.num_cross_builds * encoder_gemms(cfg)
     for ev in engine_events(eng):
         passes = 1
         if ev["kind"] == "prefill":
@@ -1133,6 +1178,7 @@ def expected_launches(cfg, eng, paged):
             want["gemm_batch_invariant"] += experts
         else:
             continue
+        want["decode_attention"] += n_cross
         if not n_attn:
             continue
         if not paged:
@@ -1752,6 +1798,7 @@ def check_config_kernels(torch, cfg, arch, results) -> None:
     from repro_torch.core.determinism import CANONICAL_TP_SHARDS
     from repro_torch.kernels import ref
     from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
+    from repro_torch.models.base import padded_vocab
 
     torch.backends.cuda.matmul.allow_tf32 = False
     errs = dict.fromkeys(("paged_attention", "paged_attention_fast", "decode_attention",
@@ -1779,8 +1826,11 @@ def check_config_kernels(torch, cfg, arch, results) -> None:
                 err = paged_fast_bf16_case(torch, f"{arch} serve seed {seed}", inp, splits)
                 errs["paged_attention_fast"] = max(errs["paged_attention_fast"], err)
     g = torch.Generator(device=DEV).manual_seed(11)
-    D, V = cfg.d_model, cfg.vocab_size
+    # the stored unembedding's width: the vocabulary padded to a multiple of
+    # 8 with zero columns (seamless-m4t's 256206 -> 256208)
+    D, V = cfg.d_model, padded_vocab(cfg)
     w = (torch.randn((D, V), generator=g, device=DEV) * D ** -0.5).to(torch.bfloat16)
+    w[:, cfg.vocab_size:] = 0
     x = torch.randn((200, D), generator=g, device=DEV).to(torch.bfloat16)
     out = gemm_batch_invariant(x[:32].contiguous(), w, chunks=CANONICAL_TP_SHARDS)
     want = ref.gemm_batch_invariant(x[:32], w, chunks=CANONICAL_TP_SHARDS)
@@ -1951,8 +2001,38 @@ RING_ROWS = (1, 3, 8, 13)
 MOE_ROWS = (1, 3, 8, 13, 32)
 
 
+def tracked_engine(cfg, params, mode, prompts, max_new, *, decorate=None, neighbours=0,
+                   **engine_kw):
+    """An engine under the divergence demo's aggressive fast path (window
+    6, group 2, at most 8 rows) with the tracked requests submitted: rid
+    i a prompt of ``prompts[i]`` tokens ``(11 i + 7 k) % vocab``, greedy
+    (seed 7) for even rids and seeded at temperature 0.8 with top-k 50
+    (seed 8) for odd ones, deterministic outside NONDET; then
+    ``neighbours`` requests of 32 + 16 tokens (rids 10, 11, ...).  Each
+    request passes through ``decorate`` (its side inputs) first."""
+    from repro_torch.core.determinism import Mode, ReductionPolicy
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request, SamplingParams
+
+    policy = ReductionPolicy(thresholds=((2, 16), (4, 8), (8, 4)),
+                             combine_dtype="bfloat16")
+    kws = (dict(seed=7), dict(seed=8, temperature=0.8, top_k=50))
+    side = decorate or (lambda r: r)
+    eng = Engine(cfg, params, mode=mode, policy=policy, window=6, group=2, max_batch=8,
+                 **engine_kw)
+    for rid, plen in enumerate(prompts):
+        eng.submit(side(Request(
+            rid=rid, prompt=[(rid * 11 + 7 * k) % cfg.vocab_size for k in range(1, plen + 1)],
+            sampling=SamplingParams(max_new_tokens=max_new,
+                                    is_deterministic=mode != Mode.NONDET, **kws[rid % 2]))))
+    for i in range(neighbours):
+        eng.submit(side(Request(rid=10 + i, prompt=[3 * i + k for k in range(32)],
+                                sampling=SamplingParams(max_new_tokens=16))))
+    return eng
+
+
 def variant_serve(torch, cfg, label, params, results, *, lanes, modes, prompts,
-                  max_new, neighbours, capacity, phase="variants"):
+                  max_new, neighbours, capacity, phase="variants", decorate=None):
     """Two (or ``len(prompts)``) tracked requests, greedy and seeded at
     temperature 0.8 with top-k 50, deterministic outside NONDET, alone and
     beside ``neighbours`` requests of 32 + 16 tokens, per lane ("paged",
@@ -1962,14 +2042,11 @@ def variant_serve(torch, cfg, label, params, results, *, lanes, modes, prompts,
     before each run and read just after, held to what the passes imply
     (a pool without paged leaves reads no attention kernel); LLM42 and
     BATCH_INVARIANT streams must be identical (NONDET divergence printed).
-    Returns a summary per run, with each run's CUDA-event device time."""
-    from repro_torch.core.determinism import Mode, ReductionPolicy
-    from repro_torch.serving.engine import Engine
-    from repro_torch.serving.request import Request, SamplingParams
+    ``decorate`` (a request -> request function) gives each request its side
+    inputs (encoder frames, prefix embeds) before it is submitted.  Returns
+    a summary per run, with each run's CUDA-event device time."""
+    from repro_torch.core.determinism import Mode
 
-    policy = ReductionPolicy(thresholds=((2, 16), (4, 8), (8, 4)),
-                             combine_dtype="bfloat16")
-    kws = (dict(seed=7), dict(seed=8, temperature=0.8, top_k=50))
     out = {}
     for lane in lanes:
         for mode in modes:
@@ -1979,19 +2056,9 @@ def variant_serve(torch, cfg, label, params, results, *, lanes, modes, prompts,
             for n in (0, neighbours):
                 gc.collect()
                 t0 = time.perf_counter()
-                eng = Engine(cfg, params, mode=mode, policy=policy, window=6, group=2,
-                             max_batch=8, capacity=capacity,
-                             paged_attention=LANES.get(lane, False))
-                for rid, plen in enumerate(prompts):
-                    eng.submit(Request(
-                        rid=rid, prompt=[(rid * 11 + 7 * k) % cfg.vocab_size
-                                         for k in range(1, plen + 1)],
-                        sampling=SamplingParams(max_new_tokens=max_new,
-                                                is_deterministic=mode != Mode.NONDET,
-                                                **kws[rid % 2])))
-                for i in range(n):
-                    eng.submit(Request(rid=10 + i, prompt=[3 * i + k for k in range(32)],
-                                       sampling=SamplingParams(max_new_tokens=16)))
+                eng = tracked_engine(cfg, params, mode, prompts, max_new, decorate=decorate,
+                                     neighbours=n, capacity=capacity,
+                                     paged_attention=LANES.get(lane, False))
                 sync(torch)
                 torch.cuda.reset_peak_memory_stats()
                 fns = reset_launches()
@@ -2376,22 +2443,27 @@ FAMILY_DEPTHS = {"kimi-k2-1t-a32b": 2, "rwkv6-3b": None}
 #: the LM head (``check_config_kernels``) and kimi's router and experts
 #: (``check_moe_gemms``): kimi's wq / wo, wk / wv and dense FFN; rwkv's
 #: r / k / v / g / o and cm_wr, the decay LoRA's two, cm_wk, cm_wv and its
-#: unembedding
+#: unembedding; seamless's self and cross wq / wk / wv / wo (KV * hd =
+#: d_model) and the FFN's gate / up and down, in the decoder and the encoder
 FAMILY_PROJECTIONS = {
     "kimi-k2-1t-a32b": ((7168, 7168), (7168, 896), (7168, 2048), (2048, 7168)),
     "rwkv6-3b": ((2560, 2560), (2560, 64), (64, 2560), (2560, 8960), (8960, 2560),
                  (2560, 65536)),
+    "seamless-m4t-medium": ((1024, 1024), (1024, 4096), (4096, 1024)),
 }
 
 #: batch sizes of the commit-schedule time_mix row check
 RWKV_ROWS = (1, 3, 8, 13)
 
 
-def check_projections(torch, arch, results) -> None:
+def check_projections(torch, arch, results, tag="families", encoder_m=None) -> None:
     """Both GEMMs at every (K, N) of ``FAMILY_PROJECTIONS[arch]`` in bf16:
     the commit GEMM (4 chunks) at M in {1, 8, 32} within 2 bf16 ulps of
     max|ref| and its rows bitwise across M; the split-K GEMM at the demo
-    policy's (M, splits) within 4 ulps."""
+    policy's (M, splits) within 4 ulps.  ``encoder_m`` (an encoder's
+    frames, whose build runs every projection in the commit GEMM at that
+    M) adds the commit GEMM at M = ``encoder_m``, and the rows of M in
+    ROW_MS are then held against that batch's."""
     from repro_torch.core.determinism import CANONICAL_TP_SHARDS
     from repro_torch.kernels import ref
     from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
@@ -2399,27 +2471,33 @@ def check_projections(torch, arch, results) -> None:
 
     g = torch.Generator(device=DEV).manual_seed(18)
     worst = {"gemm_batch_invariant": 0.0, "gemm_splitk": 0.0}
+    cases = ((1, 16), (8, 4), (32, 4)) + (((encoder_m, None),) if encoder_m else ())
     for K, N in FAMILY_PROJECTIONS[arch]:
         w = (torch.randn((K, N), generator=g, device=DEV) * K ** -0.5).to(torch.bfloat16)
-        xb = torch.randn((200, K), generator=g, device=DEV).to(torch.bfloat16)
-        for M, splits in ((1, 16), (8, 4), (32, 4)):
+        xb = torch.randn((max(200, encoder_m or 0), K), generator=g,
+                         device=DEV).to(torch.bfloat16)
+        for M, splits in cases:
             x = xb[:M].contiguous()
-            for name, out, want, ulps in (
-                ("gemm_batch_invariant", gemm_batch_invariant(x, w, chunks=CANONICAL_TP_SHARDS),
-                 ref.gemm_batch_invariant(x, w, chunks=CANONICAL_TP_SHARDS), 2),
-                ("gemm_splitk", gemm_splitk(x, w, splits=splits, combine_dtype="bfloat16"),
-                 ref.gemm_splitk(x, w, splits, "bfloat16"), 4),
-            ):
+            checks = [("gemm_batch_invariant",
+                       gemm_batch_invariant(x, w, chunks=CANONICAL_TP_SHARDS),
+                       ref.gemm_batch_invariant(x, w, chunks=CANONICAL_TP_SHARDS), 2)]
+            if splits:
+                checks.append(("gemm_splitk",
+                               gemm_splitk(x, w, splits=splits, combine_dtype="bfloat16"),
+                               ref.gemm_splitk(x, w, splits, "bfloat16"), 4))
+            for name, out, want, ulps in checks:
                 err = float((out.float() - want.float()).abs().max())
                 tol = ulps * ulp_of(float(want.float().abs().max()), 7)
                 require(err <= tol, f"{arch}: {name} ({M},{K})@({K},{N}) disagrees: "
                         f"{err} > {tol}")
                 worst[name] = max(worst[name], err)
         commit_rows_invariant(torch, gemm_batch_invariant, xb, w, CANONICAL_TP_SHARDS)
-    log(f"[families] {arch} projections {FAMILY_PROJECTIONS[arch]} bf16: the commit GEMM "
-        f"(4 chunks) at M in (1, 8, 32) within 2 bf16 ulps (max_abs_err "
-        f"{worst['gemm_batch_invariant']:.3e}), rows bitwise for M in {ROW_MS}; split-K at "
-        f"16 / 4 / 4 splits within 4 ulps (max_abs_err {worst['gemm_splitk']:.3e})")
+    ms = tuple(M for M, _ in cases)
+    log(f"[{tag}] {arch} projections {FAMILY_PROJECTIONS[arch]} bf16: the commit GEMM "
+        f"(4 chunks) at M in {ms} within 2 bf16 ulps (max_abs_err "
+        f"{worst['gemm_batch_invariant']:.3e}), rows bitwise for M in {ROW_MS} against "
+        f"the {xb.shape[0]}-row batch's; split-K at 16 / 4 / 4 splits within 4 ulps "
+        f"(max_abs_err {worst['gemm_splitk']:.3e})")
     for name, e in worst.items():
         results[name].setdefault("max_abs_err_by_config", {})[f"{arch} projections"] = e
 
@@ -2636,7 +2714,434 @@ def phase_families(torch, results, summary) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: timings
+# phase 10: modalities (encoder-decoder serving, prefix embeddings)
+# ---------------------------------------------------------------------------
+
+#: llava's per-request KV reach: its 2880 prefix positions, a 32-token
+#: prompt, 16 new tokens and the verify rows fit 4096 (CAPACITY's 2048 do not)
+PREFIX_CAPACITY = 4096
+
+#: llava's prefill chunk sizes: both cut the 2880 prefix positions inside a
+#: chunk (2880 = 5 x 512 + 320 = 2 x 1000 + 880), so that chunk holds prefix
+#: embeds and prompt tokens
+PREFIX_CHUNKS = (512, 1000)
+
+#: batch sizes of the cross-attention W == 1 row check
+CROSS_ROWS = (1, 3, 8, 13)
+
+#: rows and context of the cross-gather timing: the serve runs' max_batch,
+#: and their tracked requests' 32 + 16 tokens
+CROSS_GATHER_B, CROSS_GATHER_CTX = 8, 48
+
+#: the iteration after which the restore check preempts its tracked request
+PREEMPT_AT = 6
+
+
+def modal_decorate(torch, cfg):
+    """``variant_serve``'s ``decorate`` for a modality config: each request's
+    stub frontend output in the model dtype, from a generator seeded with
+    its rid, so a tracked request carries the same embeddings alone and
+    beside neighbours."""
+    from repro_torch.models.multimodal import audio_frames, vision_embeds
+
+    dt = getattr(torch, cfg.dtype)
+
+    def decorate(req):
+        g = torch.Generator(device=DEV).manual_seed(1000 + req.rid)
+        if cfg.family == "encdec":
+            req.enc_embeds = audio_frames(g, 1, cfg.encoder_seq_len, cfg.d_model,
+                                          dtype=dt)
+        if cfg.num_prefix_embeds:
+            req.prefix_embeds = vision_embeds(g, 1, cfg.d_model, dtype=dt)[
+                :, : cfg.num_prefix_embeds]
+        return req
+
+    return decorate
+
+
+def modal_cross_kernels(torch, cfg, arch, results) -> None:
+    """``decode_attention`` at the cross shape (``decode_shapes``' ``cross``:
+    B = 8 over the 1024 encoder frames, every key valid, H = KV = 16, D = 64:
+    G = 1) against its plain version at both DECODE_CASES, rows across B at
+    one split, timed beside ``sdpa``; then the commit GEMM at the padded LM
+    head (32, 1024) @ (1024, 256208), 4 chunks, timed beside
+    ``torch.matmul`` (kernel, library, library, kernel) and its plain
+    version, against its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
+    from repro_torch.models.base import padded_vocab
+
+    label = f"{arch} cross"
+    inp = decode_shapes(torch, cfg, ("cross",))["cross"]
+    worst = 0.0
+    for splits, cd in DECODE_CASES:
+        out, err = decode_case(torch, label, inp, splits, cd, phase="modalities")
+        worst = max(worst, err)
+    decode_rows_invariant(torch, label, inp, out, phase="modalities")
+    results["decode_attention"].setdefault("max_abs_err_by_config", {})[label] = worst
+    del inp, out
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    time_decode_attention(torch, cfg, results, scratch.zero_, names=("cross",),
+                          prefix=f"{arch} ", tag="modalities")
+    g = torch.Generator(device=DEV).manual_seed(21)
+    M, K, N = 32, cfg.d_model, padded_vocab(cfg)
+    x = torch.randn((M, K), generator=g, device=DEV).to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=g, device=DEV) * K ** -0.5).to(torch.bfloat16)
+    w[:, cfg.vocab_size:] = 0
+    k1 = time_ms(torch, lambda: gemm_batch_invariant(x, w, chunks=4), flush=scratch.zero_)
+    l1 = time_ms(torch, lambda: torch.matmul(x, w), flush=scratch.zero_)
+    l2 = time_ms(torch, lambda: torch.matmul(x, w), flush=scratch.zero_)
+    k2 = time_ms(torch, lambda: gemm_batch_invariant(x, w, chunks=4), flush=scratch.zero_)
+    plain_ms = time_ms(torch, lambda: ref.gemm_batch_invariant(x, w, chunks=4), reps=5,
+                       flush=scratch.zero_)
+    ms, lib_ms = (k1 + k2) / 2, (l1 + l2) / 2
+    b_ms, b_by = gemm_bound(M, K, N)
+    shape = f"({M},{K})@({K},{N})"
+    results["gemm_batch_invariant"].setdefault("shapes", {})[f"{arch} LM head {shape}"] = \
+        dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"[modalities] gemm_batch_invariant {arch} padded LM head {shape} chunks=4: "
+        f"{ms:.4f} ms (readings {k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms, "
+        f"torch.matmul {lib_ms:.4f} ms ({l1:.4f}, {l2:.4f}), bound {b_ms:.4f} ms "
+        f"({b_by}): {ms / lib_ms:.2f}x torch.matmul, {100 * b_ms / ms:.0f}% of the bound")
+    del scratch, x, w
+
+
+def modal_padded_unembed(torch, cfg, params) -> None:
+    """The served unembedding is stored at the padded width with zero
+    columns past the vocabulary; a forward's logits have ``vocab_size``
+    columns, equal bitwise to the first columns of the padded GEMM."""
+    from repro_torch.core.determinism import VERIFY_SCHEDULE, matmul
+    from repro_torch.models import transformer
+    from repro_torch.models.base import padded_vocab
+
+    un = params["unembed"]
+    require(un.shape == (cfg.d_model, padded_vocab(cfg)) and
+            not bool(un[:, cfg.vocab_size:].any()), "the unembedding is not padded")
+    g = torch.Generator(device=DEV).manual_seed(23)
+    x = torch.randn((3, 5, cfg.d_model), generator=g, device=DEV).to(un.dtype)
+    full = matmul(x, un, VERIFY_SCHEDULE)
+    cut = transformer._unembed(params, cfg, x, VERIFY_SCHEDULE)
+    sync(torch)
+    require(cut.shape[-1] == cfg.vocab_size and torch.equal(cut, full[..., :cfg.vocab_size])
+            and not bool(full[..., cfg.vocab_size:].any()),
+            "the padded LM head's logits are not the real columns")
+    log(f"[modalities] {cfg.name} unembedding stored ({cfg.d_model}, {un.shape[1]}) with "
+        f"{un.shape[1] - cfg.vocab_size} zero columns; logits cut to {cfg.vocab_size}, "
+        f"equal to the padded GEMM's first columns, its padded columns exactly zero")
+
+
+def modal_encoder(torch, cfg, params) -> dict:
+    """One encoder build (``build_cross_cache``: the 12-layer encoder over
+    1024 frames at B = 1 and 12 layers' cross K/V, under VERIFY_SCHEDULE):
+    its launches (``encoder_gemms`` commit GEMMs, no attention kernel), its
+    bits across builds, and its device time (CUDA events around one build,
+    median of 5; the eager build's host launches included)."""
+    from repro_torch.core.determinism import VERIFY_SCHEDULE, deterministic_torch
+    from repro_torch.models.multimodal import audio_frames
+    from repro_torch.models.transformer import build_cross_cache
+
+    g = torch.Generator(device=DEV).manual_seed(24)
+    enc = audio_frames(g, 1, cfg.encoder_seq_len, cfg.d_model,
+                       dtype=getattr(torch, cfg.dtype))
+    with deterministic_torch():
+        fns = reset_launches()
+        first = build_cross_cache(params, cfg, enc, schedule=VERIFY_SCHEDULE)
+        sync(torch)
+        counts = {name: fn.launches for name, fn in fns.items()}
+        want = {name: encoder_gemms(cfg) if name == "gemm_batch_invariant" else 0
+                for name in counts}
+        require(counts == want, f"encoder build: launches {counts}, want {want}")
+        ms = time_ms(torch, lambda: build_cross_cache(params, cfg, enc), reps=5)
+        again = build_cross_cache(params, cfg, enc, schedule=VERIFY_SCHEDULE)
+    same = all(torch.equal(first[k], again[k]) for k in first)
+    finite = bool(torch.isfinite(first["k"].float()).all() and
+                  torch.isfinite(first["v"].float()).all())
+    log(f"[modalities] {cfg.name} encoder build ({cfg.num_encoder_layers} layers over "
+        f"{cfg.encoder_seq_len} frames, then {cfg.num_layers} layers' cross K/V "
+        f"{tuple(first['k'].shape)}): {ms:.3f} ms (CUDA events, median of 5), "
+        f"launches {counts}; builds bitwise equal {same}; finite {finite}")
+    require(same and finite, f"{cfg.name}: encoder builds differ or are not finite")
+    return dict(ms=ms, launches=counts["gemm_batch_invariant"])
+
+
+def modal_cross_rows(torch, cfg, params) -> dict:
+    """``cross_attention`` at W == 1 (layer 0's weights, random states and
+    encoder K/V of 13 rows, every frame valid) under the commit schedule
+    gives each row the same bits at B in CROSS_ROWS; prints whether
+    ``_softmax_attend``'s ``einsum`` (the reference's path) would."""
+    from repro_torch.core.determinism import VERIFY_SCHEDULE, deterministic_torch
+    from repro_torch.models import layers
+
+    g = torch.Generator(device=DEV).manual_seed(22)
+    N, Se, dt = max(CROSS_ROWS), cfg.encoder_seq_len, getattr(torch, cfg.dtype)
+    KV, H, D = cfg.num_kv_heads, cfg.num_heads, cfg.hd
+    lp = {k: v[0] for k, v in params["blocks"]["0"]["cross_attn"].items()}
+    x = torch.randn((N, 1, cfg.d_model), generator=g, device=DEV).to(dt)
+    k = torch.randn((N, Se, KV, D), generator=g, device=DEV).to(dt)
+    v = torch.randn((N, Se, KV, D), generator=g, device=DEV).to(dt)
+    mask = torch.ones((N, Se), dtype=torch.bool, device=DEV)
+    q = torch.randn((N, 1, H, D), generator=g, device=DEV) * D ** -0.5
+    with deterministic_torch():
+        outs = {B: layers.cross_attention(lp, cfg, x[:B], k[:B], v[:B], mask[:B],
+                                          VERIFY_SCHEDULE) for B in CROSS_ROWS}
+        ein = {B: layers._softmax_attend(q[:B], k[:B], v[:B], mask[:B, None, :],
+                                         VERIFY_SCHEDULE) for B in CROSS_ROWS}
+    sync(torch)
+    same = all(torch.equal(outs[B], outs[N][:B]) for B in CROSS_ROWS)
+    ein_same = all(torch.equal(ein[B], ein[N][:B]) for B in CROSS_ROWS)
+    drift = max(float((ein[B] - ein[N][:B]).abs().max()) for B in CROSS_ROWS)
+    log(f"[modalities] {cfg.name} cross_attention (W = 1, decode_attention at one split) "
+        f"under the commit schedule: rows bitwise identical for B in {CROSS_ROWS}: "
+        f"{same}; _softmax_attend's einsum rows {ein_same} (move by up to {drift:.3e})")
+    require(bool(torch.isfinite(outs[N].float()).all()), "cross_attention: non-finite")
+    require(same, f"{cfg.name}: cross-attention rows change with B")
+    return dict(rows_bitwise=same, einsum_rows_bitwise=ein_same, einsum_drift=drift)
+
+
+def modal_cross_gather(torch, cfg, params) -> dict:
+    """What the paged lane's row-packing of the cross leaves costs a decode
+    pass: ``gather_mixed`` over CROSS_GATHER_B slots of a pool (seamless
+    has no other slot leaves, so it copies each row's cross K and V of
+    every layer, and the mask) beside one whole decode pass over those
+    rows (``pool_forward`` at W = 1 under the commit schedule, the gather
+    included, tables reaching CROSS_GATHER_CTX positions, every slot
+    holding one encoder build), both timed by CUDA events (median, L2
+    flushed between readings)."""
+    from repro_torch.core.determinism import VERIFY_SCHEDULE, deterministic_torch
+    from repro_torch.models.multimodal import audio_frames
+    from repro_torch.models.transformer import build_cross_cache
+    from repro_torch.serving import blockpool
+    from repro_torch.serving.kv_cache import CachePool, pool_forward
+
+    B, ctx = CROSS_GATHER_B, CROSS_GATHER_CTX
+    pool = CachePool(cfg, B, CAPACITY, device=torch.device(DEV))
+    lay = pool.layout
+    g = torch.Generator(device=DEV).manual_seed(25)
+    enc = audio_frames(g, 1, cfg.encoder_seq_len, cfg.d_model, dtype=getattr(torch, cfg.dtype))
+    nb = -(-ctx // lay.block_size)
+    tables = torch.full((B, lay.blocks_per_table), -1, dtype=torch.int32, device=DEV)
+    tables[:, :nb] = torch.arange(B * nb, dtype=torch.int32, device=DEV).reshape(B, nb)
+    start = torch.full((B,), ctx - 1, dtype=torch.int32, device=DEV)
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=g, device=DEV,
+                           dtype=torch.int32)
+    idx = torch.arange(B, device=DEV)
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    with deterministic_torch():
+        cross = build_cross_cache(params, cfg, enc, schedule=VERIFY_SCHEDULE)
+        for slot in range(B):
+            pool.data = blockpool.write_cross(pool.data, slot, cross)
+        gather_ms = time_ms(torch, lambda: blockpool.gather_mixed(pool.data, lay, idx),
+                            reps=50, flush=scratch.zero_)
+        pass_ms = time_ms(torch, lambda: pool_forward(
+            params, cfg, lay, pool.data, list(range(B)), tables, start, VERIFY_SCHEDULE,
+            paged=True, tokens=tokens), reps=20, flush=scratch.zero_)
+    row_bytes = sum(leaf[:, 0].numel() * leaf.element_size()
+                    for leaf in pool.data["cross"].values())
+    moved = 2 * B * row_bytes  # each row read once and written once
+    b_ms = moved / HBM_BYTES_PER_S * 1e3
+    log(f"[modalities] {cfg.name} cross gather at B = {B} (gather_mixed: "
+        f"{row_bytes / 2 ** 20:.1f} MiB a row, {moved / 2 ** 20:.1f} MiB read and written): "
+        f"{gather_ms:.4f} ms (bound {b_ms:.4f} ms, bytes); one paged decode pass at "
+        f"W = 1 over those rows, the gather included: {pass_ms:.4f} ms; the gather is "
+        f"{100 * gather_ms / pass_ms:.1f} % of the pass (CUDA events, medians)")
+    del scratch, pool, cross
+    return dict(batch=B, gather_ms=gather_ms, pass_ms=pass_ms, row_mib=row_bytes / 2 ** 20,
+                bound_ms=b_ms, share=gather_ms / pass_ms)
+
+
+def modal_restore(torch, cfg, arch, params, results, decorate) -> dict:
+    """Paged LLM42, the two tracked requests and one neighbour, under the
+    demo's fast path: once unpressured, once with tracked request 0
+    preempted after iteration PREEMPT_AT.  The restore rebuilds its cross
+    cache bitwise equal to the first build's, and both tracked streams equal
+    the unpressured run's.  Launches held to the passes."""
+    from repro_torch.core.determinism import Mode
+
+    def run(preempt):
+        gc.collect()
+        eng = tracked_engine(cfg, params, Mode.LLM42, (32, 32), 16, decorate=decorate,
+                             neighbours=1, capacity=CAPACITY)
+        fns = reset_launches()
+        saved, slot, rebuilt = None, None, None
+        while eng.step():
+            if preempt and eng._now == PREEMPT_AT:
+                victim = next(r for r in eng.running if r.rid == 0)
+                slot = victim.slot
+                saved = {n: t[:, slot].clone() for n, t in eng.pool.data["cross"].items()}
+                require(eng.preempt(victim), "the tracked request was not preempted")
+            if saved is not None and rebuilt is None and eng.num_restores:
+                rebuilt = all(torch.equal(eng.pool.data["cross"][n][:, slot], saved[n])
+                              for n in saved)
+        sync(torch)
+        counts = {name: fn.launches for name, fn in fns.items()}
+        require(counts == expected_launches(cfg, eng, True),
+                f"{arch} restore run: launches {counts}")
+        done = {r.rid: r for r in eng.finished}
+        return {rid: done[rid].committed for rid in (0, 1)}, eng, rebuilt, counts
+
+    base, _, _, _ = run(False)
+    got, eng, rebuilt, counts = run(True)
+    for name, c in counts.items():
+        results[name]["launches_by_mode"][f"modalities/{arch}/restore"] = c
+    same = got == base
+    log(f"[modalities] {arch} paged LLM42, request 0 preempted after iteration "
+        f"{PREEMPT_AT}: {eng.num_preemptions} preemption(s), {eng.num_restores} "
+        f"restore(s), {eng.num_cross_builds} encoder builds; the restore's cross cache "
+        f"bitwise the first build's: {rebuilt}; streams equal the unpressured run's: "
+        f"{same}; launches {counts} (= the passes)")
+    require(eng.num_preemptions == 1 and eng.num_restores == 1, f"{arch}: no restore")
+    require(bool(rebuilt), f"{arch}: the restore's cross cache differs from the first")
+    require(same, f"{arch}: the restored streams differ from the unpressured run's")
+    return dict(streams_equal=same, cross_rebuilt_bitwise=bool(rebuilt),
+                iterations=eng._now)
+
+
+def modal_prefix_chunks(torch, cfg, arch, params, results, decorate) -> dict:
+    """llava's two tracked requests (32-token prompts after the 2880 prefix
+    embeds) in paged LLM42, prefilled exclusively and in chunks of each of
+    PREFIX_CHUNKS: every run commits the exclusive run's streams, and a
+    chunk of each chunked run holds both prefix and prompt positions."""
+    from repro_torch.core.determinism import Mode
+
+    P = cfg.num_prefix_embeds
+    streams, out = {}, {}
+    for chunk in (0,) + PREFIX_CHUNKS:
+        gc.collect()
+        t0 = time.perf_counter()
+        eng = tracked_engine(cfg, params, Mode.LLM42, (32, 32), 16, decorate=decorate,
+                             capacity=PREFIX_CAPACITY, prefill_chunk=chunk)
+        fns = reset_launches()
+        done = {r.rid: r for r in eng.run()}
+        sync(torch)
+        counts = {name: fn.launches for name, fn in fns.items()}
+        require(counts == expected_launches(cfg, eng, True),
+                f"{arch} prefill chunk {chunk}: launches {counts}")
+        for name, c in counts.items():
+            results[name]["launches_by_mode"][f"modalities/{arch}/chunk {chunk}"] = c
+        chunks = [ev for ev in engine_events(eng) if ev["kind"] == "prefill_chunk"]
+        straddle = any(ev["start"] < P < ev["start"] + ev["tokens"] for ev in chunks)
+        require(bool(chunks) == (chunk > 0) and straddle == (chunk > 0),
+                f"{arch} prefill chunk {chunk}: chunks {[(e['start'], e['tokens']) for e in chunks]}")
+        streams[chunk] = {rid: done[rid].committed for rid in (0, 1)}
+        out[f"chunk {chunk}"] = dict(iterations=eng._now, prefill_chunks=len(chunks),
+                                     seconds=time.perf_counter() - t0)
+        log(f"[modalities] {arch} paged LLM42, prefill chunk {chunk or 'exclusive'}: "
+            f"{len(chunks)} chunk passes (one holds prefix and prompt: {straddle}), "
+            f"{eng._now} iterations, launches {counts} (= the passes); "
+            f"{out[f'chunk {chunk}']['seconds']:.1f} s")
+        del eng
+    same = all(streams[c] == streams[0] for c in PREFIX_CHUNKS)
+    log(f"[modalities] {arch}: chunked prefill at {PREFIX_CHUNKS} commits the exclusive "
+        f"prefill's streams: {same}")
+    require(same and all(len(s) == 16 for s in streams[0].values()),
+            f"{arch}: chunked prefill changed the committed streams")
+    out["identical"] = same
+    return out
+
+
+def phase_modalities(torch, results, summary) -> None:
+    """seamless-m4t-medium (encoder-decoder, 12 + 12 layers) and
+    llava-next-mistral-7b (2880 prefix embeds, 32 layers) at published
+    widths and full depth, random weights from seed 0, stub frontend
+    embeddings from ``models/multimodal.py``."""
+    from repro_torch import configs
+    from repro_torch.core.determinism import Mode
+    from repro_torch.models.base import init_params
+
+    summary["modalities"] = out = {}
+    both = (Mode.LLM42, Mode.BATCH_INVARIANT)
+
+    def step(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        sync(torch)
+        log(f"[modalities] step {name}: {time.perf_counter() - t0:.1f} s")
+        return res
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+
+    def serve(cfg, arch, params, decorate, capacity):
+        res = step(f"{arch} serve", variant_serve, torch, cfg, arch, params, results,
+                   lanes=("paged", "gathered"), modes=both, prompts=(32, 32),
+                   max_new=16, neighbours=3, capacity=capacity, phase="modalities",
+                   decorate=decorate)
+        res.update(step(f"{arch} nondet", variant_serve, torch, cfg, arch, params, results,
+                        lanes=("paged",), modes=(Mode.NONDET,), prompts=(32, 32),
+                        max_new=16, neighbours=3, capacity=capacity, phase="modalities",
+                        decorate=decorate))
+        same = res["paged/llm42"]["streams"] == res["gathered/llm42"]["streams"]
+        log(f"[modalities] {arch} LLM42 streams of the gathered lane equal the paged "
+            f"lane's: {same}")
+        require(same, f"{arch}: LLM42 streams differ between the lanes")
+        return res
+
+    # seamless-m4t-medium: encoder-decoder, heads 16/16 of 64, vocab 256206
+    arch = "seamless-m4t-medium"
+    cfg = configs.get_config(arch)
+    log(f"[modalities] {arch}: {cfg.num_encoder_layers} encoder + {cfg.num_layers} "
+        f"decoder layers, {cfg.encoder_seq_len} encoder frames, d_model {cfg.d_model}, "
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}")
+    step("seamless kernels at G = 1, D = 64", check_config_kernels, torch, cfg, arch,
+         results)
+    step("seamless cross kernels and LM head", modal_cross_kernels, torch, cfg, arch,
+         results)
+    step("seamless projections", check_projections, torch, arch, results, tag="modalities",
+         encoder_m=cfg.encoder_seq_len)
+    fresh()
+    params = step("seamless weights", init_params, cfg,
+                  torch.Generator(device=DEV).manual_seed(0), DEV)
+    weights = torch.cuda.memory_allocated() / 2 ** 30
+    seam = {"weights_gib": weights}
+    step("seamless padded unembedding", modal_padded_unembed, torch, cfg, params)
+    seam["encoder"] = step("seamless encoder", modal_encoder, torch, cfg, params)
+    seam["cross_rows"] = step("seamless cross rows", modal_cross_rows, torch, cfg, params)
+    seam["cross_gather"] = step("seamless cross gather", modal_cross_gather, torch, cfg,
+                                params)
+    decorate = modal_decorate(torch, cfg)
+    seam.update(serve(cfg, arch, params, decorate, CAPACITY))
+    seam["restore"] = step("seamless restore", modal_restore, torch, cfg, arch, params,
+                           results, decorate)
+    seam["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[modalities] {arch}: weights {weights:.3f} GiB, peak device memory "
+        f"{seam['peak_mem_gib']:.3f} GiB")
+    out[arch] = seam
+    del params
+    fresh()
+
+    # llava-next-mistral-7b: 2880 prefix embeds, Mistral-7B heads 32/8 of 128
+    arch = "llava-next-mistral-7b"
+    cfg = configs.get_config(arch)
+    log(f"[modalities] {arch}: {cfg.num_layers} layers, {cfg.num_prefix_embeds} prefix "
+        f"embeds, d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
+        f"head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; reach "
+        f"{PREFIX_CAPACITY}")
+    params = step("llava weights", init_params, cfg,
+                  torch.Generator(device=DEV).manual_seed(0), DEV)
+    weights = torch.cuda.memory_allocated() / 2 ** 30
+    llava = {"weights_gib": weights}
+    decorate = modal_decorate(torch, cfg)
+    llava.update(serve(cfg, arch, params, decorate, PREFIX_CAPACITY))
+    llava["chunks"] = step("llava chunked prefill", modal_prefix_chunks, torch, cfg, arch,
+                           params, results, decorate)
+    llava["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[modalities] {arch}: weights {weights:.3f} GiB, peak device memory "
+        f"{llava['peak_mem_gib']:.3f} GiB")
+    out[arch] = llava
+    del params
+    fresh()
+    for entry in out.values():
+        for v in entry.values():
+            if isinstance(v, dict):
+                v.pop("streams", None)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: timings
 # ---------------------------------------------------------------------------
 
 
@@ -3048,6 +3553,8 @@ def main() -> int:
         timed("variants", phase_variants, torch, results, summary)
     if "families" in phases:
         timed("families", phase_families, torch, results, summary)
+    if "modalities" in phases:
+        timed("modalities", phase_modalities, torch, results, summary)
     if "timings" in phases:
         timed("timings", phase_timings, torch, cfg, results)
     log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f} s")

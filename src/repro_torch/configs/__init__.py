@@ -1,6 +1,8 @@
 """Model configs ported so far: the dense family, llama4-scout and kimi-k2
-(MoE), with their sliding-window long-context variants, and rwkv6-3b (the
-recurrent ssm family).
+(MoE), with their sliding-window long-context variants, rwkv6-3b (the
+recurrent ssm family), seamless-m4t-medium (encoder-decoder) and
+llava-next-mistral-7b (prefix embeddings).  jamba (the hybrid family) is
+not ported.
 
 Each module exposes ``config()`` (the exact architecture) and
 ``smoke_config()`` (a reduced same-family variant for CPU tests), and
@@ -24,6 +26,8 @@ ARCH_IDS: List[str] = [
     "llama4_scout_17b_a16e",
     "kimi_k2_1t_a32b",
     "rwkv6_3b",
+    "seamless_m4t_medium",
+    "llava_next_mistral_7b",
 ]
 
 #: canonical dashed ids -> module names
@@ -36,6 +40,8 @@ DASHED = {
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "rwkv6-3b": "rwkv6_3b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
 }
 
 

@@ -18,6 +18,13 @@ Without ``--smoke`` it serves the full config (random weights from
   python -m repro_torch.launch.serve --smoke --device cpu --workload sharegpt \\
       --verify-latency-ms 10 --trace-out trace.json
   python -m repro_torch.launch.serve --requests 8               # on a GPU
+  python -m repro_torch.launch.serve --arch seamless-m4t-medium --smoke --device cpu
+  python -m repro_torch.launch.serve --arch llava-next-mistral-7b --smoke --device cpu
+
+An encoder-decoder config's requests carry stub audio frames
+(``models.multimodal.audio_frames``) and a prefix-embeds config's stub
+patch embeddings (``vision_embeds``), drawn from the run's seeded
+generator.
 
 ``--replicas``, ``--qps`` and ``--tp`` (cluster and tensor-parallel serving)
 wait for the port's ``cluster/`` and ``distributed/`` slices.
@@ -37,6 +44,7 @@ from repro_torch import configs as config_registry
 from repro_torch import resolve_device
 from repro_torch.core.determinism import FAST_PATH_POLICY, Mode
 from repro_torch.models.base import init_params
+from repro_torch.models.multimodal import audio_frames, vision_embeds
 from repro_torch.serving import costmodel
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.request import Request, SamplingParams
@@ -56,12 +64,19 @@ SCHEDULERS = {
 
 
 def build_requests(cfg, n, det_ratio, max_out, seed=0, workload="synthetic",
-                   in_len=32):
+                   in_len=32, generator=None):
     """``n`` requests of random prompt tokens, deterministic with
     probability ``det_ratio`` (as ``repro.launch.serve.build_requests``).  ``synthetic``:
     ``in_len`` prompt tokens and ``max_out`` new tokens each; ``sharegpt``:
     lengths drawn from the ShareGPT fit (prompts at most 256 tokens, at
-    most ``max_out`` new tokens)."""
+    most ``max_out`` new tokens).  An encoder-decoder config's requests get
+    ``enc_embeds`` (1, encoder_seq_len, d_model) and a prefix-embeds
+    config's ``prefix_embeds`` (1, num_prefix_embeds, d_model), request by
+    request from ``generator`` (default: a CPU generator seeded with
+    ``seed``), on its device."""
+    side = cfg.family == "encdec" or cfg.num_prefix_embeds
+    if side and generator is None:
+        generator = torch.Generator().manual_seed(seed)
     rng = np.random.default_rng(seed)
     if workload == "sharegpt":
         lens = sample_workload(SHAREGPT, n, seed, max_in=256, max_out=max_out)
@@ -71,13 +86,21 @@ def build_requests(cfg, n, det_ratio, max_out, seed=0, workload="synthetic",
     for i, (il, ol) in enumerate(lens):
         prompt = rng.integers(0, cfg.vocab_size, il).tolist()
         det = rng.random() < det_ratio
-        reqs.append(Request(
+        r = Request(
             rid=i, prompt=prompt,
             sampling=SamplingParams(
                 max_new_tokens=min(ol, max_out), is_deterministic=det,
                 seed=1000 + i,
             ),
-        ))
+        )
+        if cfg.family == "encdec":
+            r.enc_embeds = audio_frames(generator, 1, cfg.encoder_seq_len, cfg.d_model)
+        if cfg.num_prefix_embeds:
+            r.prefix_embeds = vision_embeds(
+                generator, 1, cfg.d_model,
+                num_tiles=0 if cfg.num_prefix_embeds < 576 else 4,
+            )[:, : cfg.num_prefix_embeds]
+        reqs.append(r)
     return reqs
 
 
@@ -211,7 +234,8 @@ def main() -> None:
     engine = Engine(
         cfg, params, mode=Mode(args.mode), policy=FAST_PATH_POLICY,
         window=args.window, group=args.group, max_batch=args.max_batch,
-        capacity=min(cfg.max_seq_len, 512),
+        # the prefix embeds take positions before the prompt
+        capacity=min(cfg.max_seq_len, 512 + cfg.num_prefix_embeds),
         scheduler=sched_cls() if sched_cls else None,
         spec_depth=args.spec_depth,
         verify_latency_ms=args.verify_latency_ms,
@@ -224,7 +248,7 @@ def main() -> None:
         audit=args.audit_out is not None,
     )
     reqs = build_requests(cfg, args.requests, args.det_ratio, args.max_new,
-                          args.seed, args.workload)
+                          args.seed, args.workload, generator=gen)
     res = serve(engine, reqs, args.metrics_interval)
     out, done = res["committed"], res["done"]
     print(f"finished {res['finished']} requests, {out} tokens committed in "

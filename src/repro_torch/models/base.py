@@ -1,6 +1,7 @@
 """Model configs, parameter specs and the port's initializer (dense and MoE
 families with full or sliding-window attention, ``first_k_dense`` head
-layers, and the recurrent ssm family: rwkv6).
+layers, the recurrent ssm family: rwkv6, the encoder-decoder family and
+prefix embeddings).
 
 PyTorch counterpart of ``repro.models.base``.  ``ModelConfig`` is the JAX
 package's dataclass field for field, so configs read the same.  Parameters
@@ -10,17 +11,25 @@ layers stacked along a leading ``layers`` dimension under
 stored ``(in, out)``; a MoE layer's ``moe`` leaves stack the experts after
 the layer axis, ``(layers, experts, in, out)``; the ``first_k_dense`` head
 layers are unstacked, ``params["head_layers"][str(i)]``, as in the JAX
-tree; an rwkv layer's weights sit under ``rwkv`` (time and channel mixing).
+tree; an rwkv layer's weights sit under ``rwkv`` (time and channel mixing); an
+encoder-decoder config's decoder layers add ``cross_attn`` and a third
+norm (``norm2``: self-attention, cross-attention and FFN each get one),
+and its encoder stacks under ``enc_blocks/0`` with ``enc_final_norm``.
 ``models.convert.params_from_numpy`` turns the JAX package's tree into
-this one; ``init_params`` makes random weights without JAX.  A config with tied embeddings also carries ``unembed``: a
-(d_model, vocab) copy of ``embed.T``, made once by ``tie_unembedding``
-where params are made, so no forward transposes the embedding (at
-command-r's width that would be a 4.2 GB copy per pass).  It is not a
-parameter of its own: ``param_count`` does not count it.
+this one; ``init_params`` makes random weights without JAX.
 
-The other families (hybrid, enc-dec, multimodal) and the features
-``check_ported`` names wait for later slices; ``param_specs`` raises on
-them.
+Both finish with ``finish_unembedding``.  A config with tied embeddings
+gets ``unembed``: a (d_model, vocab) copy of ``embed.T``, made once where
+params are made, so no forward transposes the embedding (at command-r's
+width that would be a 4.2 GB copy per pass).  A vocabulary that is not a
+multiple of ``UNEMBED_ALIGN`` gets zero columns up to the next multiple
+(seamless-m4t's 256206 becomes 256208): the bf16 GEMMs read ``w`` through
+TMA, which needs 16-byte rows, and ``models.transformer._unembed`` slices
+the logits back to ``vocab_size``.  Neither the copy nor the padding is a
+parameter: ``param_count`` counts the spec tree.
+
+The hybrid family (jamba), attention biases and block periods above one
+wait for later slices; ``param_specs`` raises on them (``check_ported``).
 """
 
 from __future__ import annotations
@@ -142,17 +151,16 @@ class ParamSpec:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise on what the port does not serve yet: the hybrid and enc-dec
-    families, prefix embeddings, attention biases and block periods above
-    one.  Dense and MoE configs with full or sliding-window attention (and
-    ``first_k_dense`` head layers) and the ssm family (rwkv6) pass."""
+    """Raise on what the port does not serve yet: the hybrid family,
+    attention biases and block periods above one.  Dense and MoE configs
+    with full or sliding-window attention (and ``first_k_dense`` head
+    layers), the ssm family (rwkv6), the encoder-decoder family
+    (seamless-m4t) and prefix embeddings (llava-next) pass."""
     missing = []
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "encdec"):
         missing.append(f"the {cfg.family} family")
     if cfg.attn_kind not in ("full", "sliding"):
         missing.append(f"attn_kind {cfg.attn_kind!r}")
-    if cfg.num_prefix_embeds:
-        missing.append("prefix embeddings")
     if cfg.use_bias:
         missing.append("attention biases")
     if cfg.block_period() != 1:
@@ -220,16 +228,24 @@ def rwkv_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     }
 
 
-def layer_specs(cfg: ModelConfig, i: int) -> Dict[str, Any]:
-    """Specs of decoder layer ``i``: attention or rwkv mixing, two norms,
-    and the layer's dense or MoE FFN (rwkv's channel mixing is its FFN)."""
-    kind = cfg.layer_kind(i)
+def layer_specs(cfg: ModelConfig, i: int, *, decoder: bool = True) -> Dict[str, Any]:
+    """Specs of decoder layer ``i`` (an encoder layer with ``decoder=False``:
+    bidirectional attention and a dense FFN): attention or rwkv mixing, an
+    encoder-decoder decoder layer's ``cross_attn``, two norms (three with
+    cross-attention), and the layer's dense or MoE FFN (rwkv's channel
+    mixing is its FFN)."""
+    kind = cfg.layer_kind(i) if decoder else "attn"
     specs: Dict[str, Any] = (
         {"rwkv": rwkv_specs(cfg)} if kind == "rwkv" else {"attn": attn_specs(cfg)})
+    cross = decoder and cfg.family == "encdec"
+    if cross:
+        specs["cross_attn"] = attn_specs(cfg)
     specs.update({f"norm{j}": ParamSpec((cfg.d_model,), ("embed",), init="ones")
-                  for j in range(2)})
+                  for j in range(3 if cross else 2)})
     if kind == "rwkv":
         pass  # rwkv_specs already includes the channel-mix FFN
+    elif not decoder:
+        specs["ffn"] = dense_ffn_specs(cfg)
     elif cfg.ffn_kind(i) == "moe":
         specs["moe"] = moe_ffn_specs(cfg)
     else:
@@ -258,6 +274,10 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if fkd:
         specs["head_layers"] = {str(i): layer_specs(cfg, i) for i in range(fkd)}
     specs["blocks"] = {"0": _stack(layer_specs(cfg, fkd), cfg.num_layers - fkd)}
+    if cfg.family == "encdec":
+        specs["enc_blocks"] = {"0": _stack(layer_specs(cfg, 0, decoder=False),
+                                           cfg.num_encoder_layers)}
+        specs["enc_final_norm"] = ParamSpec((cfg.d_model,), ("embed",), init="ones")
     return specs
 
 
@@ -308,13 +328,29 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = t
-    return tie_unembedding(cfg, params)
+    return finish_unembedding(cfg, params)
 
 
-def tie_unembedding(cfg: ModelConfig, params: Dict[str, Any]) -> Dict[str, Any]:
-    """Give a tied config its (d_model, vocab) ``unembed``: one contiguous
-    copy of ``embed.T``, which the GEMMs read N-contiguous.  Untied params
-    are returned as they are."""
+#: the stored unembedding's column count is a multiple of this: a bf16 row
+#: of w is then a multiple of 16 bytes, as TMA reads it (and a multiple of
+#: 4 f32 columns, the f32 tile's vector loads)
+UNEMBED_ALIGN = 8
+
+
+def padded_vocab(cfg: ModelConfig) -> int:
+    """``cfg.vocab_size`` rounded up to a multiple of ``UNEMBED_ALIGN``."""
+    return -(-cfg.vocab_size // UNEMBED_ALIGN) * UNEMBED_ALIGN
+
+
+def finish_unembedding(cfg: ModelConfig, params: Dict[str, Any]) -> Dict[str, Any]:
+    """Give a tied config its (d_model, vocab) ``unembed``, one contiguous
+    copy of ``embed.T``, which the GEMMs read N-contiguous; then pad
+    ``unembed`` with zero columns to ``padded_vocab`` (a no-op at every
+    vocabulary that is a multiple of ``UNEMBED_ALIGN``).  Column tiles of
+    the GEMMs are independent, so the real columns' bits do not change."""
     if cfg.tie_embeddings:
         params["unembed"] = params["embed"].t().contiguous()
+    pad = padded_vocab(cfg) - cfg.vocab_size
+    if pad:
+        params["unembed"] = torch.nn.functional.pad(params["unembed"], (0, pad))
     return params

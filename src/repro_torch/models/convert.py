@@ -3,10 +3,12 @@
 ``params_from_numpy`` takes the JAX package's parameter pytree converted to
 numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``: nested dicts,
 decoder layers stacked under ``blocks/0``, a MoE config's experts under
-``blocks/0/moe/{router, wi_gate, wi_up, wo}``) and returns the port's tree of
-tensors, same keys, same layouts (a tied config's tree gains the
-``unembed`` copy of ``embed.T``, ``models.base.tie_unembedding``).  Shapes
-are checked against the port's ``param_specs``.
+``blocks/0/moe/{router, wi_gate, wi_up, wo}``, an encoder-decoder config's
+``blocks/0/cross_attn`` and ``enc_blocks/0``) and returns the port's tree of
+tensors, same keys, same layouts.  ``models.base.finish_unembedding`` then
+gives a tied config the ``unembed`` copy of ``embed.T`` and pads an
+unembedding whose vocabulary is not a multiple of 8 with zero columns.
+Shapes are checked against the port's ``param_specs``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.base import ModelConfig, iter_specs, param_specs, tie_unembedding
+from repro_torch.models.base import (
+    ModelConfig, finish_unembedding, iter_specs, param_specs,
+)
 
 
 def params_from_numpy(cfg: ModelConfig, np_tree: Dict[str, Any],
@@ -40,4 +44,4 @@ def params_from_numpy(cfg: ModelConfig, np_tree: Dict[str, Any],
         for k in path[:-1]:
             dst = dst.setdefault(k, {})
         dst[path[-1]] = t.to(device=dev, dtype=dtype)
-    return tie_unembedding(cfg, out)
+    return finish_unembedding(cfg, out)

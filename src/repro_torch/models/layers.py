@@ -22,9 +22,12 @@ XLA, so the commit path is bitwise the same in both; passes longer than
 Sliding-window rings (``attention_cached`` with ``window > 0``) mask by
 the stored positions; their single-token passes run plain tensor code too,
 under one kv split by fixed halving trees (``_ring_decode_attend``).
-``moe_ffn`` routes in the schedule's GEMM and runs every expert in the
-commit GEMM.  Unlike the JAX code, which returns new caches, the leaves are
-updated in place.
+``cross_attention`` (encoder-decoder decoders) attends over the encoder's keys
+and values, which ``encode_cross_kv`` projects once per request: its
+single-token passes go to ``ops.decode_attention`` too, its multi-token passes
+to ``_softmax_attend`` under the encoder mask.  ``moe_ffn`` routes in the
+schedule's GEMM and runs every expert in the commit GEMM.  Unlike the JAX code,
+which returns new caches, the leaves are updated in place.
 """
 
 from __future__ import annotations
@@ -334,6 +337,46 @@ def attention_paged(
         out = _softmax_attend(q, k_view, v_view, mask, schedule, cfg.logit_softcap)
     out = matmul(out.reshape(B, W, -1).to(x.dtype), p["wo"], schedule)
     return out, cache
+
+
+def cross_attention(
+    p: Dict,
+    cfg,
+    x: torch.Tensor,         # (B, W, D) decoder states
+    enc_k: torch.Tensor,     # (B, Se, KV, HD) the encoder's keys
+    enc_v: torch.Tensor,     # (B, Se, KV, HD)
+    enc_mask: torch.Tensor,  # (B, Se) bool
+    schedule: Schedule,
+) -> torch.Tensor:
+    """Decoder-to-encoder attention (no positions, no rope).
+
+    W == 1 (decode, BATCH_INVARIANT's at every B) goes to
+    ``ops.decode_attention`` with the unscaled q and ``lengths =
+    enc_mask.sum(-1)``: under the commit schedule one kv split, whose rows
+    do not follow B on the card, where ``_softmax_attend``'s ``einsum`` rows
+    do.  The length mask equals ``enc_mask`` because an encoder mask is a
+    prefix of valid frames (``models.transformer.build_cross_cache`` marks
+    all of them).  The kernel scales q by hd^-0.5 in f32; the reference
+    scales in the activation dtype first, which is exact at seamless's
+    hd = 64.  W > 1 (verify windows, prefill chunks) runs
+    ``_softmax_attend`` under ``enc_mask``, as the reference does."""
+    B, W, _ = x.shape
+    q = matmul(x, p["wq"], schedule).reshape(B, W, cfg.num_heads, cfg.hd)
+    if W == 1:
+        out = ops.decode_attention(q[:, 0], enc_k, enc_v, enc_mask.sum(-1), schedule)
+    else:
+        q = q * (cfg.hd ** -0.5)
+        out = _softmax_attend(q.to(F32), enc_k, enc_v, enc_mask[:, None, :], schedule)
+    return matmul(out.reshape(B, W, -1).to(x.dtype), p["wo"], schedule)
+
+
+def encode_cross_kv(p: Dict, cfg, enc_out: torch.Tensor, schedule: Schedule):
+    """Cross-attention K/V of one decoder layer from the encoder output
+    (once per request): ``(B, Se, KV, HD)`` each."""
+    B, Se, _ = enc_out.shape
+    k = matmul(enc_out, p["wk"], schedule).reshape(B, Se, cfg.num_kv_heads, cfg.hd)
+    v = matmul(enc_out, p["wv"], schedule).reshape(B, Se, cfg.num_kv_heads, cfg.hd)
+    return k, v
 
 
 def swiglu_ffn(p: Dict, x: torch.Tensor, schedule: Schedule) -> torch.Tensor:

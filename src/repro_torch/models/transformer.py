@@ -1,10 +1,12 @@
-"""Incremental forward pass for the attention and rwkv families (prefill /
-decode / verify).
+"""Incremental forward pass for the attention, rwkv and encoder-decoder
+families (prefill / decode / verify), and the encoder.
 
 PyTorch counterpart of ``repro.models.transformer``: ``cache_spec``,
-``_apply_layer`` (attention with its dense or MoE FFN, or rwkv's time and
-channel mixing), ``_embed``, ``_unembed`` and ``forward`` with
-``collect_states``.  Full-attention layers run over the paged pool
+``_apply_layer`` (attention with its dense or MoE FFN, an encoder-decoder
+layer's cross-attention between them, or rwkv's time and channel mixing),
+``_embed``, ``_unembed``, ``forward`` with ``collect_states`` and
+``inputs_embeds`` (prefix embeddings), ``encode`` and
+``build_cross_cache``.  Full-attention layers run over the paged pool
 (``tables`` and ``paged`` given) or over dense per-row cache views
 (neither given; the gathered lane); sliding-window layers keep dense
 per-slot rings of ``min(capacity, window + RING_SLACK)`` slots and are
@@ -16,8 +18,9 @@ are updated in place.  Every entry point takes an explicit reduction
 verifier-grade numerics.
 
 Cache and per-position trees lead with a layer axis everywhere: the JAX
-tree's ``head_layers/{i}`` leaves, unstacked there (slot axis 0), carry a
-layer axis of one here, so every leaf's row axis is axis 1, which
+tree's ``head_layers/{i}`` leaves, unstacked there (slot axis 0), and the
+cross cache's ``mask`` (``(batch, Se)`` there) carry a layer axis of one
+here, so every leaf's row axis is axis 1, which
 ``serving.blockpool.Layout`` and ``serving.statepool`` rely on.
 """
 
@@ -31,7 +34,8 @@ from repro_torch.core.determinism import Schedule, VERIFY_SCHEDULE, matmul
 from repro_torch.models import rwkv6
 from repro_torch.models.base import ModelConfig, check_ported
 from repro_torch.models.layers import (
-    PagedView, attention_cached, attention_paged, moe_ffn, rms_norm, swiglu_ffn,
+    PagedView, _qkv, _softmax_attend, attention_cached, attention_paged,
+    cross_attention, encode_cross_kv, moe_ffn, rms_norm, rope, swiglu_ffn,
 )
 
 F32 = torch.float32
@@ -67,7 +71,9 @@ def cache_spec(cfg: ModelConfig, batch: int, capacity: int) -> Dict[str, Any]:
     rwkv layers: ``tm_shift`` and ``cm_shift`` (layers, batch, d_model),
     ``wkv`` (layers, batch, H, hd, hd) f32.  ``blocks/0`` stacks the block
     layers; ``head_layers/{i}`` holds head layer i with a layer axis of
-    one."""
+    one.  An encoder-decoder config adds ``cross``: the decoder layers'
+    cross-attention ``{k,v}`` (layers, batch, Se, KV, HD) and the encoder
+    ``mask`` (1, batch, Se) bool, Se = ``encoder_seq_len``."""
     check_ported(cfg)
     fkd = cfg.first_k_dense
     spec: Dict[str, Any] = {}
@@ -77,6 +83,11 @@ def cache_spec(cfg: ModelConfig, batch: int, capacity: int) -> Dict[str, Any]:
             for i in range(fkd)}
     spec["blocks"] = {"0": _layer_cache_shape(
         cfg, cfg.layer_kind(fkd), cfg.num_layers - fkd, batch, capacity)}
+    if cfg.family == "encdec":
+        se, dtype = cfg.encoder_seq_len, getattr(torch, cfg.dtype)
+        kv = (cfg.num_layers, batch, se, cfg.num_kv_heads, cfg.hd)
+        spec["cross"] = {"k": (kv, dtype), "v": (kv, dtype),
+                         "mask": ((1, batch, se), torch.bool)}
     return spec
 
 
@@ -99,11 +110,15 @@ def _apply_layer(
     cfg: ModelConfig, i: int, lp: Dict, x: torch.Tensor, lc: Dict,
     tables: Optional[torch.Tensor], start_pos: torch.Tensor,
     schedule: Schedule, paged: Optional[PagedView], collect_states: bool = False,
+    cross_kv: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Decoder layer ``i``; returns ``(x, per_pos)``.  ``lc`` is updated in
     place: through the block tables when ``paged`` is given (full attention
     only: rings are never paged), else as dense views or rings; an rwkv
     layer's state rows take the state after the pass's last position.
+    ``cross_kv`` (an encoder-decoder layer: ``{k, v}`` (B, Se, KV, HD) and
+    ``mask`` (B, Se)) adds cross-attention after self-attention, under
+    ``norm1``; the FFN's norm moves to ``norm2``.
     ``per_pos`` (rwkv with ``collect_states``) holds the state after each
     position, ``{tm_shift, cm_shift: (B, W, D), wkv: (B, W, H, hd, hd)}``;
     None for an attention layer."""
@@ -132,7 +147,13 @@ def _apply_layer(
         out, _ = attention_cached(lp["attn"], cfg, h, lc, start_pos, schedule,
                                   window)
     x = x + out
-    h = rms_norm(x, lp["norm1"], cfg.norm_eps, schedule)
+    norm_idx = 1
+    if cross_kv is not None:
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps, schedule)
+        x = x + cross_attention(lp["cross_attn"], cfg, h, cross_kv["k"], cross_kv["v"],
+                                cross_kv["mask"], schedule)
+        norm_idx = 2
+    h = rms_norm(x, lp[f"norm{norm_idx}"], cfg.norm_eps, schedule)
     if "moe" in lp:
         out, _aux = moe_ffn(lp["moe"], cfg, h, schedule)
     else:
@@ -147,9 +168,14 @@ def _embed(params, cfg, tokens, inputs_embeds):
 
 
 def _unembed(params, cfg, x, schedule):
-    # tied configs read the copy of embed.T made with the params
-    # (models.base.tie_unembedding), never a per-pass transpose
-    return matmul(x, params["unembed"], schedule)
+    # tied configs read the copy of embed.T made with the params, never a
+    # per-pass transpose; a padded unembedding's zero columns are cut off
+    # here, before anything samples, argmaxes or ranks the logits
+    # (models.base.finish_unembedding)
+    logits = matmul(x, params["unembed"], schedule)
+    if logits.shape[-1] != cfg.vocab_size:
+        logits = logits[..., : cfg.vocab_size]
+    return logits
 
 
 def forward(
@@ -171,15 +197,18 @@ def forward(
     pool-shaped leaves (a leading layer axis, no batch axis) and attention
     reads and writes them in place through ``tables``.  With neither,
     ``cache`` holds dense per-row views ``(layers, B, C, ...)``, updated in
-    place; a full-attention pass must end inside the view (no wrap), which
-    the W == 1 length mask relies on.  A sliding config's ``cache`` holds
-    per-row rings in either case, which wrap by design, and an rwkv
-    config's per-row state.  Returns ``(logits (B, W, V) f32, cache,
-    per_pos)``, the JAX signature's ``(logits, new_cache, per_pos)``:
-    with ``collect_states``, ``per_pos`` mirrors the cache tree, each rwkv
-    leaf with a window axis after the row axis (the state after each
-    position: ``blocks/0`` (L, B, W, ...), ``head_layers/{i}`` (1, B, W,
-    ...)) and None in place of an attention layer's leaves; else None."""
+    place; a full-attention pass must end inside the view (no wrap), which the
+    W == 1 length mask relies on.  A sliding config's ``cache`` holds per-row
+    rings in either case, which wrap by design, and an rwkv config's per-row
+    state.  An encoder-decoder config's ``cache`` also holds ``cross``
+    (``cache_spec``; ``build_cross_cache`` makes it), read, never written.
+    ``inputs_embeds`` (B, W, D) replaces the token embeddings (prefix
+    embeddings, prefill chunks).  Returns ``(logits (B, W, V) f32, cache,
+    per_pos)``, the JAX signature's ``(logits, new_cache, per_pos)``: with
+    ``collect_states``, ``per_pos`` mirrors the cache tree, each rwkv leaf
+    with a window axis after the row axis (the state after each position:
+    ``blocks/0`` (L, B, W, ...), ``head_layers/{i}`` (1, B, W, ...)) and None
+    in place of an attention layer's leaves; else None."""
     if (paged is None) != (tables is None):
         raise ValueError("pass both tables and paged (paged pool) or neither "
                          "(gathered views)")
@@ -199,10 +228,14 @@ def forward(
                              _index(heads[str(i)], 0), tables, start_pos, schedule,
                              paged, collect_states)
         per_head[str(i)] = _stack_states([pp])
+    cross = cache.get("cross") if cfg.family == "encdec" else None
     pps = []
     for i in range(cfg.num_layers - fkd):
+        cross_kv = (None if cross is None else
+                    {"k": cross["k"][i], "v": cross["v"][i], "mask": cross["mask"][0]})
         x, pp = _apply_layer(cfg, fkd + i, _index(blocks, i), x, _index(pool, i),
-                             tables, start_pos, schedule, paged, collect_states)
+                             tables, start_pos, schedule, paged, collect_states,
+                             cross_kv)
         pps.append(pp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, schedule)
     logits = _unembed(params, cfg, x, schedule).to(F32)
@@ -212,3 +245,47 @@ def forward(
         if fkd:
             per_pos["head_layers"] = per_head
     return logits, cache, per_pos
+
+
+def encode(params: Dict, cfg: ModelConfig, enc_embeds: torch.Tensor,
+           schedule: Schedule = VERIFY_SCHEDULE) -> torch.Tensor:
+    """The bidirectional encoder stack over ``enc_embeds`` (B, Se, D), the
+    stubbed frontend's output: rope over the encoder positions, every key
+    visible (``_softmax_attend``), a dense SwiGLU FFN, then
+    ``enc_final_norm``.  Returns (B, Se, D)."""
+    x = enc_embeds
+    B, S, _ = x.shape
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    mask = torch.ones((B, S, S), dtype=torch.bool, device=x.device)
+    enc = params["enc_blocks"]["0"]
+    for i in range(cfg.num_encoder_layers):
+        lp = _index(enc, i)
+        a = rms_norm(x, lp["norm0"], cfg.norm_eps, schedule)
+        q, k, v = _qkv(lp["attn"], cfg, a, schedule)
+        q = rope(q, pos, cfg.rope_theta) * (cfg.hd ** -0.5)
+        k = rope(k, pos, cfg.rope_theta)
+        out = _softmax_attend(q.to(F32), k, v, mask, schedule)
+        x = x + matmul(out.reshape(B, S, -1).to(x.dtype), lp["attn"]["wo"], schedule)
+        a = rms_norm(x, lp["norm1"], cfg.norm_eps, schedule)
+        x = x + swiglu_ffn(lp["ffn"], a, schedule)
+    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps, schedule)
+
+
+# det: commit-path
+def build_cross_cache(params: Dict, cfg: ModelConfig, enc_embeds: torch.Tensor,
+                      enc_mask: Optional[torch.Tensor] = None,
+                      schedule: Schedule = VERIFY_SCHEDULE) -> Dict[str, torch.Tensor]:
+    """The encoder pass and every decoder layer's cross K/V (the serving
+    admission path): ``{k, v}`` (layers, B, Se, KV, HD) and ``mask`` (1, B,
+    Se), the layout of ``cache_spec``'s ``cross`` (the JAX tree's mask has
+    no layer axis).  ``enc_mask`` (B, Se) defaults to every frame valid; it
+    must mark a prefix of the frames (single-token cross-attention masks by
+    length)."""
+    enc_out = encode(params, cfg, enc_embeds, schedule)
+    blocks = params["blocks"]["0"]["cross_attn"]
+    ks, vs = zip(*(encode_cross_kv(_index(blocks, i), cfg, enc_out, schedule)
+                   for i in range(cfg.num_layers)))
+    if enc_mask is None:
+        enc_mask = torch.ones(enc_embeds.shape[:2], dtype=torch.bool,
+                              device=enc_embeds.device)
+    return {"k": torch.stack(ks), "v": torch.stack(vs), "mask": enc_mask[None]}

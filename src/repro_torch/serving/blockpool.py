@@ -2,7 +2,7 @@
 
 PyTorch counterpart of ``repro.serving.blockpool``, attention-arch subset.
 ``build_layout`` classifies every cache leaf once, by shape, into one of
-two kinds:
+two kinds, plus a third by name:
 
 * ``paged``: every full-attention leaf (``k``/``v``/``pos``) is cut into
   one global pool of ``block_size``-token blocks, ``(layers, num_blocks +
@@ -13,11 +13,17 @@ two kinds:
 * ``slot``: dense per-slot leaves, ``(layers, num_slots + 1, ...)``, the
   last row a scratch slot that verify pad rows write.  Sliding-window
   rings (``window + RING_SLACK`` slots a row) and recurrent state (rwkv's
-  ``tm_shift``, ``cm_shift`` and ``wkv``) are slot leaves; cross caches
-  will join them.  Every scatter into slot leaves is an ``index_put_``,
-  whose duplicate indices are nondeterministic on CUDA: pad rows may share
-  the scratch slot, but no real slot may take two rows of one scatter
-  (``check_slots``).
+  ``tm_shift``, ``cm_shift`` and ``wkv``) are slot leaves.  Every scatter
+  into slot leaves is an ``index_put_``, whose duplicate indices are
+  nondeterministic on CUDA: pad rows may share the scratch slot, but no
+  real slot may take two rows of one scatter (``check_slots``).
+* ``cross``: an encoder-decoder config's cross cache (``cross/{k, v}``
+  ``(layers, num_slots + 1, Se, KV, HD)``, ``cross/mask`` ``(1, num_slots
+  + 1, Se)``: a layer axis of one).  Stored and row-packed like slot
+  leaves, but read-only to the forward: the engine writes a slot's rows
+  once, at admission and on every restore (``write_cross``), and the
+  scatters after a pass skip them.  Verify pad rows read the scratch
+  slot's, whose mask is all False.
 
 ``head_layers`` leaves (the ``first_k_dense`` layers) lead with a layer
 axis of one, so they are classified and addressed like the block stack's:
@@ -51,8 +57,8 @@ DEFAULT_BLOCK_SIZE = 16
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """Static description of the cache layout.  ``kinds`` mirrors the cache
-    tree with ``"paged"`` or ``"slot"`` per leaf; every leaf's batch axis
-    (paged: block axis) is axis 1, after the layer axis."""
+    tree with ``"paged"``, ``"slot"`` or ``"cross"`` per leaf; every leaf's
+    batch axis (paged: block axis) is axis 1, after the layer axis."""
 
     kinds: Any
     block_size: int
@@ -91,7 +97,7 @@ def build_layout(
     """Classify every cache leaf by shape (sentinel batch and capacity
     dimensions): a leaf whose capacity axis follows its batch axis is
     paged, any other (a ring caps its capacity at ``window + RING_SLACK``)
-    is slot-shaped."""
+    is slot-shaped; the ``cross`` subtree is ``"cross"``."""
     if block_size < 1:
         raise ValueError(f"block_size {block_size} must be >= 1")
 
@@ -100,7 +106,10 @@ def build_layout(
         assert shape[1] == _SENT_B, f"batch axis must follow the layer axis in {shape}"
         return "paged" if shape[2] == _SENT_C else "slot"
 
-    kinds = _map(classify, cache_spec(cfg, _SENT_B, _SENT_C))
+    spec = cache_spec(cfg, _SENT_B, _SENT_C)
+    kinds = _map(classify, spec)
+    if "cross" in spec:
+        kinds["cross"] = _map(lambda leaf: "cross", spec["cross"])
     return Layout(kinds=kinds, block_size=block_size, num_blocks=num_blocks,
                   blocks_per_table=-(-capacity // block_size),
                   has_paged="paged" in _leaves(kinds))
@@ -115,7 +124,7 @@ def init_cache(cfg: ModelConfig, lay: Layout, num_slots: int,
 
     def make(leaf, kind):
         shape, dtype = leaf
-        if kind == "slot":
+        if kind != "paged":
             shape = (shape[0], num_slots + 1) + shape[2:]
         else:
             shape = (shape[0], lay.num_blocks + 2, lay.block_size) + shape[3:]
@@ -140,7 +149,7 @@ def scratch_slot(pool: Any, lay: Layout) -> Optional[int]:
     """The scratch slot of ``pool`` (its slot leaves' last row), or None
     when it has no slot leaves."""
     for leaf, kind in zip(_leaves(pool), _leaves(lay.kinds)):
-        if kind == "slot":
+        if kind != "paged":
             return leaf.shape[1] - 1
     return None
 
@@ -161,15 +170,28 @@ def wipe_blocks(pool: Any, lay: Layout, bids: List[int]) -> Any:
 
 def wipe_slot(pool: Any, lay: Layout, slot: int) -> Any:
     """Reset a slot's dense leaves in place (ring positions to -1, the rest,
-    recurrent state included, to zero), so a released or restored slot
-    starts pristine."""
+    recurrent state and cross caches included, to zero: a cross mask to
+    False), so a released or restored slot starts pristine."""
 
     def wipe(leaf, kind):
-        if kind == "slot":
+        if kind != "paged":
             leaf[:, slot] = -1 if leaf.dtype == torch.int32 else 0
         return leaf
 
     return _map(wipe, pool, lay.kinds)
+
+
+def write_cross(pool: Any, slot: int, cross: Any) -> Any:
+    """Write one request's cross cache (``models.transformer.
+    build_cross_cache`` at B = 1: every leaf with a row axis of one) into
+    ``slot``'s cross leaves, in place."""
+
+    def w(leaf, row):
+        leaf[:, slot] = row[:, 0].to(leaf.dtype)
+        return leaf
+
+    pool["cross"] = _map(w, pool["cross"], cross)
+    return pool
 
 
 # ---------------------------------------------------------------------------
@@ -178,15 +200,15 @@ def wipe_slot(pool: Any, lay: Layout, slot: int) -> Any:
 
 
 def gather(pool: Any, lay: Layout, slots: torch.Tensor, tables: torch.Tensor) -> Any:
-    """Per-row cache views (copies): slot leaves take rows ``slots`` (B,);
-    paged leaves ``(layers, NB+2, bs, ...)`` become ``(layers, B,
+    """Per-row cache views (copies): slot and cross leaves take rows
+    ``slots`` (B,); paged leaves ``(layers, NB+2, bs, ...)`` become ``(layers, B,
     view_capacity, ...)`` assembled from ``tables`` (B, blocks_per_table),
     ``-1`` entries reading the null block (positions -1, always masked)."""
     B, nblk = tables.shape
     flat = torch.where(tables < 0, lay.null_bid, tables).reshape(-1).long()
 
     def g(leaf, kind):
-        if kind == "slot":
+        if kind != "paged":
             return leaf[:, slots]
         out = leaf[:, flat]  # (layers, B*nblk, bs, ...)
         return out.reshape(leaf.shape[0], B, nblk * lay.block_size, *leaf.shape[3:])
@@ -197,7 +219,8 @@ def gather(pool: Any, lay: Layout, slots: torch.Tensor, tables: torch.Tensor) ->
 def scatter(pool: Any, lay: Layout, slots: torch.Tensor, tables: torch.Tensor,
             update: Any) -> Any:
     """Write per-row views back into the pool in place: slot leaves by
-    ``slots`` (pad rows share the scratch slot); paged leaves through the
+    ``slots`` (pad rows share the scratch slot; cross leaves, which no
+    forward writes, are skipped); paged leaves through the
     tables, ``-1`` entries dumping into the scratch block (view tails and
     pad rows, duplicate indices); duplicate real entries (prefix-shared
     blocks in one batch) carry bitwise-identical content, so write order is
@@ -210,6 +233,8 @@ def scatter(pool: Any, lay: Layout, slots: torch.Tensor, tables: torch.Tensor,
         if kind == "slot":
             leaf[:, slots] = u.to(leaf.dtype)
             return leaf
+        if kind == "cross":
+            return leaf
         u2 = u.reshape(leaf.shape[0], B * nblk, lay.block_size, *leaf.shape[3:])
         for i in range(leaf.shape[0]):  # index the block axis of one layer
             leaf[i][flat] = u2[i].to(leaf.dtype)
@@ -219,15 +244,17 @@ def scatter(pool: Any, lay: Layout, slots: torch.Tensor, tables: torch.Tensor,
 
 
 def gather_mixed(pool: Any, lay: Layout, slots: torch.Tensor) -> Any:
-    """Row-pack slot leaves only (copies); paged leaves pass through whole,
-    for the paged forward to read and write in place through the tables."""
+    """Row-pack slot and cross leaves only (copies); paged leaves pass
+    through whole, for the paged forward to read and write in place through
+    the tables."""
     return _map(lambda leaf, kind: leaf if kind == "paged" else leaf[:, slots],
                 pool, lay.kinds)
 
 
 def scatter_mixed(pool: Any, lay: Layout, slots: torch.Tensor, update: Any) -> Any:
     """Inverse of ``gather_mixed``: slot leaves write back by ``slots``;
-    paged leaves were updated in place by the forward."""
+    paged leaves were updated in place by the forward, cross leaves are
+    read-only."""
 
     def sm(leaf, kind, u):
         if kind == "slot":

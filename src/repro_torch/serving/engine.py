@@ -40,8 +40,9 @@ the two hand-written GEMMs and single-token attention in the paged kernels
 (paged lane) or the dense-cache decode kernel (gathered lane).
 
 Served families: dense and MoE (``first_k_dense`` head layers included),
-with full or sliding-window attention, and the recurrent ssm family
-(rwkv6).  A sliding config keeps per-slot rings (``window + RING_SLACK``
+with full or sliding-window attention, the recurrent ssm family (rwkv6),
+the encoder-decoder family (seamless-m4t) and prefix embeddings
+(llava-next).  A sliding config keeps per-slot rings (``window + RING_SLACK``
 slots) in place of paged KV, so it has no paged lane and no prefix cache;
 its prefill runs in chunks the ring contract allows (``_ring_pass_cap``).
 A recurrent config keeps O(1) state per slot, advanced irreversibly by the
@@ -49,9 +50,18 @@ fast path: the double-buffered state pool (``serving.statepool``) carries
 the verify replay's anchor and one commit checkpoint per in-flight window,
 so speculation runs ``spec_depth`` windows deep; its prefill passes keep
 the state after their last real position (pads never enter it), and it
-has no paged lane and no prefix cache either.  What waits for later
-slices: hybrid / enc-dec / prefix-embed archs and ``tp > 1``.  The
-constructor raises on each.
+has no paged lane and no prefix cache either.  An encoder-decoder
+request carries ``enc_embeds`` (1, Se, D): at admission, and again on
+every restore, the encoder runs once under ``VERIFY_SCHEDULE`` at B = 1 in
+every mode (``_build_cross``) and its cross K/V fill the slot's
+read-only ``cross`` leaves.  A prefix-embeds request carries
+``prefix_embeds`` (1, P, D) (zeros when absent): they take KV positions
+[0, P) before the prompt, every prefill pass (exclusive, chunked, restore
+replay) feeds them again (``_chunk_embeds``), and every position count
+(capacity, blocks, decode and verify positions, prefill events) includes
+them.  Neither config shares prefixes: the radix key sees tokens, not these
+side inputs.  What waits for later slices: the hybrid family and ``tp >
+1``; the constructor raises on each.
 """
 
 from __future__ import annotations
@@ -73,7 +83,7 @@ from repro_torch.core.determinism import (
 )
 from repro_torch.core.verifier import make_verify_body
 from repro_torch.models.base import ModelConfig, check_ported
-from repro_torch.models.transformer import RING_SLACK
+from repro_torch.models.transformer import RING_SLACK, build_cross_cache
 from repro_torch.obs import Observability, TokenProvenance
 from repro_torch.serving import (
     blockpool, costmodel, kv_cache, prefixcache, statepool, streams,
@@ -137,9 +147,16 @@ class Engine:
             block_size=block_size, num_blocks=num_blocks,
         )
         # commit-aware prefix sharing needs paged full-attention KV to share
-        # (a sliding config's rings are per slot) and no recurrent state (an
-        # O(1) state at the match point cannot be rebuilt from shared KV)
-        shareable = self.pool.paged and not statepool.has_recurrent_state(cfg)
+        # (a sliding config's rings are per slot), a token-addressable
+        # position 0 (prefix embeds and cross caches are per-request side
+        # inputs the radix key cannot see) and no recurrent state (an O(1)
+        # state at the match point cannot be rebuilt from shared KV)
+        shareable = (
+            self.pool.paged
+            and not statepool.has_recurrent_state(cfg)
+            and not cfg.num_prefix_embeds
+            and cfg.family != "encdec"
+        )
         self.prefix_cache: Optional[prefixcache.PrefixCache] = (
             prefixcache.PrefixCache(self.pool.block_size)
             if (prefix_cache and shareable) else None
@@ -181,6 +198,7 @@ class Engine:
         self._now = 0  # logical iteration counter
         self.num_preemptions = 0
         self.num_restores = 0
+        self.num_cross_builds = 0  # encoder passes (admissions + restores)
         self.restored_tokens = 0
         self.peak_running = 0
         self.obs = Observability(trace=trace, audit=audit)
@@ -464,17 +482,19 @@ class Engine:
         return step
 
     # det: commit-path
-    def _prefill_pass(self, slot: int, table: torch.Tensor, tokens: torch.Tensor,
-                      last: torch.Tensor):
-        """Exclusive whole-prompt pass at the prompt's bucket, verify-grade
-        schedule in every mode.  The JAX engine gathers a per-row view and
-        runs the dense attention on it (the gathered lane here too); the
-        paged forward computes the same masked softmax over the same view,
-        reading through the table.  ``last``: the prompt's last position
-        (a recurrent config's state is kept there)."""
+    def _prefill_pass(self, slot: int, table: torch.Tensor, last: torch.Tensor,
+                      **inputs):
+        """Exclusive whole-prompt pass at the prompt's bucket (after the
+        prefix embeds, if any), verify-grade schedule in every mode; the
+        prompt comes as ``tokens`` or ``inputs_embeds``.  The JAX engine
+        gathers a per-row view and runs the dense attention on it (the
+        gathered lane here too); the paged forward computes the same masked
+        softmax over the same view, reading through the table.  ``last``:
+        the prompt's last position (a recurrent config's state is kept
+        there)."""
         logits, self.pool.data = self._forward(
             self.params, self.pool.data, [slot], table[None], self._ints([0]),
-            self._commit_schedule(), tokens=tokens, state_at=self._state_at(last))
+            self._commit_schedule(), state_at=self._state_at(last), **inputs)
         return logits
 
     def _prefill_chunk_body(self, C: int):
@@ -497,6 +517,9 @@ class Engine:
     # ------------------------------------------------------------------
 
     def submit(self, req: Request) -> None:
+        self._check_side_inputs(req)
+        # KV positions before the prompt (core.dvr reads it for verify rows)
+        req._prefix_len = self.cfg.num_prefix_embeds
         self._check_capacity(req)
         req.state = State.QUEUED
         req.submit_clock = self.runtime.now
@@ -509,16 +532,37 @@ class Engine:
                        prompt_len=req.prompt_len,
                        deterministic=req.sampling.is_deterministic)
 
+    def _check_side_inputs(self, req: Request) -> None:
+        """Raise unless the request carries the side inputs its config
+        takes, at their shapes: ``enc_embeds`` (1, encoder_seq_len,
+        d_model) for an encoder-decoder config (required), ``prefix_embeds``
+        (1, num_prefix_embeds, d_model) for a prefix-embeds one (optional:
+        zeros stand in)."""
+        cfg = self.cfg
+        want = {}
+        if cfg.family == "encdec":
+            if req.enc_embeds is None:
+                raise ValueError(f"request {req.rid}: an encoder-decoder config "
+                                 "needs enc_embeds")
+            want["enc_embeds"] = (1, cfg.encoder_seq_len, cfg.d_model)
+        if cfg.num_prefix_embeds and req.prefix_embeds is not None:
+            want["prefix_embeds"] = (1, cfg.num_prefix_embeds, cfg.d_model)
+        for name, shape in want.items():
+            got = tuple(getattr(req, name).shape)
+            if got != shape:
+                raise ValueError(f"request {req.rid}: {name} {got}, want {shape}")
+
     def _worst_need(self, req: Request) -> int:
         """Worst-case KV positions this request can ever occupy (the max of
-        the prefill extent and prompt + output budget + the
+        the prefill extent and prefix + prompt + output budget + the
         ``spec_depth x (W-1) + 1`` verify-row reservation)."""
-        L = req.prompt_len
+        prefix = self.cfg.num_prefix_embeds
+        L = prefix + req.prompt_len
         if self._use_chunked(req):
             C = self._chunk_size()
             extent = -(-L // C) * C  # the last chunk pads to the chunk shape
         else:
-            extent = _bucket(req.prompt_len)
+            extent = prefix + _bucket(req.prompt_len)
         spec = (
             self.spec_depth * (self.window - 1) + 1
             if self.mode == Mode.LLM42 and req.sampling.is_deterministic
@@ -539,7 +583,8 @@ class Engine:
         if need > self.capacity or need_blocks > total_blocks:
             raise ValueError(
                 f"request {req.rid} cannot fit the KV pool: "
-                f"max(prefill extent, prompt {req.prompt_len} + "
+                f"max(prefill extent, prompt "
+                f"{self.cfg.num_prefix_embeds + req.prompt_len} + "
                 f"max_new_tokens {req.sampling.max_new_tokens} + verify "
                 f"rows [depth {self.spec_depth} x (W-1) + 1]) = {need} "
                 f"positions = {need_blocks} blocks > per-request capacity "
@@ -562,8 +607,10 @@ class Engine:
         return max(1, self._ring_pass_cap(self.prefill_chunk))
 
     def _use_chunked(self, req: Request) -> bool:
-        """Chunked lane only when the prompt spans more than one chunk."""
-        return self.chunked_prefill and req.prompt_len > self._chunk_size()
+        """Chunked lane only when the prefix and prompt span more than one
+        chunk."""
+        return (self.chunked_prefill
+                and self.cfg.num_prefix_embeds + req.prompt_len > self._chunk_size())
 
     # ------------------------------------------------------------------
     # block-pool accounting, admission, preemption
@@ -668,7 +715,7 @@ class Engine:
         """Admit one queued request if the block pool can cover its prompt:
         map the longest committed-prefix match to shared blocks, allocate
         private blocks for the tail, start prefill on the tail."""
-        L = req.prompt_len
+        L = self.cfg.num_prefix_embeds + req.prompt_len
         alloc = self.pool.alloc_blocks
         matched: List[int] = []
         if self.prefix_cache is not None:
@@ -773,7 +820,8 @@ class Engine:
         self._prepare_prefill(req, stream=stream)
         req.prefill_pos = len(matched) * self.pool.block_size
         req.replaying = True
-        ok = not self.pool.paged or self._grow_blocks(req, self._blocks_for(len(stream)))
+        ok = not self.pool.paged or self._grow_blocks(
+            req, self._blocks_for(self.cfg.num_prefix_embeds + len(stream)))
         assert ok, "restore gate admitted a replay the pool cannot hold"
         self.num_restores += 1
         replay = max(req.prefill_total - req.prefill_pos, 0)
@@ -839,18 +887,56 @@ class Engine:
             })
         return out
 
+    # det: commit-path
+    def _build_cross(self, req: Request) -> None:
+        """The encoder over the request's ``enc_embeds`` and every decoder
+        layer's cross K/V, at B = 1 under ``VERIFY_SCHEDULE`` in every mode
+        (a fixed shape: a restore's rebuild gives the first build's bits),
+        written into the slot's cross leaves."""
+        cfg = self.cfg
+        enc = req.enc_embeds.to(device=self.device, dtype=getattr(torch, cfg.dtype))
+        with deterministic_torch():
+            cross = build_cross_cache(self.params, cfg, enc, schedule=VERIFY_SCHEDULE)
+            self.pool.data = blockpool.write_cross(self.pool.data, req.slot, cross)
+        self.num_cross_builds += 1
+
+    def _prefix_source(self, req: Request) -> torch.Tensor:
+        """The request's prefix embeddings (1, P, D) on the device in the
+        model dtype (zeros when it carries none, as in the reference)."""
+        cfg = self.cfg
+        shape = (1, cfg.num_prefix_embeds, cfg.d_model)
+        dtype = getattr(torch, cfg.dtype)
+        if req.prefix_embeds is None:
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        return req.prefix_embeds.to(device=self.device, dtype=dtype)
+
     def _prepare_prefill(self, req: Request, stream: Optional[List[int]] = None) -> None:
-        """Chunk cursor for chunk-resumable prefill; ``stream`` overrides
-        the fed tokens (a restore replays prompt + committed[:-1])."""
+        """Side inputs (the cross cache, the prefix embeds) and the chunk
+        cursor for chunk-resumable prefill; ``stream`` overrides the fed
+        tokens (a restore replays prompt + committed[:-1])."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            self._build_cross(req)
+        if cfg.num_prefix_embeds:
+            req._prefix_src = self._prefix_source(req)
         req.prefill_stream = list(stream) if stream is not None else list(req.prompt)
-        req.prefill_total = len(req.prefill_stream)
+        req.prefill_total = cfg.num_prefix_embeds + len(req.prefill_stream)
         req.prefill_pos = 0
 
     def _chunk_embeds(self, req: Request, s: int, C: int) -> torch.Tensor:
-        """Token embeddings for prefill positions [s, s+C) of the stream."""
-        toks = req.prefill_stream[s: min(s + C, len(req.prefill_stream))]
-        return self.params["embed"][
-            torch.tensor([toks], dtype=torch.long, device=self.device)]
+        """Input embeddings for prefill positions [s, s+C): the prefix
+        embeds where the chunk overlaps the prefix region, token embeddings
+        of the fed stream after it."""
+        prefix = self.cfg.num_prefix_embeds
+        stream = req.prefill_stream
+        parts = []
+        if s < prefix:
+            parts.append(req._prefix_src[:, s: min(prefix, s + C)])
+        lo, hi = max(s - prefix, 0), min(s + C - prefix, len(stream))
+        if hi > lo:
+            parts.append(self.params["embed"][
+                torch.tensor([stream[lo:hi]], dtype=torch.long, device=self.device)])
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
     def _pad_embed(self) -> torch.Tensor:
         """(1, 1, D) embedding of token 0, the pad content."""
@@ -878,6 +964,7 @@ class Engine:
         if req.prefill_time < 0:
             req.prefill_time = self._now
         req.state = State.RUNNING
+        req._prefix_src = None
         if req.replaying:
             req.replaying = False
             req.restore_iter = self._now
@@ -929,19 +1016,26 @@ class Engine:
     # det: commit-path
     def _prefill(self, req: Request) -> None:
         P = _bucket(req.prompt_len)
+        self._prepare_prefill(req)
         if self._ring_pass_cap(P) < P:
             # ring contract: feed the prompt in chunks the ring allows (the
             # reference's _prefill_sliding: the same fixed-chunk loop)
-            self._prepare_prefill(req)
             self._prefill_tail_sync(req)
             return
-        tokens = self._ints([req.prompt + [0] * (P - req.prompt_len)])
+        prefix = self.cfg.num_prefix_embeds
+        L = req.prefill_total
+        if prefix:
+            emb = self._chunk_embeds(req, 0, L)
+            pad = self._pad_embed().expand(1, P - req.prompt_len, emb.shape[2])
+            inputs = {"inputs_embeds": torch.cat([emb, pad], dim=1)}
+        else:
+            inputs = {"tokens": self._ints([req.prompt + [0] * (P - req.prompt_len)])}
+        req.prefill_pos, req._prefix_src = L, None
         table = self.pool.table_array([req.blocks])[0]
         t0 = time.perf_counter()
         with deterministic_torch():
-            logits = self._prefill_pass(req.slot, table, tokens,
-                                        self._ints(req.prompt_len - 1))
-            last = logits[0, req.prompt_len - 1]
+            logits = self._prefill_pass(req.slot, table, self._ints(L - 1), **inputs)
+            last = logits[0, L - 1]
             tok = int(sample_token(last, req.sampling.seed, 0,
                                    req.sampling.temperature, req.sampling.top_k))
             marg = top2_margin(last)
@@ -954,8 +1048,8 @@ class Engine:
         req.prefill_time = self._now
         self._insert_prompt_blocks(req)
         ev = {
-            "kind": "prefill", "tokens": req.prompt_len,
-            "padded": P, "wall": wall, "iter": self._now,
+            "kind": "prefill", "tokens": L,
+            "padded": prefix + P, "wall": wall, "iter": self._now,
         }
         self._charge_main(ev)
         self.events.append(ev)
@@ -998,7 +1092,7 @@ class Engine:
         for r in batch:
             seq = r.committed + r.speculation
             last_tok.append(seq[-1])
-            pos.append(r.prompt_len + len(seq) - 1)
+            pos.append(self.cfg.num_prefix_embeds + r.prompt_len + len(seq) - 1)
             out_pos.append(len(seq))
             seeds.append(r.sampling.seed)
             temps.append(r.sampling.temperature)
@@ -1523,7 +1617,8 @@ class Engine:
                 )
                 end = min(r.prefill_pos + max(chunk, 1), r.prefill_total)
             else:
-                end = r.prompt_len + len(r.committed) + len(r.speculation)
+                end = (self.cfg.num_prefix_embeds + r.prompt_len + len(r.committed)
+                       + len(r.speculation))
             if not self._ensure_blocks(r, end):
                 stalled.add(r.rid)
         return stalled

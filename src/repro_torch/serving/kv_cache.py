@@ -1,11 +1,13 @@
 """Paged cache manager: request slots + the KV block pool.
 
-PyTorch counterpart of ``repro.serving.kv_cache``, attention and rwkv
-archs.  ``CachePool`` owns the device pool (``serving.blockpool``), the
-block allocator and the slot free list.  Full-attention KV is paged; slots
-hold the slot-kind leaves (sliding-window rings, recurrent state), one row
-each plus the scratch row grouped verification pads with, and bound
-concurrency.  A freed slot is wiped.  Pool leaves are updated in place.
+PyTorch counterpart of ``repro.serving.kv_cache``, attention, rwkv and
+encoder-decoder archs.  ``CachePool`` owns the device pool
+(``serving.blockpool``), the block allocator and the slot free list.
+Full-attention KV is paged; slots hold the slot-kind leaves
+(sliding-window rings, recurrent state) and the read-only cross caches,
+one row each plus the scratch row grouped verification pads with, and
+bound concurrency.  A freed slot is wiped.  Pool leaves are updated in
+place.
 
 ``pool_forward`` runs one forward pass over the pool in either memory
 lane: the paged lane row-packs the slot leaves by ``slots`` and reads and

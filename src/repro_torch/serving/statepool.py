@@ -26,14 +26,16 @@ For attention-only archs there is no device state to buffer; the pool is
 host-side telemetry only: in-flight verify depth per slot and the
 speculative KV extent, which ``launch/serve.py`` reports.
 
-State trees mirror the cache tree (``models.transformer.cache_spec``) with
-the recurrent leaf dicts kept and every attention leaf dict replaced by
-None.  Unlike the JAX trees (``head_layers`` slot axis 0), every leaf here
-leads with a layer axis, so the slot axis is axis 1 everywhere
-(per-position trees: the window axis is axis 2).  Buffers hold
-``num_slots + 1`` rows, the last the scratch row verify pad rows write;
-duplicate indices of ``index_put_`` are nondeterministic on CUDA, so no
-real slot may take two rows of one scatter (``blockpool.check_slots``).
+State trees mirror the cache tree (``models.transformer.cache_spec``) with the
+recurrent leaf dicts kept and every attention leaf dict replaced by None; an
+encoder-decoder config's ``cross`` subtree is not part of them (its leaves are
+the JAX pool's ``"skip"`` leaves: no checkpoint, restore or rollback touches
+them; the engine rebuilds them on a restore).  Unlike the JAX trees
+(``head_layers`` slot axis 0), every leaf here leads with a layer axis, so the
+slot axis is axis 1 everywhere (per-position trees: the window axis is axis
+2).  Buffers hold ``num_slots + 1`` rows, the last the scratch row verify pad
+rows write; duplicate indices of ``index_put_`` are nondeterministic on CUDA,
+so no real slot may take two rows of one scatter (``blockpool.check_slots``).
 Buffers are updated in place.
 """
 
