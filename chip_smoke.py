@@ -64,9 +64,9 @@ the main path) and the gathered lane (``paged_attention=False``):
            must be identical alone and beside 3 neighbours (launches reset
            and checked as in the serve phase), command-r's forward checked
            for a copy of its tied embedding, and peak device memory;
-8. variants llama4-scout-17b-a16e (8 of 48 layers; MoE, heads 40/8, G = 5)
+8. variants llama4-scout-17b-a16e (4 of 48 layers; MoE, heads 40/8, G = 5)
            and its chunked8k variant (2 layers, window 8192), phi3-mini-3.8b-
-           sw4k (8 of 32 layers, window 4096) at full width: the attention
+           sw4k (4 of 32 layers, window 4096) at full width: the attention
            kernels and the commit GEMM at Scout's shapes (as in configs),
            ``moe_ffn`` rows bitwise across T and a ring's W == 1 rows across B
            (rings that wrapped), Scout's LLM42 and BATCH_INVARIANT streams
@@ -80,7 +80,7 @@ the main path) and the gathered lane (``paged_attention=False``):
            against the paged lane; peak device memory per config;
 9. families kimi-k2-1t-a32b (2 of 61 layers: its first_k_dense head layer
            and one MoE layer of 384 experts; heads 64/8 of 112) and rwkv6-3b
-           (all 32 layers, recurrent state) at full width: the attention
+           (8 of 32 layers, recurrent state) at full width: the attention
            kernels at G = 8, D = 112 (rows across B) and their times at the
            headline and serve shapes, each family's projection GEMMs, one
            kimi MoE layer timed and its rows across T, kimi's LLM42 and
@@ -92,7 +92,7 @@ the main path) and the gathered lane (``paged_attention=False``):
            held to the passes; peak memory and device time per run);
 10. modalities seamless-m4t-medium (encoder-decoder: 12 encoder and 12
            decoder layers, 1024 encoder frames) and llava-next-mistral-7b
-           (2880 prefix embeddings before the prompt, all 32 layers) at
+           (2880 prefix embeddings before the prompt, 8 of 32 layers) at
            full width, stub frontend embeddings from
            ``models/multimodal.py``: ``decode_attention`` at the cross shape
            (H = KV = 16, D = 64, 1024 valid keys) against its plain version
@@ -111,7 +111,35 @@ the main path) and the gathered lane (``paged_attention=False``):
            that cut the prefix inside a chunk committing the exclusive
            prefill's streams (launches held to the passes, peak memory per
            config);
-11. timings each kernel against its plain version and one PyTorch call,
+11. cluster replicas 1, 2 and 3 of one tinyllama-1.1b engine (22 layers,
+           full width) on one card, sharing the weights, each with its own
+           paged pool, behind the deterministic router (``cluster/``) on
+           the ``costmodel.H100`` clock: 12 requests of a shared 2-block
+           prefix at fixed modeled arrivals, half deterministic (greedy
+           and seeded), ``imbalance=1``; each deterministic request commits
+           its solo stream at every replica count under ``copy`` and
+           ``recompute``; a repeated 3-replica run gives the same
+           assignment, latencies, TTFTs and event logs; the guard diverts,
+           and the blocks ``copy_blocks`` moves equal the source rows
+           bitwise; each replica's launches equal its passes; the merged
+           trace validates; modeled throughput, goodput (TTFT <= 1 s) and
+           occupancy per replica; ``copy_blocks`` timed beside its bytes
+           bound;
+12. training the GEMMs' backward (``kernels.ops.GemmGrad``: dX = dY W^T
+           and dW = X^T dY in the commit GEMM) against the plain version's
+           autograd at tinyllama's projection shapes and LM head, at M =
+           2048 and 1003, dX's rows bitwise across M, each product timed
+           beside ``torch.matmul`` and its bound; then 4 AdamW steps of
+           tinyllama (22 layers, full width) at 4 x 512 tokens with remat:
+           launches per step held to the forward, recompute and backward
+           GEMMs (no split-K), a second run bitwise equal, the loss lower
+           on the first batch, remat=False gradients bitwise equal, two
+           microbatches within 4 bf16 ulps, a checkpoint after step 2
+           resumed bitwise into step 4; step time (CUDA events), tok/s and
+           peak memory; one more step split at its gradients and its update
+           (device memory held and peak in each half), and one under
+           ``torch.profiler`` (device time by kernel, busy share);
+13. timings each kernel against its plain version and one PyTorch call,
            beside the least time the card could take (100 launches a
            reading); both GEMMs beside ``torch.matmul`` at every projection
            shape and serve-run M, their device time per forward, and the
@@ -123,11 +151,14 @@ the main path) and the gathered lane (``paged_attention=False``):
            residual) and with a residual.
 
 The line before the last is a JSON object describing every kernel
-(``launches`` sums the serve runs and the rmsnorm entry-point run,
-``launches_by_mode`` splits them by lane and mode and adds the online run's,
-each config's, each variants, families and modalities run's,
-``max_abs_err_by_config`` holds the configs, variants, families and
-modalities phases' errors); the last line is
+(``launches`` sums the serve runs, the rmsnorm entry-point run, the
+cluster runs and every training pass, each as its counters measured it;
+``launches_by_mode`` splits them by lane, mode and run and adds the online
+run's, each config's and each variants, families and modalities run's, and
+the backward products' check, which is a comparison with the plain version
+and so stays out of ``launches``; ``max_abs_err_by_config`` holds the configs, variants,
+families and modalities phases' errors, and the commit GEMM's ``backward``
+the backward products' error and times); the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the script exits non-zero without a result when no CUDA device
 is visible or when it runs outside a checkout of the repository.
@@ -139,6 +170,7 @@ is visible or when it runs outside a checkout of the repository.
     python3 chip_smoke.py --phases build,variants
     python3 chip_smoke.py --phases build,families
     python3 chip_smoke.py --phases build,modalities
+    python3 chip_smoke.py --phases build,cluster,training
 """
 
 from __future__ import annotations
@@ -160,7 +192,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "serve", "determinism", "profile", "online", "configs",
-          "variants", "families", "modalities", "timings")
+          "variants", "families", "modalities", "cluster", "training", "timings")
 
 #: per-request KV reach of the serve phase (128 blocks of 16).  The paged
 #: kernels' cost no longer follows the reach (the timings phase times them
@@ -1002,6 +1034,21 @@ def reset_launches():
     return fns
 
 
+def launch_counts(fns):
+    return {k: f.launches for k, f in fns.items()}
+
+
+def record_launches(results, run, counts, main_path=True) -> None:
+    """Adds a run's measured launch counts to the kernels line: to
+    ``launches_by_mode[run]``, and, for a run of the main path (not one made
+    to compare a kernel with its plain version), to ``launches``."""
+    for k, c in counts.items():
+        by_mode = results[k]["launches_by_mode"]
+        by_mode[run] = by_mode.get(run, 0) + c
+        if main_path:
+            results[k]["launches"] += c
+
+
 def phase_serve(torch, cfg, params, capacity, results, summary) -> None:
     from repro_torch.core.determinism import Mode
     from repro_torch.launch.serve import build_requests, serve
@@ -1355,7 +1402,7 @@ def phase_profile(torch, cfg, params, capacity, summary, warm=4, active=4) -> No
     averages = prof.key_averages()
     rows = sorted((e for e in averages if e.device_time_total > 0),
                   key=lambda e: e.device_time_total, reverse=True)
-    busy = sum(e.self_device_time_total for e in averages) / 1e6
+    busy = sum(e.self_device_time_total for e in kernel_events(averages)) / 1e6
     log(f"[profile] llm42 iterations {first}..{first + active - 1}: host wall "
         f"{wall:.3f} s under the profiler, device busy {busy:.3f} s "
         f"({100 * busy / wall:.1f}%); trace summed in {time.perf_counter() - t0:.1f} s")
@@ -1413,6 +1460,16 @@ def phase_profile(torch, cfg, params, capacity, summary, warm=4, active=4) -> No
                     f"{lane}/{mode.value}: bf16 GEMMs did not run only the tensor-core "
                     f"tile; the trace holds {names}")
             del eng
+
+
+def kernel_events(averages):
+    """The device's own rows of a profiler's ``key_averages()`` (kernels,
+    copies, fills).  A host op's self device time repeats the time of the
+    kernels it launched, so a sum over every row counts that time twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in averages
+            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
 
 
 def engine_events(eng):
@@ -1984,13 +2041,15 @@ def phase_configs(torch, results, summary) -> None:
 
 #: the variants phase's depth cuts, for memory and phase time: Scout's bf16
 #: weights are about 4.15 GB a layer (16 experts x 3 x 5120 x 8192) plus
-#: 4.1 GB of embedding and unembedding, so 8 of its 48 layers (about 37 GB)
-#: leave room for its runs on one 80 GB card, and its chunked8k variant's
-#: 8300-token prompt runs 2 of them (65 ring-capped prefill chunks a run);
-#: phi3-sw4k runs 8 of 32 (two 4200- and 4300-token prompts a run); the
+#: 4.1 GB of embedding and unembedding; 8 of its 48 layers (about 37 GB)
+#: would fit one 80 GB card beside its runs, and it runs 4 (about 21 GB)
+#: since the cluster and training phases came, to keep the whole script
+#: within its earlier length; its chunked8k variant's 8300-token prompt runs
+#: 2 of them (65 ring-capped prefill chunks a run); phi3-sw4k runs 4 of 32
+#: (two 4200- and 4300-token prompts a run; 8 before the same cut); the
 #: gathered lane's long prefill runs llama3-8b at 2 layers
-VARIANT_DEPTHS = {"llama4-scout-17b-a16e": 8, "llama4-scout-chunked8k": 2,
-                  "phi3-mini-3.8b-sw4k": 8, "llama3-8b": 2}
+VARIANT_DEPTHS = {"llama4-scout-17b-a16e": 4, "llama4-scout-chunked8k": 2,
+                  "phi3-mini-3.8b-sw4k": 4, "llama3-8b": 2}
 
 #: the kernels that read attention K/V (none of them reads a ring)
 ATTENTION_KERNELS = ("paged_attention", "paged_attention_fast", "decode_attention")
@@ -2436,8 +2495,10 @@ def phase_variants(torch, results, summary) -> None:
 #: runs its dense head layer and one MoE layer (384 experts x 3 x 7168 x
 #: 2048 bf16 = 33.8 GB, embeddings 4.7 GB: about 38.9 GB; a second MoE
 #: layer would bring the weights to about 73 GB, before the pool and the
-#: f32 expert casts); rwkv6-3b runs its full 32 layers (about 6.1 GB)
-FAMILY_DEPTHS = {"kimi-k2-1t-a32b": 2, "rwkv6-3b": None}
+#: f32 expert casts); rwkv6-3b runs 8 of its 32 layers (all 32 take about
+#: 6.1 GB; the cut keeps the whole script within its earlier length since
+#: the cluster and training phases came)
+FAMILY_DEPTHS = {"kimi-k2-1t-a32b": 2, "rwkv6-3b": 8}
 
 #: the projections (K, N) each family's forward gives the GEMMs, besides
 #: the LM head (``check_config_kernels``) and kimi's router and experts
@@ -2624,7 +2685,7 @@ def rwkv_depth(torch, cfg, params, results) -> dict:
 
 def phase_families(torch, results, summary) -> None:
     """kimi-k2 (MoE with a first_k_dense head layer, heads 64/8 of 112) at 2
-    of 61 layers and rwkv6-3b (recurrent) at its full 32 layers, published
+    of 61 layers and rwkv6-3b (recurrent) at 8 of its 32 layers, published
     widths, random weights from seed 0."""
     from repro_torch import configs
     from repro_torch.core.determinism import Mode
@@ -2682,9 +2743,9 @@ def phase_families(torch, results, summary) -> None:
     del params
     fresh()
 
-    # rwkv6-3b: recurrent state, all 32 layers
+    # rwkv6-3b: recurrent state, FAMILY_DEPTHS of 32 layers
     arch = "rwkv6-3b"
-    cfg = configs.get_config(arch)
+    cfg = dataclasses.replace(configs.get_config(arch), num_layers=FAMILY_DEPTHS[arch])
     log(f"[families] {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.d_model // cfg.rwkv_head_dim} heads of {cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, "
         f"vocab {cfg.vocab_size}")
@@ -2716,6 +2777,10 @@ def phase_families(torch, results, summary) -> None:
 # ---------------------------------------------------------------------------
 # phase 10: modalities (encoder-decoder serving, prefix embeddings)
 # ---------------------------------------------------------------------------
+
+#: llava's depth cut (of 32 layers), which keeps the whole script's run
+#: within its earlier length since the cluster and training phases came
+LLAVA_DEPTH = 8
 
 #: llava's per-request KV reach: its 2880 prefix positions, a 32-token
 #: prompt, 16 new tokens and the verify rows fit 4096 (CAPACITY's 2048 do not)
@@ -3040,9 +3105,9 @@ def modal_prefix_chunks(torch, cfg, arch, params, results, decorate) -> dict:
 
 
 def phase_modalities(torch, results, summary) -> None:
-    """seamless-m4t-medium (encoder-decoder, 12 + 12 layers) and
-    llava-next-mistral-7b (2880 prefix embeds, 32 layers) at published
-    widths and full depth, random weights from seed 0, stub frontend
+    """seamless-m4t-medium (encoder-decoder, 12 + 12 layers, full depth)
+    and llava-next-mistral-7b (2880 prefix embeds, LLAVA_DEPTH of 32
+    layers) at published widths, random weights from seed 0, stub frontend
     embeddings from ``models/multimodal.py``."""
     from repro_torch import configs
     from repro_torch.core.determinism import Mode
@@ -3115,7 +3180,7 @@ def phase_modalities(torch, results, summary) -> None:
 
     # llava-next-mistral-7b: 2880 prefix embeds, Mistral-7B heads 32/8 of 128
     arch = "llava-next-mistral-7b"
-    cfg = configs.get_config(arch)
+    cfg = dataclasses.replace(configs.get_config(arch), num_layers=LLAVA_DEPTH)
     log(f"[modalities] {arch}: {cfg.num_layers} layers, {cfg.num_prefix_embeds} prefix "
         f"embeds, d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
         f"head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; reach "
@@ -3141,7 +3206,646 @@ def phase_modalities(torch, results, summary) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: timings
+# phase 11: cluster (replicas behind the deterministic router)
+# ---------------------------------------------------------------------------
+
+#: the cluster phase's config (the serve and train drivers' default arch),
+#: at full width and depth; each replica owns a KV pool of CLUSTER_CAPACITY
+#: positions a slot (the serve driver's 512), the weights are shared
+CLUSTER_ARCH, CLUSTER_CAPACITY = "tinyllama-1.1b", 512
+
+#: the cluster phase's traffic: CLUSTER_REQUESTS prompts of a shared 2-block
+#: prefix (32 tokens) and an 8-token tail, CLUSTER_MAX_NEW new tokens each,
+#: arriving CLUSTER_GAP_S apart in modeled time, the even rids deterministic
+#: (alternately greedy and seeded at temperature 0.8).  A tinyllama decode
+#: pass costs about 0.7 ms on the H100 model (2.2 GB of weights), so a
+#: request lives about 15-25 modeled ms and 4 ms gaps keep several in
+#: flight: with ``imbalance=1`` the load guard diverts prefix hits
+CLUSTER_REQUESTS, CLUSTER_MAX_NEW, CLUSTER_GAP_S = 12, 16, 0.004
+
+#: (replicas, transfer policy) of the cluster runs; the last is run twice
+CLUSTER_RUNS = ((1, "copy"), (2, "copy"), (2, "recompute"), (3, "copy"))
+
+
+def cluster_requests(cfg):
+    """Fresh request objects of the cluster traffic (CLUSTER_REQUESTS)."""
+    import numpy as np
+
+    from repro_torch.serving.request import Request, SamplingParams
+
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(0, cfg.vocab_size, 2 * BLOCK).tolist()
+    tails = rng.integers(0, cfg.vocab_size, (CLUSTER_REQUESTS, 8)).tolist()
+    return [Request(rid=i, prompt=prefix + tails[i], sampling=SamplingParams(
+        max_new_tokens=CLUSTER_MAX_NEW, is_deterministic=i % 2 == 0, seed=70 + i,
+        temperature=0.8 if i % 4 == 2 else 0.0)) for i in range(CLUSTER_REQUESTS)]
+
+
+def copy_blocks_checked(torch, moves):
+    """A ``blockpool.copy_blocks`` that times each copy with CUDA events and
+    requires the moved rows of every paged leaf bitwise equal to the source
+    rows on the device; appends (blocks, bytes, ms) to ``moves``."""
+    from repro_torch.serving import blockpool
+
+    real = blockpool.copy_blocks
+
+    def checked(src, dst, lay, src_bids, dst_bids):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = real(src, dst, lay, src_bids, dst_bids)
+        b.record()
+        b.synchronize()
+        nbytes = 0
+        for s_leaf, d_leaf, kind in zip(blockpool._leaves(src), blockpool._leaves(out),
+                                        blockpool._leaves(lay.kinds)):
+            if kind == "paged":
+                require(torch.equal(s_leaf[:, src_bids], d_leaf[:, dst_bids]),
+                        "copy_blocks: moved rows differ from the source rows")
+                nbytes += 2 * len(src_bids) * s_leaf[:, 0].numel() * s_leaf.element_size()
+        moves.append((len(src_bids), nbytes, a.elapsed_time(b)))
+        return out
+
+    return real, checked
+
+
+def cluster_run(torch, cfg, params, n, transfer, results):
+    """One ``cluster.run_online`` of the cluster traffic on the H100 clock,
+    each replica's step wrapped to attribute kernel launches (counts reset
+    just before the run) and to sample its occupancy; each replica's
+    launches must equal ``expected_launches`` of its own passes, and the
+    merged trace must validate with one pid a replica."""
+    from repro_torch.cluster import Cluster, run_online
+    from repro_torch.core.determinism import Mode
+    from repro_torch.serving import blockpool
+    from repro_torch.serving.engine import Engine
+
+    cluster = Cluster(lambda idx: Engine(cfg, params, mode=Mode.LLM42,
+                                         capacity=CLUSTER_CAPACITY, trace=True),
+                      n, transfer=transfer, imbalance=1)
+    reqs = cluster_requests(cfg)
+    per = [dict.fromkeys(KERNELS, 0) for _ in range(n)]
+    occ = [[] for _ in range(n)]
+    fns = reset_launches()
+    for rep in cluster.replicas:
+        def counted(rep=rep, step=rep.engine.step):
+            before = {k: f.launches for k, f in fns.items()}
+            out = step()
+            for k, f in fns.items():
+                per[rep.idx][k] += f.launches - before[k]
+            occ[rep.idx].append(rep.occupancy)
+            return out
+        rep.engine.step = counted
+    moves = []
+    real, checked = copy_blocks_checked(torch, moves)
+    blockpool.copy_blocks = checked
+    try:
+        sync(torch)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        t0 = time.perf_counter()
+        res = run_online(cluster, cfg, [(r, CLUSTER_GAP_S * r.rid) for r in reqs])
+        b.record()
+        b.synchronize()
+    finally:
+        blockpool.copy_blocks = real
+    wall = time.perf_counter() - t0
+    run = f"cluster/r{n}/{transfer}"
+    counts = {k: f.launches for k, f in fns.items()}
+    require(counts == {k: sum(p[k] for p in per) for k in KERNELS},
+            f"{run}: launches outside the replicas' steps")
+    for rep in cluster.replicas:
+        want = expected_launches(cfg, rep.engine, True)
+        require(per[rep.idx] == want, f"{run}: replica {rep.idx} launched "
+                 f"{per[rep.idx]}, its passes imply {want}")
+    record_launches(results, run, counts)
+    trace = cluster.chrome_trace()  # validates, or raises
+    require({e["pid"] for e in trace["traceEvents"]} == set(range(n)),
+            f"{run}: merged trace pids")
+    rt = cluster.router
+    require(len(cluster.finished) == CLUSTER_REQUESTS, f"{run}: not drained")
+    streams = {r.rid: tuple(r.committed) for r in cluster.finished
+               if r.sampling.is_deterministic}
+    info = dict(
+        assignment=res.assignment, latencies=res.latencies, ttfts=res.ttfts,
+        events=[[strip_wall(ev) for ev in rep.engine.events] for rep in cluster.replicas],
+        streams=streams,
+        router={k: getattr(rt, k) for k in ("assignments", "affinity_hits",
+                                             "affinity_misses", "diverted", "transfers",
+                                             "transferred_tokens")},
+        throughput=res.throughput, goodput_1s=res.goodput(1.0), total_time=res.total_time,
+        mean_occupancy=[sum(o) / max(len(o), 1) for o in occ],
+        iterations=[len(o) for o in occ], moves=moves,
+        device_s=a.elapsed_time(b) / 1e3, host_s=wall, launches=counts)
+    moved = sum(m[0] for m in moves)
+    log(f"[cluster] {run}: modeled fleet time {res.total_time * 1e3:.3f} ms, "
+        f"throughput {res.throughput:.1f} tok/s, goodput {info['goodput_1s']:.1f} tok/s "
+        f"at TTFT <= 1 s (modeled H100); router {info['router']}; assignment "
+        f"{[res.assignment[i] for i in range(CLUSTER_REQUESTS)]}; mean occupancy "
+        f"{['%.3f' % o for o in info['mean_occupancy']]} over "
+        f"{info['iterations']} steps; {len(moves)} copy_blocks calls moved {moved} "
+        f"blocks bitwise; launches {counts} (= each replica's passes); device time "
+        f"{info['device_s']:.3f} s (CUDA events), host {wall:.1f} s")
+    return info
+
+
+def time_copy_blocks(torch, cfg, params, summary) -> None:
+    """``blockpool.copy_blocks`` between two replicas' pools on one card at a
+    2-block prefix (the cluster traffic's) and a 32-block one (512 tokens),
+    beside the bytes it must move (read and write each paged row once);
+    median of 100 calls (index tensors built per call, as the transfer
+    builds them)."""
+    from repro_torch.core.determinism import Mode
+    from repro_torch.serving import blockpool
+    from repro_torch.serving.engine import Engine
+
+    src, dst = (Engine(cfg, params, mode=Mode.LLM42, capacity=CLUSTER_CAPACITY).pool
+                for _ in range(2))
+    lay = src.layout
+    per_block = sum(leaf[:, 0].numel() * leaf.element_size()
+                    for leaf, kind in zip(blockpool._leaves(src.data),
+                                          blockpool._leaves(lay.kinds)) if kind == "paged")
+    out = {}
+    for nb in (2, 32):
+        sb, db = list(range(nb)), list(range(nb, 2 * nb))
+        ms = time_ms(torch, lambda: blockpool.copy_blocks(src.data, dst.data, lay, sb, db))
+        nbytes = 2 * nb * per_block
+        b_ms, b_by = bound(nbytes, 0.0)
+        out[nb] = dict(ms=ms, bytes=nbytes, bound_ms=b_ms)
+        log(f"[cluster] copy_blocks of {nb} blocks ({nbytes / 2 ** 20:.3f} MiB read and "
+            f"written, {cfg.num_layers} layers' K, V and positions): {ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.0f}% of it")
+    summary["cluster"]["copy_blocks"] = out
+
+
+def phase_cluster(torch, results, summary) -> None:
+    """Replicas 1, 2 and 3 of one tinyllama engine (22 layers, full width,
+    random weights from seed 0) on one card, sharing the weights, each with
+    its own paged pool, behind the deterministic router on the
+    ``costmodel.H100`` clock (``imbalance=1``, so prefix hits divert): each
+    deterministic request commits its solo stream at every replica count
+    and under ``copy`` and ``recompute``; a second identical 3-replica run
+    repeats the assignment, the modeled latencies and TTFTs and every
+    replica's event log; the guard diverted and ``copy_blocks`` moved
+    blocks, bitwise; each replica's launches equal its passes; the merged
+    trace validates; then ``copy_blocks`` timed beside its bound."""
+    from repro_torch import configs
+    from repro_torch.core.determinism import Mode
+    from repro_torch.models.base import init_params
+    from repro_torch.serving.engine import Engine
+
+    cfg = configs.get_config(CLUSTER_ARCH)
+    log(f"[cluster] {CLUSTER_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads}, vocab {cfg.vocab_size}; "
+        f"{CLUSTER_REQUESTS} requests of a 32-token shared prefix + 8 x "
+        f"{CLUSTER_MAX_NEW} new tokens, {CLUSTER_GAP_S * 1e3:.0f} ms apart (modeled), "
+        f"even rids deterministic; imbalance 1")
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    solo = {}
+    for r in cluster_requests(cfg):
+        if r.sampling.is_deterministic:
+            eng = Engine(cfg, params, mode=Mode.LLM42, capacity=CLUSTER_CAPACITY)
+            eng.submit(r)
+            eng.run()
+            solo[r.rid] = tuple(r.committed)
+    summary["cluster"] = {}
+    runs = {}
+    for n, transfer in CLUSTER_RUNS + (CLUSTER_RUNS[-1],):
+        gc.collect()
+        info = cluster_run(torch, cfg, params, n, transfer, results)
+        key = (n, transfer)
+        if key in runs:  # the repeat
+            first = runs[key]
+            for f in ("assignment", "latencies", "ttfts", "events", "streams", "router"):
+                require(info[f] == first[f], f"cluster r{n}/{transfer}: a second run "
+                        f"changed its {f}")
+            log(f"[cluster] r{n}/{transfer} again: the same assignment, latencies, "
+                f"TTFTs, event logs and streams")
+        runs[key] = info
+        require(info["streams"] == solo, f"cluster r{n}/{transfer}: a deterministic "
+                f"request's stream differs from its solo run")
+        if n > 1:
+            require(info["router"]["diverted"] >= 1, f"cluster r{n}/{transfer}: no divert")
+            if transfer == "copy":
+                require(info["router"]["transfers"] >= 1 and info["moves"],
+                        f"cluster r{n}/{transfer}: no block transfer")
+        summary["cluster"][f"r{n}/{transfer}"] = {
+            k: v for k, v in info.items() if k not in ("events", "streams", "latencies",
+                                                       "ttfts", "assignment")}
+    log(f"[cluster] {len(solo)} deterministic streams identical alone and at 1, 2 and 3 "
+        f"replicas under copy and recompute")
+    time_copy_blocks(torch, cfg, params, summary)
+    del params
+
+
+# ---------------------------------------------------------------------------
+# phase 12: training (forward_train, the GEMMs' backward, AdamW, checkpoints)
+# ---------------------------------------------------------------------------
+
+#: the training phase: tinyllama at full width and depth, TRAIN_STEPS
+#: steps of TRAIN_B x TRAIN_S tokens from seed 0, AdamW (warmup 1 step,
+#: cosine over TRAIN_STEPS), remat; saved after TRAIN_SAVE_AT and resumed
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_SAVE_AT, TRAIN_LR = 4, 512, 4, 2, 3e-4
+
+#: M of the backward products' check: a step's token count and one that is
+#: no multiple of 64 (nor of 8: dW's contraction is padded)
+GRAD_MS = (TRAIN_B * TRAIN_S, 1003)
+
+#: the backward products against the plain version's autograd, in bf16 ulps
+#: of max |ref| (one f32 pass each; the two sum in their own orders)
+GRAD_ULPS = 2
+
+#: substrings of a library GEMM's kernel names (cuBLAS's gemm, sm90 xmma and
+#: nvjet kernels, CUTLASS); the port's GEMM kernels carry one only in their
+#: namespace, ``GEMM_NAMESPACE``, which is cut off before the match
+LIBRARY_GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
+GEMM_NAMESPACE = "gemm_tile::"
+
+#: (bucket, substrings of a kernel's name) for a training step's device time
+STEP_BUCKETS = (
+    ("commit GEMM", ("wgmma_partial_kernel", "fmaf_partial_kernel", "tree_combine_kernel",
+                     "ordered_fold_kernel")),
+    ("fills", ("FillFunctor",)),
+    ("copies and casts", ("copy_kernel", "Memcpy", "memcpy")),
+    ("library GEMM (f32 attention einsum)", LIBRARY_GEMM_MARKS),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise", ("elementwise_kernel",)),
+)
+
+#: two microbatches' f32-summed gradients against one pass's, in bf16 ulps
+#: of each leaf's max |g|: each microbatch's gradient is rounded to bf16 on
+#: its own, and its attention runs at half the batch
+MICRO_ULPS = 4
+
+
+def train_gemm_launches(cfg, remat):
+    """Commit-GEMM launches of one training step of a dense config (one
+    microbatch): every forward GEMM (``forward_gemms``: 7 a layer and the
+    unembedding, 4 chunks each), the layers' 7 again in the recompute when
+    ``remat`` (the unembedding is not rematerialized), and two backward
+    products (one chunk each) for every forward GEMM, since every GEMM's
+    input and weight need a gradient."""
+    assert cfg.family == "dense" and not cfg.first_k_dense
+    fwd = sum(forward_gemms(cfg))
+    return fwd + (7 * cfg.num_layers if remat else 0) + 2 * fwd
+
+
+def commit_only(n):
+    """Launch counts of a pass that runs the commit GEMM ``n`` times and no
+    other kernel."""
+    return {k: n if k == "gemm_batch_invariant" else 0 for k in KERNELS}
+
+
+def check_backward_products(torch, cfg, results) -> None:
+    """``ops.matmul``'s backward (``GemmGrad``) at tinyllama's projection
+    shapes and LM head: dX = dY W^T and dW = X^T dY against the plain
+    version's autograd on the card within GRAD_ULPS, at M in GRAD_MS; dX's
+    rows bitwise across M; three commit-GEMM launches a call (the forward's
+    4 chunks, two products of one) and no split-K launch; a profiler trace
+    of one call holds the tensor-core tile and no library GEMM kernel; then
+    each product timed beside ``torch.matmul`` on the same operands and its
+    bound."""
+    from repro_torch.core.determinism import VERIFY_SCHEDULE
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=DEV).manual_seed(30)
+    bf = torch.bfloat16
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    rows, errs = [], []
+    checked = dict.fromkeys(KERNELS, 0)
+    for K, N in projections(cfg):
+        Mx = max(GRAD_MS)
+        x_all = torch.randn((Mx, K), generator=g, device=DEV).to(bf)
+        w = (torch.randn((K, N), generator=g, device=DEV) * K ** -0.5).to(bf)
+        dy_all = torch.randn((Mx, N), generator=g, device=DEV).to(bf)
+        got = {}
+        for M in GRAD_MS:
+            x = x_all[:M].clone().requires_grad_(True)
+            wk = w.clone().requires_grad_(True)
+            fns = reset_launches()
+            ops.matmul(x, wk, VERIFY_SCHEDULE).backward(dy_all[:M])
+            counts = launch_counts(fns)
+            require(counts == {k: 3 if k == "gemm_batch_invariant" else 0 for k in counts},
+                    f"GemmGrad ({M},{K})@({K},{N}): launches {counts}")
+            for k, c in counts.items():
+                checked[k] += c
+            xr = x_all[:M].clone().requires_grad_(True)
+            wr = w.clone().requires_grad_(True)
+            ref.gemm_batch_invariant(xr, wr, chunks=4).backward(dy_all[:M])
+            for name, a, b in (("dX", x.grad, xr.grad), ("dW", wk.grad, wr.grad)):
+                err = (a.float() - b.float()).abs().max().item()
+                tol = GRAD_ULPS * ulp_of(b.float().abs().max().item(), 7)
+                errs.append(err)
+                require(err <= tol, f"GemmGrad {name} M={M} ({K},{N}): max abs err "
+                        f"{err:.3e} > {tol:.3e}")
+            got[M] = x.grad
+        m0, m1 = GRAD_MS
+        require(torch.equal(got[m1], got[m0][:m1]),
+                f"GemmGrad dX rows change with M at ({K},{N})")
+        if not rows:
+            x, wk = x_all.clone().requires_grad_(True), w.clone().requires_grad_(True)
+            names = trace_kernels(torch, lambda: ops.matmul(x, wk, VERIFY_SCHEDULE)
+                                  .backward(dy_all))
+            library = [n for n in names if any(
+                m in n.replace(GEMM_NAMESPACE, "").lower() for m in LIBRARY_GEMM_MARKS)]
+            require(any(TENSOR_CORE_TILE in n for n in names) and not library,
+                    f"GemmGrad's trace: library GEMMs {library} among {sorted(names)}")
+            log(f"[training] one GemmGrad forward + backward at ({Mx},{K})@({K},{N}) "
+                f"launched {sorted(names)}: no library GEMM")
+        M = m0
+        dy, x = dy_all[:M].contiguous(), x_all[:M].contiguous()
+        products = {
+            "dX": (lambda: ops.grad_product(dy, w.t()),
+                   lambda: ref.gemm_batch_invariant(dy, w.t().contiguous()),
+                   lambda: torch.matmul(dy, w.t()), gemm_bound(M, N, K), w.t().contiguous(),
+                   dy),
+            "dW": (lambda: ops.grad_product(x.t(), dy),
+                   lambda: ref.gemm_batch_invariant(x.t().contiguous(), dy),
+                   lambda: torch.matmul(x.t(), dy), gemm_bound(K, M, N), dy,
+                   x.t().contiguous()),
+        }
+        for name, (kern, plain, lib, (b_ms, b_by), b_op, a_op) in products.items():
+            flush = scratch.zero_
+            k1 = time_ms(torch, kern, flush=flush)
+            l1 = time_ms(torch, lib, flush=flush)
+            l2 = time_ms(torch, lib, flush=flush)
+            k2 = time_ms(torch, kern, flush=flush)
+            gemm_only = time_ms(torch, lambda: ops.gemm_batch_invariant(a_op, b_op, chunks=1),
+                                flush=flush)
+            plain_ms = time_ms(torch, plain, reps=10, flush=flush)
+            ms, lib_ms = (k1 + k2) / 2, (l1 + l2) / 2
+            rows.append(dict(product=name, M=M, K=K, N=N, ms=ms, gemm_only_ms=gemm_only,
+                             library_ms=lib_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by))
+            log(f"[training] backward {name} of ({M},{K})@({K},{N}): {ms:.4f} ms "
+                f"(readings {k1:.4f}, {k2:.4f}; the commit GEMM alone on materialized "
+                f"operands {gemm_only:.4f}), torch.matmul {lib_ms:.4f} ms ({l1:.4f}, "
+                f"{l2:.4f}): {ms / lib_ms:.2f}x; plain {plain_ms:.4f} ms; bound "
+                f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.0f}% of it")
+        del x_all, w, dy_all
+    record_launches(results, "training/backward check", checked, main_path=False)
+    results["gemm_batch_invariant"]["backward"] = dict(max_abs_err=max(errs), rows=rows)
+    log(f"[training] backward products: max abs err {max(errs):.3e} (within "
+        f"{GRAD_ULPS} bf16 ulps), dX rows bitwise across M {GRAD_MS}")
+
+
+def train_step_parts(torch, cfg, params, batch, opt_cfg, results, summary) -> None:
+    """Where a training step's time and memory go: one more step (from
+    ``params`` and a fresh optimizer state) run as ``train_step`` runs it,
+    ``batch_grads`` then ``apply_updates``, with device memory read between
+    them (held before the step, after the gradients and after the update;
+    each half's peak by ``max_memory_allocated``); then the same step under
+    ``torch.profiler``: device time by kernel, the commit GEMM's share, and
+    the device's busy share of the step's wall time.  Both steps' launches
+    are held to ``train_gemm_launches``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.training.optimizer import apply_updates, init_opt_state, tree_leaves
+    from repro_torch.training.train import batch_grads, make_train_step
+
+    gib = 2 ** 30
+    want = commit_only(train_gemm_launches(cfg, True))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    p_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    opt_state = init_opt_state(params)
+    sync(torch)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fns = reset_launches()
+    grads, _ = batch_grads(params, cfg, batch)
+    sync(torch)
+    held_g, peak_g = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    new_p, new_o, _ = apply_updates(opt_cfg, params, grads, opt_state)
+    sync(torch)
+    held_u, peak_u = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    counts = launch_counts(fns)
+    require(counts == want, f"training: the split step launched {counts}, not {want}")
+    record_launches(results, "training/split step", counts)
+    del grads, new_p, new_o
+    mem = dict(params_gib=p_bytes / gib, f32_copy_gib=4 * n_params / gib,
+               before_gib=base / gib, grads_peak_gib=peak_g / gib,
+               after_grads_gib=held_g / gib, update_peak_gib=peak_u / gib,
+               after_update_gib=held_u / gib)
+    log(f"[training] memory of a step: params {mem['params_gib']:.3f} GiB ({cfg.dtype}), "
+        f"one f32 copy of them {mem['f32_copy_gib']:.3f} GiB; held before the step "
+        f"{mem['before_gib']:.3f} GiB (params, a fresh mu and nu, the batches); "
+        f"gradients: peak {mem['grads_peak_gib']:.3f}, held after "
+        f"{mem['after_grads_gib']:.3f} (+{(held_g - base) / gib:.3f}); update: peak "
+        f"{mem['update_peak_gib']:.3f} (+{(peak_u - held_g) / gib:.3f} over the gradients), "
+        f"held after {mem['after_update_gib']:.3f}")
+
+    step_fn = make_train_step(cfg, opt_cfg)
+    opt_state = init_opt_state(params)
+    sync(torch)
+    fns = reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step_fn(params, opt_state, batch)
+        sync(torch)
+        wall = time.perf_counter() - t0
+    counts = launch_counts(fns)
+    require(counts == want, f"training: the profiled step launched {counts}, not {want}")
+    record_launches(results, "training/profiled step", counts)
+    del out, opt_state
+    t0 = time.perf_counter()
+    averages = prof.key_averages()
+    kernels = sorted(kernel_events(averages), key=lambda e: e.self_device_time_total,
+                     reverse=True)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    require(busy > 0, "training: the profiled step shows no device time")
+    buckets = {name: [0.0, 0] for name, _ in STEP_BUCKETS + (("other", ()),)}
+    for e in kernels:
+        key = e.key.replace(GEMM_NAMESPACE, "")
+        name = next((name for name, marks in STEP_BUCKETS
+                     if any(m in key or m in key.lower() for m in marks)), "other")
+        buckets[name][0] += e.self_device_time_total / 1e3
+        buckets[name][1] += e.count
+    log(f"[training] profiled step: host wall {wall * 1e3:.1f} ms under the profiler, "
+        f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%) in "
+        f"{sum(e.count for e in kernels)} device events; trace summed in "
+        f"{time.perf_counter() - t0:.1f} s; by kernel name: " + ", ".join(
+            f"{name} {ms:.2f} ms / {n}" for name, (ms, n) in buckets.items()))
+    for e in kernels[:15]:
+        log(f"[training] kernel {e.self_device_time_total / 1e3:9.2f} ms "
+            f"{e.count:6d}x  {e.key[:100]}")
+    ops_ = sorted((e for e in averages if e.key.startswith("aten::")
+                   and e.device_time_total > 0),
+                  key=lambda e: e.device_time_total, reverse=True)
+    for e in ops_[:15]:
+        log(f"[training] op device {e.device_time_total / 1e3:9.2f} ms cpu "
+            f"{e.cpu_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:80]}")
+    summary["training"].update(memory=mem, profiled_wall_ms=wall * 1e3,
+                               profiled_busy_ms=busy, profiled_buckets=buckets,
+                               top_kernels=[(e.key[:100], e.self_device_time_total / 1e3,
+                                             e.count) for e in kernels[:15]])
+
+
+def phase_training(torch, results, summary) -> None:
+    """``training.train`` on the card: the backward products
+    (``check_backward_products``), then TRAIN_STEPS AdamW steps of
+    tinyllama (22 layers, full width, random weights from seed 0) at
+    TRAIN_B x TRAIN_S with remat, each step's launches held to
+    ``train_gemm_launches`` (no split-K, no attention kernel), timed with
+    CUDA events; a second run bitwise equal in parameters and metrics; the
+    loss finite and lower on the first batch after the steps; remat=False
+    gradients bitwise equal to remat's; two microbatches within MICRO_ULPS;
+    saved after TRAIN_SAVE_AT steps and resumed, bitwise the uninterrupted
+    run; then ``train_step_parts``.  Every step under ``deterministic_torch``;
+    every pass's measured launches go into the kernels line."""
+    from repro_torch import configs
+    from repro_torch.core.determinism import deterministic_torch
+    from repro_torch.launch.train_launch import batch_on
+    from repro_torch.models.base import init_params
+    from repro_torch.training import checkpoint
+    from repro_torch.training.data import SyntheticTextStream
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state, tree_leaves
+    from repro_torch.training.train import (
+        batch_grads, lm_loss, loss_and_grads, make_train_step, train_params,
+    )
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    log(f"[training] {TRAIN_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.param_count() / 1e9:.3f} B params, {cfg.dtype}; {TRAIN_STEPS} steps of "
+        f"{TRAIN_B} x {TRAIN_S} tokens, AdamW lr {TRAIN_LR}, remat")
+    summary["training"] = {}
+    with deterministic_torch():
+        check_backward_products(torch, cfg, results)
+        params0 = train_params(cfg, init_params(
+            cfg, torch.Generator(device=DEV).manual_seed(0), DEV))
+        stream = iter(SyntheticTextStream(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0))
+        batches = [batch_on(cfg, next(stream), i, torch.device(DEV))
+                   for i in range(TRAIN_STEPS)]
+        opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+        step_fn = make_train_step(cfg, opt_cfg)
+        fwd = sum(forward_gemms(cfg))
+        want = commit_only(train_gemm_launches(cfg, remat=True))
+        ckpt = ROOT / "build" / "chip_smoke_train.npz"
+
+        def run(params, opt_state, first, label, save_at=None):
+            sync(torch)
+            torch.cuda.reset_peak_memory_stats()
+            hist, times = [], []
+            total = dict.fromkeys(KERNELS, 0)
+            for i in range(first, TRAIN_STEPS):
+                fns = reset_launches()
+                a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                a.record()
+                params, opt_state, m = step_fn(params, opt_state, batches[i])
+                b.record()
+                b.synchronize()
+                counts = launch_counts(fns)
+                require(counts == want, f"training {label} step {i + 1}: launches "
+                        f"{counts}, the step implies {want}")
+                for k, c in counts.items():
+                    total[k] += c
+                ms = a.elapsed_time(b)
+                times.append(ms)
+                hist.append({k: v.clone() for k, v in m.items()})
+                log(f"[training] {label} step {i + 1}: loss {float(m['loss']):.6f} gnorm "
+                    f"{float(m['grad_norm']):.6f} lr {float(m['lr']):.3e}; {ms:.1f} ms "
+                    f"(CUDA events) -> {TRAIN_B * TRAIN_S / ms * 1e3:.0f} tok/s; "
+                    f"launches {counts} (= the step's)")
+                if save_at == i + 1:
+                    t0 = time.perf_counter()
+                    checkpoint.save(str(ckpt), params, opt_state, step=i + 1)
+                    log(f"[training] saved after step {i + 1}: "
+                        f"{ckpt.stat().st_size / 2 ** 30:.2f} GiB in "
+                        f"{time.perf_counter() - t0:.1f} s")
+            record_launches(results, f"training/{label}", total)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            return params, opt_state, hist, times, peak
+
+        t0 = time.perf_counter()
+        pa, oa, ha, ta, peak = run(params0, init_opt_state(params0), 0, "run 1",
+                                   save_at=TRAIN_SAVE_AT)
+        log(f"[training] run 1: {time.perf_counter() - t0:.1f} s host; peak device "
+            f"memory {peak:.3f} GiB")
+        for i, m in enumerate(ha):
+            require(all(bool(torch.isfinite(v).all()) for v in m.values()),
+                    f"training step {i + 1}: non-finite metrics")
+        pb, ob, hb, tb, _ = run(params0, init_opt_state(params0), 0, "run 2")
+        require(all(torch.equal(a, b) for a, b in zip(tree_leaves(pa), tree_leaves(pb))),
+                "training: a second run's parameters differ")
+        require(all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(oa.mu) + tree_leaves(oa.nu), tree_leaves(ob.mu) + tree_leaves(ob.nu))),
+            "training: a second run's optimizer state differs")
+        require(all(torch.equal(ma[k], mb[k]) for ma, mb in zip(ha, hb) for k in ma),
+                "training: a second run's metrics differ")
+        log("[training] run 2: parameters, optimizer state and metrics bitwise run 1's")
+        del pb, ob
+        rp, ro, rstep = checkpoint.restore(str(ckpt), params0, init_opt_state(params0))
+        require(rstep == TRAIN_SAVE_AT, f"training: restored step {rstep}")
+        pr, orr, hr, _, _ = run(rp, ro, TRAIN_SAVE_AT, "resumed")
+        require(all(torch.equal(a, b) for a, b in zip(tree_leaves(pa), tree_leaves(pr))),
+                "training: the resumed run's parameters differ from the uninterrupted run's")
+        require(all(torch.equal(ma[k], mb[k]) for ma, mb in zip(ha[TRAIN_SAVE_AT:], hr)
+                    for k in ma), "training: the resumed run's metrics differ")
+        log(f"[training] saved after step {TRAIN_SAVE_AT} and resumed: step "
+            f"{TRAIN_STEPS} bitwise the uninterrupted run's")
+        del rp, ro, pr, orr
+        ckpt.unlink()
+        fns = reset_launches()
+        with torch.no_grad():
+            b0 = batches[0]
+            before, _ = lm_loss(params0, cfg, b0["tokens"], b0["targets"], b0["loss_mask"])
+            after, _ = lm_loss(pa, cfg, b0["tokens"], b0["targets"], b0["loss_mask"])
+        counts = launch_counts(fns)
+        require(counts == commit_only(2 * fwd), f"training: two loss passes launched {counts}")
+        record_launches(results, "training/loss", counts)
+        require(math.isfinite(float(after)) and float(after) < float(before),
+                f"training: the first batch's loss {float(before):.6f} -> {float(after):.6f}")
+        log(f"[training] first batch's loss {float(before):.6f} -> {float(after):.6f} "
+            f"after {TRAIN_STEPS} steps")
+        del pa, oa
+        fns = reset_launches()
+        g_remat, _ = loss_and_grads(params0, cfg, batches[0], remat=True)
+        g_plain, _ = loss_and_grads(params0, cfg, batches[0], remat=False)
+        counts = launch_counts(fns)
+        require(counts == commit_only(train_gemm_launches(cfg, True)
+                                      + train_gemm_launches(cfg, False)),
+                f"training: remat and plain gradient passes launched {counts}")
+        record_launches(results, "training/gradients remat + plain", counts)
+        require(all(torch.equal(a, b) for a, b in zip(tree_leaves(g_remat),
+                                                      tree_leaves(g_plain))),
+                "training: remat=False gradients differ from remat's")
+        log("[training] remat=False gradients bitwise remat's")
+        del g_plain
+        fns = reset_launches()
+        g_micro, _ = batch_grads(params0, cfg, batches[0], num_microbatches=2)
+        counts = launch_counts(fns)
+        require(counts == commit_only(2 * train_gemm_launches(cfg, True)),
+                f"training: two microbatches launched {counts}")
+        record_launches(results, "training/microbatches 2", counts)
+        worst = 0.0
+        for a, b in zip(tree_leaves(g_micro), tree_leaves(g_remat)):
+            ulps = ((a.float() - b.float()).abs().max().item()
+                    / ulp_of(b.float().abs().max().item(), 7))
+            worst = max(worst, ulps)
+        require(worst <= MICRO_ULPS, f"training: 2 microbatches' gradients {worst:.2f} "
+                f"bf16 ulps from one pass's (limit {MICRO_ULPS})")
+        log(f"[training] 2 microbatches: gradients within {worst:.3f} bf16 ulps of each "
+            f"leaf's max |g| of one pass's (limit {MICRO_ULPS})")
+        del g_micro, g_remat
+        gc.collect()
+        train_step_parts(torch, cfg, params0, batches[0], opt_cfg, results, summary)
+    per_step = want["gemm_batch_invariant"]
+    median_ms = sorted(ta)[len(ta) // 2]
+    summary["training"].update(
+        step_ms=ta, step_ms_run2=tb, median_step_ms=median_ms,
+        tok_per_s=TRAIN_B * TRAIN_S / median_ms * 1e3, peak_mem_gib=peak,
+        launches_per_step=per_step, micro_worst_ulps=worst,
+        loss=[float(m["loss"]) for m in ha])
+    log(f"[training] step time median {median_ms:.1f} ms (CUDA events) -> "
+        f"{TRAIN_B * TRAIN_S / median_ms * 1e3:.0f} tok/s, peak device memory {peak:.3f} GiB, "
+        f"{per_step} commit-GEMM launches a step (counted)")
+    del params0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 13: timings
 # ---------------------------------------------------------------------------
 
 
@@ -3555,6 +4259,10 @@ def main() -> int:
         timed("families", phase_families, torch, results, summary)
     if "modalities" in phases:
         timed("modalities", phase_modalities, torch, results, summary)
+    if "cluster" in phases:
+        timed("cluster", phase_cluster, torch, results, summary)
+    if "training" in phases:
+        timed("training", phase_training, torch, results, summary)
     if "timings" in phases:
         timed("timings", phase_timings, torch, cfg, results)
     log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f} s")
@@ -3565,7 +4273,7 @@ def main() -> int:
                            "launches_by_mode", "max_abs_err", "max_abs_err_by_config",
                            "ms", "plain_ms",
                            "bound_ms", "bound_by", "library_ms", "ms_kv_splits_1",
-                           "plain_ms_kv_splits_1", "ms_with_residual", "shapes")
+                           "plain_ms_kv_splits_1", "ms_with_residual", "shapes", "backward")
          if k in r} for r in results.values()
     ]}))
     log(json.dumps({"ok": True, "device": {

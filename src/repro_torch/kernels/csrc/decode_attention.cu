@@ -8,7 +8,8 @@
 // e = exp(s - m_c) kept in f32, d_c = sum e, o_c = sum e * v.  The running
 // d and o are rounded through combine_dtype at the first chunk and after
 // every merge, in split order; the output o / max(d, 1e-30) is written in
-// q's dtype.  q is scaled by D^-0.5 in f32 here, as in the TPU kernel.
+// q's dtype.  q is scaled by `scale` in f32 here, as in the TPU kernel (the
+// wrapper's default D^-0.5; a caller that scaled q in its own dtype passes 1).
 // These are NOT the fast paged kernel's rounding points (that one rounds e).
 //
 // Bound on this card: bytes.  A call must read q, every valid key and value

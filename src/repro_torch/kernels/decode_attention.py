@@ -3,12 +3,15 @@
 Replaces ``repro/kernels/decode_attention.py::decode_attention``: one query
 token per row over a dense ``(B, S, KV, D)`` cache, keys masked unless
 ``s < lengths[b]``, ``kv_splits`` chunks merged in split order through
-``combine_dtype``.  A CPU tensor runs the plain version
+``combine_dtype``, q scaled by ``scale`` in f32 (default ``D**-0.5``, the
+TPU kernel's).  A CPU tensor runs the plain version
 (``ref.decode_attention``); a CUDA tensor launches the kernel or raises.
 ``decode_attention.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -27,10 +30,11 @@ def decode_attention(
     *,
     kv_splits: int = 1,
     combine_dtype: str = "float32",
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Flash-decode attention -> (B, H, D) in q.dtype."""
     if q.device.type == "cpu":
-        return ref.decode_attention(q, k, v, lengths, kv_splits, combine_dtype)
+        return ref.decode_attention(q, k, v, lengths, kv_splits, combine_dtype, scale)
     tensors = (q, k, v, lengths)
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
         raise ValueError("decode_attention: every tensor must be on one CUDA device")
@@ -60,7 +64,8 @@ def decode_attention(
     lib = build.load("decode_attention")
     rc = lib.repro_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, H, KV, S, D, kv_splits, D ** -0.5,
+        out.data_ptr(), B, H, KV, S, D, kv_splits,
+        D ** -0.5 if scale is None else scale,
         build.DTYPE_CODES[combine_dtype], build.DTYPE_CODES[str(q.dtype)[6:]],
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -8,6 +8,9 @@
   ``repro.core.determinism.matmul`` computes on the model path.  (The JAX
   package's Pallas dispatch drops to one split instead; the model path on
   the TPU never takes it.)  Un-pinned TP schedules wait for ``distributed/``.
+  When an operand requires grad, the launch runs inside ``GemmGrad``, whose
+  backward computes the two products of JAX's autodiff of
+  ``core.determinism.matmul``, each in the commit GEMM with one chunk.
 * ``paged_attention(..., schedule)``: ``kv_splits == 1`` selects the commit
   kernel; a split count that divides the table reach selects the fast
   kernel; one that does not falls back to the commit kernel, as
@@ -27,6 +30,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.determinism import Schedule
 from repro_torch.kernels.decode_attention import decode_attention as _decode_attention
@@ -40,10 +44,20 @@ from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, schedule: Schedule) -> torch.Tensor:
-    """Schedule-aware GEMM.  x (..., K), w (K, N) -> (..., N) in x.dtype."""
+    """Schedule-aware GEMM.  x (..., K), w (K, N) -> (..., N) in x.dtype,
+    differentiable through ``GemmGrad`` when an operand requires grad."""
     lead = x.shape[:-1]
-    K = x.shape[-1]
-    x2 = x.reshape(-1, K).contiguous()
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
+        out = GemmGrad.apply(x2, w, schedule)
+    else:
+        out = _schedule_gemm(x2, w, schedule)
+    return out.reshape(*lead, w.shape[1])
+
+
+def _schedule_gemm(x2: torch.Tensor, w: torch.Tensor, schedule: Schedule) -> torch.Tensor:
+    """The launch ``matmul`` dispatches to: x2 (M, K) @ w (K, N)."""
+    K = x2.shape[-1]
     if schedule.tp_shards > 1 and schedule.tp_shards <= K:
         if not schedule.tp_pinned or schedule.splits > 1:
             raise NotImplementedError(
@@ -55,7 +69,50 @@ def matmul(x: torch.Tensor, w: torch.Tensor, schedule: Schedule) -> torch.Tensor
     else:
         out = gemm_splitk(x2, w, splits=schedule.splits,
                           combine_dtype=schedule.combine_dtype)
-    return out.reshape(*lead, w.shape[1])
+    return out
+
+
+#: the backward products' contraction is padded with zero columns to a
+#: multiple of this: a bf16 row of 16 bytes, as TMA reads it (the
+#: contraction of dW is M = B * S tokens, which may be any count)
+GRAD_ALIGN = 8
+
+
+def grad_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) @ b (K, N) in one f32 pass, rounded to a.dtype: the commit
+    GEMM with one chunk.  Zero columns padded onto the contraction add
+    exact zeros to every f32 sum, so they change no bit."""
+    pad = -a.shape[1] % GRAD_ALIGN
+    if pad:
+        a, b = F.pad(a, (0, pad)), F.pad(b, (0, 0, 0, pad))
+    return gemm_batch_invariant(a.contiguous(), b.contiguous(), chunks=1)
+
+
+class GemmGrad(torch.autograd.Function):
+    """``_schedule_gemm`` with the gradient of JAX's autodiff of
+    ``core.determinism.matmul``.  There the output is rounded from f32 to
+    x's dtype, so the cotangent dY reaches every chunk partial as is; a
+    chunk's products are ``dY @ w_c^T`` and ``x_c^T @ dY``, each one f32
+    pass rounded to x's and w's dtype, and the chunks' slices abut.  So
+    whatever the forward's chunks or splits, ``dX = dY @ W^T`` and ``dW =
+    X^T @ dY`` are each one f32-accumulated pass: ``grad_product``, the
+    commit GEMM, never a library GEMM.  Its rows are independent of M, so
+    dX's rows do not follow the token count.  The transposed operands are
+    materialized (``.t().contiguous()``)."""
+
+    @staticmethod
+    def forward(ctx, x2, w, schedule):
+        ctx.save_for_backward(x2, w)
+        return _schedule_gemm(x2, w, schedule)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w = ctx.saved_tensors
+        dy = dy.to(x2.dtype).contiguous()
+        dx = grad_product(dy, w.t()) if ctx.needs_input_grad[0] else None
+        dw = (grad_product(x2.t(), dy).to(w.dtype)
+              if ctx.needs_input_grad[1] else None)
+        return dx, dw, None
 
 
 def paged_attention(
@@ -88,14 +145,17 @@ def decode_attention(
     v: torch.Tensor,        # (B, S, KV, D)
     lengths: torch.Tensor,  # (B,)
     schedule: Schedule,
+    *,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Dense-cache decode attention -> (B, H, D) in q.dtype."""
+    """Dense-cache decode attention -> (B, H, D) in q.dtype; q is scaled by
+    ``scale`` in f32 (default D^-0.5)."""
     S = k.shape[1]
     splits = schedule.kv_splits if S % max(schedule.kv_splits, 1) == 0 else 1
     return _decode_attention(
         q.contiguous(), k.contiguous(), v.contiguous(),
         lengths.to(torch.int32).contiguous(), kv_splits=max(splits, 1),
-        combine_dtype=schedule.combine_dtype)
+        combine_dtype=schedule.combine_dtype, scale=scale)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,

@@ -73,11 +73,11 @@ def _view(
     return kf, vf, pos
 
 
-def _scaled_q(q: torch.Tensor, KV: int) -> torch.Tensor:
-    """(B, H, D) -> (B, KV, G, D) f32, scaled by D^-0.5 in f32 (the kernel
-    route's rounding point)."""
+def _scaled_q(q: torch.Tensor, KV: int, scale: Optional[float] = None) -> torch.Tensor:
+    """(B, H, D) -> (B, KV, G, D) f32, scaled by ``scale`` (default D^-0.5)
+    in f32 (the kernel route's rounding point)."""
     B, H, D = q.shape
-    return q.to(F32).reshape(B, KV, H // KV, D) * (D ** -0.5)
+    return q.to(F32).reshape(B, KV, H // KV, D) * (D ** -0.5 if scale is None else scale)
 
 
 def _scores(qg: torch.Tensor, kc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -164,6 +164,7 @@ def decode_attention(
     lengths: torch.Tensor,  # (B,) valid cache positions
     kv_splits: int,
     combine_dtype: str = "float32",
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Flash-decode over a dense cache: keys ``s < lengths[b]`` in
     ``kv_splits`` chunks (``_split_sizes``).  Per chunk an f32 (m, d, o)
@@ -172,15 +173,16 @@ def decode_attention(
     q.dtype.
 
     The rounding points are the Pallas kernel's
-    (``repro/kernels/decode_attention.py::_kernel``): q scaled by D^-0.5 in
-    f32 and ``e`` kept in f32.  ``repro.kernels.ref.decode_attention``
-    scales q in q.dtype instead; the two agree bitwise where D^-0.5 is a
-    power of two (D = 64)."""
+    (``repro/kernels/decode_attention.py::_kernel``): q scaled by ``scale``
+    (default D^-0.5) in f32 and ``e`` kept in f32.
+    ``repro.kernels.ref.decode_attention`` scales q in q.dtype instead; the
+    two agree bitwise where D^-0.5 is a power of two (D = 64), and a caller
+    that scales q in its own dtype first passes ``scale=1.0``."""
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     cd = torch_dtype(combine_dtype)
     kf, vf = k.to(F32), v.to(F32)
-    qg = _scaled_q(q, KV)
+    qg = _scaled_q(q, KV, scale)
     valid = torch.arange(S, device=q.device)[None, :] < lengths.to(q.device)[:, None]
     m = d = o = None
     start = 0

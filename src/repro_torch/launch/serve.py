@@ -1,4 +1,5 @@
-"""End-to-end serving driver for the PyTorch port (single engine).
+"""End-to-end serving driver for the PyTorch port (one engine, or replicas
+behind the deterministic router with ``--replicas``).
 
 Runs the LLM-42 engine on a synthetic or ShareGPT-like workload with a mix
 of deterministic and non-deterministic requests and reports committed
@@ -26,8 +27,17 @@ An encoder-decoder config's requests carry stub audio frames
 patch embeddings (``vision_embeds``), drawn from the run's seeded
 generator.
 
-``--replicas``, ``--qps`` and ``--tp`` (cluster and tensor-parallel serving)
-wait for the port's ``cluster/`` and ``distributed/`` slices.
+``--replicas N`` (N > 1) serves through ``cluster.Cluster``: N engines on
+one device that share the params, each with its own KV pool, behind the
+deterministic router, on per-replica costed clocks (``cluster.run_online``,
+``costmodel.H100``), the requests arriving evenly at ``--qps`` of modeled
+time (0: all at t = 0); ``--trace-out`` then writes the merged per-replica
+trace.
+
+  python -m repro_torch.launch.serve --smoke --device cpu --replicas 2 --qps 20
+
+``--tp`` (tensor-parallel serving) waits for the port's ``distributed/``
+slice.
 """
 
 from __future__ import annotations
@@ -176,6 +186,46 @@ def report_outputs(engine: Engine, done, args) -> None:
               f"-> {args.audit_out}")
 
 
+def run_cluster(args, full_cfg, make_engine, reqs) -> None:
+    """The multi-replica path: ``args.replicas`` engines behind the
+    deterministic router, driven on per-replica costed clocks
+    (``cluster.run_online``); prints what ``repro.launch.serve.run_cluster``
+    prints, the modeled fleet time on the ``costmodel.H100`` clock."""
+    from repro_torch.cluster import Cluster, run_online
+    from repro_torch.obs import validate_chrome_trace
+
+    cluster = Cluster(make_engine, args.replicas)
+    arrivals = [(i / args.qps) if args.qps > 0 else 0.0 for i in range(len(reqs))]
+    t0 = time.perf_counter()
+    res = run_online(cluster, full_cfg, list(zip(reqs, arrivals)),
+                     invariant_mode=args.mode == "batch_invariant")
+    wall = time.perf_counter() - t0
+    done = cluster.finished
+    print(f"cluster: {args.replicas} replicas, finished {len(done)} "
+          f"requests, {res.out_tokens} tokens in {wall:.1f}s wall")
+    print(f"modeled H100 fleet time of {full_cfg.name} (cost model, not a "
+          f"measurement): {res.total_time * 1e3:.1f} ms -> "
+          f"{res.throughput:.0f} tok/s aggregate (goodput @ TTFT<=1s: "
+          f"{res.goodput(1.0):.0f} tok/s)")
+    rt = cluster.router
+    print(f"router: {rt.assignments} assignments, affinity hit rate "
+          f"{100 * rt.affinity_hit_rate:.0f}%, {rt.diverted} diverted by load "
+          f"guard, {rt.transfers} block transfers ({rt.transferred_tokens} KV "
+          f"tokens moved)")
+    occ = ", ".join(
+        f"r{r.idx}={res.metrics[f'cluster.replica.{r.idx}.occupancy']:.2f}"
+        for r in cluster.replicas)
+    print(f"final occupancy: {occ}")
+    if args.trace_out:
+        trace = cluster.chrome_trace()
+        errors = validate_chrome_trace(trace)
+        assert not errors, f"trace failed schema validation: {errors[:5]}"
+        with open(args.trace_out, "w") as f:
+            json.dump(trace, f)
+        print(f"trace: {len(trace['traceEvents'])} events across "
+              f"{args.replicas} pids -> {args.trace_out}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
@@ -209,6 +259,12 @@ def main() -> None:
                          "undersized pool preempts and restores by recompute")
     ap.add_argument("--prefix-cache", default="on", choices=["on", "off"],
                     help="commit-aware radix prefix cache")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas behind the deterministic cluster "
+                         "router (they share the params; each owns its pool)")
+    ap.add_argument("--qps", type=float, default=0.0,
+                    help="replica-mode arrival rate (requests/s of modeled "
+                         "time, evenly spaced; 0 = all arrive at t=0)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a Chrome/Perfetto trace-event JSON of the run")
@@ -231,24 +287,31 @@ def main() -> None:
     params = init_params(cfg, gen, device)
     sched_cls = SCHEDULERS[args.scheduler]
     hw = costmodel.H100
-    engine = Engine(
-        cfg, params, mode=Mode(args.mode), policy=FAST_PATH_POLICY,
-        window=args.window, group=args.group, max_batch=args.max_batch,
-        # the prefix embeds take positions before the prompt
-        capacity=min(cfg.max_seq_len, 512 + cfg.num_prefix_embeds),
-        scheduler=sched_cls() if sched_cls else None,
-        spec_depth=args.spec_depth,
-        verify_latency_ms=args.verify_latency_ms,
-        cost_cfg=full_cfg,  # the clock prices the full model even under --smoke
-        hw=hw,
-        prefill_chunk=args.prefill_chunk,
-        block_size=args.block_size, num_blocks=args.num_blocks,
-        prefix_cache=args.prefix_cache == "on",
-        trace=args.trace_out is not None,
-        audit=args.audit_out is not None,
-    )
+
+    def make_engine(idx: int = 0) -> Engine:
+        return Engine(
+            cfg, params, mode=Mode(args.mode), policy=FAST_PATH_POLICY,
+            window=args.window, group=args.group, max_batch=args.max_batch,
+            # the prefix embeds take positions before the prompt
+            capacity=min(cfg.max_seq_len, 512 + cfg.num_prefix_embeds),
+            scheduler=sched_cls() if sched_cls else None,
+            spec_depth=args.spec_depth,
+            verify_latency_ms=args.verify_latency_ms,
+            cost_cfg=full_cfg,  # the clock prices the full model even under --smoke
+            hw=hw,
+            prefill_chunk=args.prefill_chunk,
+            block_size=args.block_size, num_blocks=args.num_blocks,
+            prefix_cache=args.prefix_cache == "on",
+            trace=args.trace_out is not None,
+            audit=args.audit_out is not None,
+        )
+
     reqs = build_requests(cfg, args.requests, args.det_ratio, args.max_new,
                           args.seed, args.workload, generator=gen)
+    if args.replicas > 1:
+        run_cluster(args, full_cfg, make_engine, reqs)
+        return
+    engine = make_engine()
     res = serve(engine, reqs, args.metrics_interval)
     out, done = res["committed"], res["done"]
     print(f"finished {res['finished']} requests, {out} tokens committed in "

@@ -1,0 +1,116 @@
+"""End-to-end training driver for the PyTorch port.
+
+The counterpart of ``repro.launch.train_launch``, with the same flags plus
+``--device`` and ``--smoke``, as the port's serve driver has them.  It
+trains the full config (published widths, random weights from ``--seed``)
+on ``cuda`` unless ``--smoke`` picks the reduced config, AdamW with a
+linear warmup over a tenth of ``--steps`` and cosine decay, on
+``training.data.SyntheticTextStream`` batches; it prints the step, loss,
+gradient norm, learning rate and tokens/s every ``--log-every`` steps (and
+at the first).  Every forward and backward GEMM runs in the commit GEMM on
+the card (``kernels.ops.GemmGrad``), and the whole step under
+``core.determinism.deterministic_torch``, so a step is repeatable bit for
+bit.  An encoder-decoder config's batches carry stub audio frames
+(``models.multimodal.audio_frames``, seeded by the step).
+
+``--resume`` restores params, optimizer state and step from an archive
+that either package wrote (``training.checkpoint``) and skips the batches
+those steps consumed, so a resumed run continues the uninterrupted one
+(the reference's driver restarts its stream instead); ``--ckpt`` saves at
+the end.
+
+  python -m repro_torch.launch.train_launch --smoke --device cpu --steps 5
+  python -m repro_torch.launch.train_launch --steps 20 --batch 4 --seq 512   # on a GPU
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import torch
+
+from repro_torch import configs as config_registry
+from repro_torch import resolve_device
+from repro_torch.core.determinism import deterministic_torch
+from repro_torch.models.base import init_params
+from repro_torch.models.multimodal import audio_frames
+from repro_torch.training.checkpoint import restore, save
+from repro_torch.training.data import SyntheticTextStream
+from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+from repro_torch.training.train import make_train_step, train_params
+
+
+def batch_on(cfg, b, step: int, device: torch.device) -> dict:
+    """A ``TrainBatch`` as the train step's tensors on ``device``; an
+    encoder-decoder config adds stub audio frames seeded by ``step``."""
+    batch = {
+        "tokens": torch.from_numpy(b.tokens).to(device),
+        "targets": torch.from_numpy(b.targets).to(device),
+        "loss_mask": torch.from_numpy(b.loss_mask).to(device),
+    }
+    if cfg.family == "encdec":
+        gen = torch.Generator(device=device).manual_seed(step)
+        batch["enc_embeds"] = audio_frames(gen, b.tokens.shape[0], cfg.encoder_seq_len,
+                                           cfg.d_model, getattr(torch, cfg.dtype), device)
+    return batch
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-runnable)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu (plain versions of the kernels)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--resume", default=None)
+    ap.add_argument("--log-every", type=int, default=10)
+    args = ap.parse_args()
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    device = resolve_device(args.device)
+    cfg = (config_registry.get_smoke_config(args.arch) if args.smoke
+           else config_registry.get_config(args.arch))
+    print(f"training {cfg.name}: {cfg.param_count() / 1e6:.1f}M params on {device}")
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = train_params(cfg, init_params(cfg, gen, device))
+    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
+                          total_steps=args.steps)
+    opt_state = init_opt_state(params)
+    start_step = 0
+    if args.resume:
+        params, opt_state, start_step = restore(args.resume, params, opt_state)
+        print(f"resumed from {args.resume} at step {start_step}")
+
+    step_fn = make_train_step(cfg, opt_cfg, num_microbatches=args.microbatches)
+    stream = iter(SyntheticTextStream(cfg.vocab_size, args.seq, args.batch))
+    for _ in range(start_step):
+        next(stream)
+
+    t0 = time.perf_counter()
+    with deterministic_torch():
+        for i in range(start_step, args.steps):
+            batch = batch_on(cfg, next(stream), i, device)
+            params, opt_state, m = step_fn(params, opt_state, batch)
+            if (i + 1) % args.log_every == 0 or i == start_step:
+                loss = float(m["loss"])  # waits for the step
+                tps = (i + 1 - start_step) * args.batch * args.seq / (
+                    time.perf_counter() - t0)
+                print(f"step {i + 1:5d}  loss {loss:.4f}  "
+                      f"gnorm {float(m['grad_norm']):.2f}  lr {float(m['lr']):.2e}  "
+                      f"{tps:.0f} tok/s")
+    if args.ckpt:
+        save(args.ckpt, params, opt_state, step=args.steps)
+        print(f"saved checkpoint to {args.ckpt}")
+
+
+if __name__ == "__main__":
+    main()

@@ -19,6 +19,8 @@ Multi-token passes (verify windows, prefill) run the same plain tensor code
 (``einsum``, TF32 off) in both lanes, as the JAX package leaves them to
 XLA, so the commit path is bitwise the same in both; passes longer than
 ``CHUNK_THRESHOLD`` rows attend q-chunked (``_chunked_attend``).
+Training attends over the whole sequence (``attention_train``: plain tensor
+code, as in the reference).
 Sliding-window rings (``attention_cached`` with ``window > 0``) mask by
 the stored positions; their single-token passes run plain tensor code too,
 under one kv split by fixed halving trees (``_ring_decode_attend``).
@@ -32,6 +34,7 @@ which returns new caches, the leaves are updated in place.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -51,6 +54,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
     ss = segment_reduce_sum(x * x, axis=-1, schedule=schedule)
     inv = torch.rsqrt(ss / x.shape[-1] + eps)
     return (x.to(F32) * inv[..., None]).to(x.dtype) * scale
+
+
+@functools.lru_cache(maxsize=None)
+def q_scale(hd: int, dtype: torch.dtype) -> float:
+    """The attention scale hd^-0.5 rounded to q's dtype.  The reference's
+    ``q * (cfg.hd**-0.5)`` meets a weakly typed Python scalar, which JAX
+    casts to q's dtype first; PyTorch would multiply by its f32 value
+    instead, and at a bf16 q the products then round apart wherever
+    hd^-0.5 is no power of two (hd 96, 112, 128)."""
+    return torch.tensor(hd ** -0.5, dtype=dtype).item()
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -255,7 +268,7 @@ def attention_cached(
         out = ops.decode_attention(q[:, 0], cache["k"], cache["v"],
                                    abs_pos[:, 0] + 1, schedule)
     else:
-        q = q * (cfg.hd ** -0.5)
+        q = q * q_scale(cfg.hd, q.dtype)
         if W > CHUNK_THRESHOLD:
             out = _chunked_attend(q.to(F32), cache["k"], cache["v"], abs_pos,
                                   cache["pos"], schedule, cfg.logit_softcap, window)
@@ -274,6 +287,34 @@ def attention_cached(
                                       cfg.logit_softcap)
     out = matmul(out.reshape(B, W, -1).to(x.dtype), p["wo"], schedule)
     return out, cache
+
+
+def attention_train(p: Dict, cfg, x: torch.Tensor, schedule: Schedule,
+                    window: int = 0) -> torch.Tensor:
+    """Full-sequence causal attention (training, no cache).  x: (B, S, D).
+
+    Plain tensor code, as in the reference (``repro.models.layers.
+    attention_train``), whose XLA attention runs no kernel: rope at
+    positions 0..S-1, q scaled in the activation dtype, one
+    ``_softmax_attend`` under the causal mask (and the window term when
+    ``window > 0``), q-chunked (``_chunked_attend``) above
+    ``CHUNK_THRESHOLD`` rows, then ``wo``."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, schedule)
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    q = q * q_scale(cfg.hd, q.dtype)
+    if S > CHUNK_THRESHOLD:
+        out = _chunked_attend(q.to(F32), k, v, pos, pos, schedule,
+                              cfg.logit_softcap, window)
+    else:
+        qp, kp = pos[0, :, None], pos[0, None, :]
+        mask = kp <= qp
+        if window > 0:
+            mask = mask & (kp > qp - window)
+        out = _softmax_attend(q, k, v, mask[None], schedule, cfg.logit_softcap)
+    return matmul(out.reshape(B, S, -1).to(x.dtype), p["wo"], schedule)
 
 
 class PagedView(NamedTuple):
@@ -327,7 +368,7 @@ def attention_paged(
             abs_pos[:, 0], schedule, null_bid=paged.null_bid,
         )
     else:
-        q = q * (cfg.hd ** -0.5)
+        q = q * q_scale(cfg.hd, q.dtype)
         flat = torch.where(tables < 0, paged.null_bid, tables).long()
         k_view = cache["k"][flat].reshape(B, nblk * bs, -1, cfg.hd)
         v_view = cache["v"][flat].reshape(B, nblk * bs, -1, cfg.hd)
@@ -350,22 +391,23 @@ def cross_attention(
 ) -> torch.Tensor:
     """Decoder-to-encoder attention (no positions, no rope).
 
+    q is scaled by hd^-0.5 in the activation dtype (``q_scale``), as in the
+    reference.
     W == 1 (decode, BATCH_INVARIANT's at every B) goes to
-    ``ops.decode_attention`` with the unscaled q and ``lengths =
+    ``ops.decode_attention`` with that q, ``scale=1.0`` and ``lengths =
     enc_mask.sum(-1)``: under the commit schedule one kv split, whose rows
     do not follow B on the card, where ``_softmax_attend``'s ``einsum`` rows
     do.  The length mask equals ``enc_mask`` because an encoder mask is a
     prefix of valid frames (``models.transformer.build_cross_cache`` marks
-    all of them).  The kernel scales q by hd^-0.5 in f32; the reference
-    scales in the activation dtype first, which is exact at seamless's
-    hd = 64.  W > 1 (verify windows, prefill chunks) runs
+    all of them).  W > 1 (verify windows, prefill chunks) runs
     ``_softmax_attend`` under ``enc_mask``, as the reference does."""
     B, W, _ = x.shape
     q = matmul(x, p["wq"], schedule).reshape(B, W, cfg.num_heads, cfg.hd)
+    q = q * q_scale(cfg.hd, q.dtype)
     if W == 1:
-        out = ops.decode_attention(q[:, 0], enc_k, enc_v, enc_mask.sum(-1), schedule)
+        out = ops.decode_attention(q[:, 0], enc_k, enc_v, enc_mask.sum(-1), schedule,
+                                   scale=1.0)
     else:
-        q = q * (cfg.hd ** -0.5)
         out = _softmax_attend(q.to(F32), enc_k, enc_v, enc_mask[:, None, :], schedule)
     return matmul(out.reshape(B, W, -1).to(x.dtype), p["wo"], schedule)
 

@@ -5,8 +5,8 @@ PyTorch counterpart of ``repro.models.transformer``: ``cache_spec``,
 ``_apply_layer`` (attention with its dense or MoE FFN, an encoder-decoder
 layer's cross-attention between them, or rwkv's time and channel mixing),
 ``_embed``, ``_unembed``, ``forward`` with ``collect_states`` and
-``inputs_embeds`` (prefix embeddings), ``encode`` and
-``build_cross_cache``.  Full-attention layers run over the paged pool
+``inputs_embeds`` (prefix embeddings), ``forward_train`` (the full causal
+pass that training differentiates), ``encode`` and ``build_cross_cache``.  Full-attention layers run over the paged pool
 (``tables`` and ``paged`` given) or over dense per-row cache views
 (neither given; the gathered lane); sliding-window layers keep dense
 per-slot rings of ``min(capacity, window + RING_SLACK)`` slots and are
@@ -26,16 +26,19 @@ here, so every leaf's row axis is axis 1, which
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.determinism import Schedule, VERIFY_SCHEDULE, matmul
 from repro_torch.models import rwkv6
-from repro_torch.models.base import ModelConfig, check_ported
+from repro_torch.models.base import ModelConfig, check_ported, padded_vocab
 from repro_torch.models.layers import (
     PagedView, _qkv, _softmax_attend, attention_cached, attention_paged,
-    cross_attention, encode_cross_kv, moe_ffn, rms_norm, rope, swiglu_ffn,
+    attention_train, cross_attention, encode_cross_kv, moe_ffn, q_scale, rms_norm,
+    rope, swiglu_ffn,
 )
 
 F32 = torch.float32
@@ -247,6 +250,113 @@ def forward(
     return logits, cache, per_pos
 
 
+_NO_AUX = ("aux_loss", "dropped_frac")
+
+
+def _train_layer(cfg: ModelConfig, i: int, lp: Dict, x: torch.Tensor,
+                 cross_kv: Optional[Dict[str, torch.Tensor]],
+                 schedule: Schedule) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Decoder layer ``i`` over the whole sequence without a cache (the
+    reference's ``_apply_layer`` with ``lc=None``); returns ``(x, aux)``,
+    aux holding the MoE layer's ``aux_loss`` and ``dropped_frac`` (zeros
+    for a dense FFN).  An rwkv layer starts from the zero state."""
+    zero = torch.zeros((), dtype=F32, device=x.device)
+    aux = dict.fromkeys(_NO_AUX, zero)
+    if cfg.layer_kind(i) == "rwkv":
+        st = rwkv6.init_state(cfg, x.shape[0], x.dtype, x.device)
+        h = rms_norm(x, lp["norm0"], cfg.norm_eps, schedule)
+        x = x + rwkv6.time_mix(lp["rwkv"], cfg, h, st["tm_shift"], st["wkv"],
+                               schedule, False)[0]
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps, schedule)
+        return x + rwkv6.channel_mix(lp["rwkv"], cfg, h, st["cm_shift"], schedule)[0], aux
+    window = cfg.window if cfg.attn_kind == "sliding" else 0
+    h = rms_norm(x, lp["norm0"], cfg.norm_eps, schedule)
+    x = x + attention_train(lp["attn"], cfg, h, schedule, window)
+    norm_idx = 1
+    if cross_kv is not None:
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps, schedule)
+        x = x + cross_attention(lp["cross_attn"], cfg, h, cross_kv["k"], cross_kv["v"],
+                                cross_kv["mask"], schedule)
+        norm_idx = 2
+    h = rms_norm(x, lp[f"norm{norm_idx}"], cfg.norm_eps, schedule)
+    if "moe" in lp:
+        out, moe_aux = moe_ffn(lp["moe"], cfg, h, schedule)
+        aux = {k: moe_aux[k] for k in _NO_AUX}
+    else:
+        out = swiglu_ffn(lp["ffn"], h, schedule)
+    return x + out, aux
+
+
+def _train_unembed(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                   schedule: Schedule) -> torch.Tensor:
+    """The unembedding of a training tree: a tied config reads ``embed.T``
+    (so its gradient reaches ``embed``), padded to ``padded_vocab`` zero
+    columns where the tree's ``unembed`` is not, and the logits are cut
+    back to ``vocab_size``."""
+    w = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
+    pad = padded_vocab(cfg) - w.shape[1]
+    if pad > 0:
+        w = torch.nn.functional.pad(w, (0, pad))
+    return matmul(x, w.contiguous(), schedule)[..., : cfg.vocab_size]
+
+
+def forward_train(
+    params: Dict,
+    cfg: ModelConfig,
+    tokens: Optional[torch.Tensor],  # (B, S) int
+    *,
+    inputs_embeds: Optional[torch.Tensor] = None,  # (B, S, D) overrides tokens
+    schedule: Schedule = VERIFY_SCHEDULE,
+    enc_embeds: Optional[torch.Tensor] = None,  # (B, Se, D) for encdec
+    remat: bool = False,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full causal forward for training: ``(logits (B, S, V) f32, aux)``,
+    the reference's ``forward_train``.  The ``first_k_dense`` head layers
+    run first, then the block layers; ``aux`` sums every MoE layer's
+    ``aux_loss`` and ``dropped_frac`` (the block layers' sum added to the
+    head layers' as one ``torch.sum``, as the reference sums its scan's
+    stacked outputs).  An encoder-decoder config runs ``encode`` and every
+    layer's ``encode_cross_kv`` first, under an all-true cross mask; its
+    sequence must be longer than one token (a single-token cross pass runs
+    the forward-only ``decode_attention`` kernel).  ``remat`` recomputes
+    each block layer in the backward pass (``torch.utils.checkpoint``, not
+    reentrant), as ``jax.checkpoint`` does.  The reference's ``unroll`` has
+    no meaning for a Python loop and is dropped.  ``params`` is the JAX
+    tree (``training.train.train_params``) or a serving tree with the
+    derived ``unembed``."""
+    x = _embed(params, cfg, tokens, inputs_embeds)
+    fkd = cfg.first_k_dense
+    cross_kv = None
+    if cfg.family == "encdec":
+        assert enc_embeds is not None, "an encoder-decoder config needs enc_embeds"
+        assert x.shape[1] > 1, "forward_train's cross-attention needs S > 1"
+        enc_out = encode(params, cfg, enc_embeds, schedule)
+        cross_mask = torch.ones(enc_out.shape[:2], dtype=torch.bool, device=x.device)
+    aux_acc = dict.fromkeys(_NO_AUX, torch.zeros((), dtype=F32, device=x.device))
+    for i in range(fkd):
+        x, aux = _train_layer(cfg, i, params["head_layers"][str(i)], x, None, schedule)
+        aux_acc = {k: aux_acc[k] + aux[k] for k in _NO_AUX}
+    blocks = params["blocks"]["0"]
+    auxs = []
+    for i in range(cfg.num_layers - fkd):
+        lp = _index(blocks, i)
+        if cfg.family == "encdec":
+            k, v = encode_cross_kv(lp["cross_attn"], cfg, enc_out, schedule)
+            cross_kv = {"k": k, "v": v, "mask": cross_mask}
+        layer = functools.partial(_train_layer, cfg, fkd + i)
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                layer, lp, x, cross_kv, schedule, use_reentrant=False)
+        else:
+            x, aux = layer(lp, x, cross_kv, schedule)
+        auxs.append(aux)
+    if auxs:
+        aux_acc = {k: aux_acc[k] + torch.stack([a[k] for a in auxs]).sum()
+                   for k in _NO_AUX}
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps, schedule)
+    return _train_unembed(params, cfg, x, schedule).to(F32), aux_acc
+
+
 def encode(params: Dict, cfg: ModelConfig, enc_embeds: torch.Tensor,
            schedule: Schedule = VERIFY_SCHEDULE) -> torch.Tensor:
     """The bidirectional encoder stack over ``enc_embeds`` (B, Se, D), the
@@ -262,7 +372,8 @@ def encode(params: Dict, cfg: ModelConfig, enc_embeds: torch.Tensor,
         lp = _index(enc, i)
         a = rms_norm(x, lp["norm0"], cfg.norm_eps, schedule)
         q, k, v = _qkv(lp["attn"], cfg, a, schedule)
-        q = rope(q, pos, cfg.rope_theta) * (cfg.hd ** -0.5)
+        q = rope(q, pos, cfg.rope_theta)
+        q = q * q_scale(cfg.hd, q.dtype)
         k = rope(k, pos, cfg.rope_theta)
         out = _softmax_attend(q.to(F32), k, v, mask, schedule)
         x = x + matmul(out.reshape(B, S, -1).to(x.dtype), lp["attn"]["wo"], schedule)

@@ -33,7 +33,8 @@ gathered lane.
 The JAX package threads an immutable pool through every step; here the
 leaves are updated in place (the paged forward writes through the tables,
 ``scatter`` and ``scatter_mixed`` write gathered rows and views back,
-``wipe_blocks`` and ``wipe_slot`` reset freed blocks and slots).
+``wipe_blocks`` and ``wipe_slot`` reset freed blocks and slots,
+``copy_blocks`` copies a prefix's blocks from one pool into another).
 """
 
 from __future__ import annotations
@@ -262,6 +263,34 @@ def scatter_mixed(pool: Any, lay: Layout, slots: torch.Tensor, update: Any) -> A
         return leaf
 
     return _map(sm, pool, lay.kinds, update)
+
+
+def copy_blocks(src_pool: Any, dst_pool: Any, lay: Layout,
+                src_bids: List[int], dst_bids: List[int]) -> Any:
+    """Copy paged-leaf block rows ``src_bids`` of ``src_pool`` into
+    ``dst_bids`` of ``dst_pool`` in place; returns the destination tree.
+
+    The cluster front end's cross-replica prefix transfer
+    (``cluster.replica.transfer_prefix``): both pools share one
+    :class:`Layout`.  Slot and cross leaves never move: prefix sharing is
+    defined only for paged full-attention KV.  The block ids go to the
+    device once; then one gather and one ``index_put_`` a leaf (no host
+    round trip), under
+    ``core.determinism.deterministic_torch`` like every other pool write."""
+    from repro_torch.core.determinism import deterministic_torch
+
+    assert len(src_bids) == len(dst_bids)
+    pairs = [(d, s) for d, s, kind in zip(_leaves(dst_pool), _leaves(src_pool),
+                                          _leaves(lay.kinds)) if kind == "paged"]
+    if not src_bids or not pairs:
+        return dst_pool
+    si = torch.tensor(src_bids, dtype=torch.long, device=pairs[0][1].device)
+    di = torch.tensor(dst_bids, dtype=torch.long, device=pairs[0][0].device)
+    with deterministic_torch():
+        for dst_leaf, src_leaf in pairs:
+            dst_leaf[:, di] = src_leaf[:, si].to(device=dst_leaf.device,
+                                                 dtype=dst_leaf.dtype)
+    return dst_pool
 
 
 # ---------------------------------------------------------------------------

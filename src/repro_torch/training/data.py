@@ -1,19 +1,82 @@
-"""Serving workloads: ShareGPT- and ArXiv-like request lengths.
+"""Data pipelines (numpy only), the PyTorch port of ``repro.training.data``.
 
-The serving half of ``repro.training.data`` (numpy only): generators
-matching the paper's Table 3 length statistics (lognormal fits to the
-reported mean/median/std) and Poisson arrivals, used by ``launch/serve.py``
-and the online runner.  The training stream (``SyntheticTextStream``,
-``TrainBatch``) waits for the port's training slice.
+Training: an infinite synthetic token stream (deterministic per seed, bit
+for bit the reference's batches) with document structure (BOS-delimited
+segments of varying length) so attention masks and loss masking are
+exercised realistically.
+
+Serving: ShareGPT- and ArXiv-like workload generators matching the paper's
+Table 3 length statistics (lognormal fits to the reported mean/median/std)
+and Poisson arrivals, used by ``launch/serve.py`` and the online runner.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Tuple
+from typing import Iterator, List, Tuple
 
 import numpy as np
+
+
+# ---------------------------------------------------------------------------
+# training stream
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TrainBatch:
+    tokens: np.ndarray  # (B, S) int32 inputs
+    targets: np.ndarray  # (B, S) int32 next-token labels
+    loss_mask: np.ndarray  # (B, S) f32
+
+
+class SyntheticTextStream:
+    """Deterministic document stream: Zipf-ish unigram draws per document
+    with a document-specific bigram bias, BOS=0 delimited."""
+
+    def __init__(self, vocab_size: int, seq_len: int, batch_size: int,
+                 seed: int = 0, mean_doc_len: int = 512):
+        self.vocab = vocab_size
+        self.seq = seq_len
+        self.batch = batch_size
+        self.rng = np.random.default_rng(seed)
+        self.mean_doc = mean_doc_len
+        # Zipf-like unigram distribution
+        ranks = np.arange(1, vocab_size + 1)
+        p = 1.0 / ranks
+        self.unigram = p / p.sum()
+
+    def _document(self) -> np.ndarray:
+        n = max(8, int(self.rng.exponential(self.mean_doc)))
+        # markov structure: with p=0.7 continue a deterministic chain,
+        # else draw fresh from the Zipf unigram (learnable in ~100 steps)
+        draws = self.rng.choice(self.vocab, size=n, p=self.unigram)
+        cont = self.rng.random(n) < 0.7
+        toks = np.empty(n, np.int64)
+        toks[0] = 0  # BOS
+        for i in range(1, n):
+            toks[i] = (toks[i - 1] * 7 + 13) % self.vocab if cont[i] else draws[i]
+        return toks.astype(np.int32)
+
+    def __iter__(self) -> Iterator[TrainBatch]:
+        buf = np.zeros(0, np.int32)
+        while True:
+            need = self.batch * (self.seq + 1)
+            while buf.size < need:
+                buf = np.concatenate([buf, self._document()])
+            chunk, buf = buf[:need], buf[need:]
+            chunk = chunk.reshape(self.batch, self.seq + 1)
+            yield TrainBatch(
+                tokens=chunk[:, :-1].copy(),
+                targets=chunk[:, 1:].copy(),
+                loss_mask=(chunk[:, 1:] != 0).astype(np.float32),
+            )
+
+
+# ---------------------------------------------------------------------------
+# serving workloads (paper Table 3)
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
