@@ -22,7 +22,9 @@ the main path) and the gathered lane (``paged_attention=False``):
            {1, 3, 8, 13} at each shape, and the same bits at a 128- and a
            2056-entry table, or a 2048- and a 32896-slot view), bitwise
            repeatability of the commit kernels, split and combine
-           sensitivity of the fast kernels, which GEMM partial tile each
+           sensitivity of the fast kernels, the split-K kernel's TP fold
+           (tp 2 and 4 x splits 1, 4 and 8 x combine bf16 and f32, pinned,
+           uneven nested chunks; tp 1 and tp 4 differ), which GEMM partial tile each
            operand dtype runs (bf16: tensor cores, f32: CUDA cores) and that
            an ``rmsnorm`` call is one launch (by kernel name in a profiler
            trace);
@@ -39,7 +41,11 @@ the main path) and the gathered lane (``paged_attention=False``):
            greedy and seeded deterministic requests: LLM42 and
            BATCH_INVARIANT streams must be bitwise identical alone and
            beside 3 and 6 neighbours, and the gathered lane's LLM42 streams
-           equal to the paged lane's (NONDET divergence is printed);
+           equal to the paged lane's (NONDET divergence is printed); then
+           paged LLM42 with the fast path at TP widths 2 and 4
+           (``Engine(tp=N)``), alone and beside 3 neighbours, must commit
+           the tp 1 streams, launches held to the passes (NONDET at tp 1
+           against tp 4 printed);
 5. profile ``torch.profiler`` over a window of 4 iterations of the paged
            LLM42 run: device time by kernel, the GEMMs' and the paged
            kernels' share, and the device's busy share; then a short run of
@@ -111,7 +117,19 @@ the main path) and the gathered lane (``paged_attention=False``):
            that cut the prefix inside a chunk committing the exclusive
            prefill's streams (launches held to the passes, peak memory per
            config);
-11. cluster replicas 1, 2 and 3 of one tinyllama-1.1b engine (22 layers,
+11. hybrid  jamba-1.5-large-398b's ``mamba_layer`` at its published widths
+           (d_model 8192, d_inner 16384, d_state 16, d_conv 4, dt_rank 512,
+           bf16; one period of 8 layers does not fit one card) under the
+           commit schedule: out and both per-position state leaves bitwise
+           across B in {1, 7, 32} at W = 1 and 8, its device time at B = 8,
+           W = 1 with its launches per call; then the jamba-smoke engine
+           (attention and mamba layers in a block period of 2, MoE on every
+           other layer): LLM42 and BATCH_INVARIANT streams alone and beside
+           3 neighbours on both lanes, the lanes equal (NONDET printed),
+           overlap at spec_depth 2 equal to pause, a preempted and restored
+           request equal to the unpressured run (launches held to the
+           passes);
+12. cluster replicas 1, 2 and 3 of one tinyllama-1.1b engine (22 layers,
            full width) on one card, sharing the weights, each with its own
            paged pool, behind the deterministic router (``cluster/``) on
            the ``costmodel.H100`` clock: 12 requests of a shared 2-block
@@ -124,8 +142,9 @@ the main path) and the gathered lane (``paged_attention=False``):
            bitwise; each replica's launches equal its passes; the merged
            trace validates; modeled throughput, goodput (TTFT <= 1 s) and
            occupancy per replica; ``copy_blocks`` timed beside its bytes
-           bound;
-12. training the GEMMs' backward (``kernels.ops.GemmGrad``: dX = dY W^T
+           bound; the device memory allocated before the phase and after
+           it, with everything it made dropped (at most 64 MiB more);
+13. training the GEMMs' backward (``kernels.ops.GemmGrad``: dX = dY W^T
            and dW = X^T dY in the commit GEMM) against the plain version's
            autograd at tinyllama's projection shapes and LM head, at M =
            2048 and 1003, dX's rows bitwise across M, each product timed
@@ -139,7 +158,7 @@ the main path) and the gathered lane (``paged_attention=False``):
            peak memory; one more step split at its gradients and its update
            (device memory held and peak in each half), and one under
            ``torch.profiler`` (device time by kernel, busy share);
-13. timings each kernel against its plain version and one PyTorch call,
+14. timings each kernel against its plain version and one PyTorch call,
            beside the least time the card could take (100 launches a
            reading); both GEMMs beside ``torch.matmul`` at every projection
            shape and serve-run M, their device time per forward, and the
@@ -170,6 +189,7 @@ is visible or when it runs outside a checkout of the repository.
     python3 chip_smoke.py --phases build,variants
     python3 chip_smoke.py --phases build,families
     python3 chip_smoke.py --phases build,modalities
+    python3 chip_smoke.py --phases build,hybrid
     python3 chip_smoke.py --phases build,cluster,training
 """
 
@@ -192,7 +212,8 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "serve", "determinism", "profile", "online", "configs",
-          "variants", "families", "modalities", "cluster", "training", "timings")
+          "variants", "families", "modalities", "hybrid", "cluster", "training",
+          "timings")
 
 #: per-request KV reach of the serve phase (128 blocks of 16).  The paged
 #: kernels' cost no longer follows the reach (the timings phase times them
@@ -616,10 +637,71 @@ def phase_kernels(torch, cfg, results) -> None:
     require(not torch.equal(one, eight), "gemm_splitk: splits 1 and 8 agree bitwise")
     log(f"[kernels] gemm_splitk splits 1 vs 8 (bf16 combine) differ at "
         f"{int((one != eight).sum())} of {one.numel()} outputs")
+    check_tp_fold(torch, cfg, results, rnd, bf16_tol)
 
     check_paged_attention(torch, cfg, results)
     check_decode_attention(torch, cfg, results)
     check_rmsnorm(torch, cfg, results)
+
+
+#: the TP fold's un-pinned cases at the headline shape: tp x splits x combine
+TP_FOLD_CASES = tuple((tp, splits, cd, False) for tp in (2, 4) for splits in (1, 4, 8)
+                      for cd in ("bfloat16", "float32"))
+#: K of the uneven cases: tinyllama's d_ff (5632: tp 4 x splits 8 cuts
+#: 176-column sub-chunks, off the 64-column K grid) and 4104 (tp 4 x splits
+#: 8 cuts 1026-column chunks into 129 and 128 columns)
+TP_FOLD_UNEVEN_K = (5632, 4104)
+
+
+def check_tp_fold(torch, cfg, results, rnd, bf16_tol) -> None:
+    """The split-K kernel's two-level TP fold (``tp_shards`` K chunks, each
+    under the split schedule) against its plain version at the decode
+    batch's FFN down projection, (8, d_ff) @ (d_ff, d_model): un-pinned at
+    tp 2 and 4 x splits 1, 4 and 8 x combine bf16 and f32, pinned (the
+    balanced f32 tree) at tp 4 x splits 4 and tp 2 x splits 8; uneven nested
+    chunks at ``TP_FOLD_UNEVEN_K`` and f32 operands; within 4 bf16 ulps of
+    max|ref| (1e-4 for f32 operands).  Negative control: the tp 1 and tp 4
+    results differ."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gemm_splitk import gemm_splitk
+
+    D, F = cfg.d_model, cfg.d_ff
+
+    def case(x, w, tp, splits, cd, pinned, tol_ulps=4):
+        out = gemm_splitk(x, w, splits=splits, combine_dtype=cd, tp_shards=tp,
+                          tp_pinned=pinned)
+        want = ref.gemm_splitk(x, w, splits, cd, tp_shards=tp, tp_pinned=pinned)
+        sync(torch)
+        err = float((out.float() - want.float()).abs().max())
+        tol = bf16_tol(want, tol_ulps) if x.dtype == torch.bfloat16 else 1e-4
+        M, K = x.shape
+        log(f"[kernels] gemm_splitk TP fold ({M},{K})@({K},{w.shape[1]}) tp={tp} "
+            f"splits={splits} {cd} combine{' pinned' if pinned else ''}: max_abs_err "
+            f"{err:.3e} (tol {tol:.3e})")
+        require(err <= tol, f"gemm_splitk TP fold disagrees at K={K} tp={tp} "
+                f"splits={splits} {cd} pinned={pinned}")
+        return err, out
+
+    x, w = rnd(8, F), rnd(F, D, scale=F ** -0.5)
+    worst = 0.0
+    for tp, splits, cd, pinned in TP_FOLD_CASES + ((4, 4, "bfloat16", True),
+                                                   (2, 8, "float32", True)):
+        worst = max(worst, case(x, w, tp, splits, cd, pinned)[0])
+    for K in TP_FOLD_UNEVEN_K:
+        xu, wu = rnd(8, K), rnd(K, 2048, scale=K ** -0.5)
+        for tp, splits, cd in ((4, 8, "bfloat16"), (2, 4, "float32")):
+            worst = max(worst, case(xu, wu, tp, splits, cd, False)[0])
+    xf, wf = rnd(5, F).float(), rnd(F, 1000, scale=F ** -0.5).float()
+    case(xf, wf, 4, 8, "bfloat16", False)
+    case(xf, wf, 4, 1, "float32", True)
+    tp1 = gemm_splitk(x, w, splits=4, combine_dtype="bfloat16", tp_shards=1)
+    tp4 = gemm_splitk(x, w, splits=4, combine_dtype="bfloat16", tp_shards=4)
+    require(not torch.equal(tp1, tp4), "gemm_splitk: tp 1 and tp 4 agree bitwise")
+    log(f"[kernels] gemm_splitk TP fold: {len(TP_FOLD_CASES) + 2} cases at the headline "
+        f"shape and uneven nested chunks at K in {TP_FOLD_UNEVEN_K} within 4 bf16 ulps "
+        f"(worst {worst:.3e}); tp 1 vs tp 4 (splits 4, bf16 combine) differ at "
+        f"{int((tp1 != tp4).sum())} of {tp1.numel()} outputs")
+    results["gemm_splitk"]["tp_fold"] = {"max_abs_err": worst}
 
 
 #: rows of the 8 at which the commit paged kernel's rows must keep their
@@ -1157,13 +1239,13 @@ PATH_KERNELS = {
 def forward_gemms(cfg):
     """GEMM launches of one forward: ``(in the schedule's GEMM, in the
     commit GEMM whatever the schedule)``.  Per attention layer 4 projections
-    plus the dense FFN's 3 or a MoE layer's router in the schedule's GEMM
-    (a ``first_k_dense`` head layer is dense); per rwkv layer 10 (time
-    mixing: r, k, v, g, the decay LoRA's two, the output; channel mixing:
-    3); plus the unembedding; a MoE layer's 3 contractions per expert
-    (every expert, on its capacity bucket) in the commit GEMM with one
-    chunk; an encoder-decoder decoder layer adds its cross-attention's wq
-    and wo."""
+    (a mamba layer's 4 too: in, x, dt and out) plus the dense FFN's 3 or a
+    MoE layer's router in the schedule's GEMM (a ``first_k_dense`` head
+    layer is dense); per rwkv layer 10 (time mixing: r, k, v, g, the decay
+    LoRA's two, the output; channel mixing: 3); plus the unembedding; a MoE
+    layer's 3 contractions per expert (every expert, on its capacity
+    bucket) in the commit GEMM with one chunk; an encoder-decoder decoder
+    layer adds its cross-attention's wq and wo."""
     sched, experts = 1, 0
     if cfg.family == "encdec":
         sched += 2 * cfg.num_layers
@@ -1176,6 +1258,13 @@ def forward_gemms(cfg):
         else:
             sched += 4 + 3
     return sched, experts
+
+
+def splitk_schedule(s) -> bool:
+    """Whether ``kernels.ops.matmul`` sends a schedule's GEMMs to the split-K
+    kernel: every schedule but the one-split ones without TP chunks or with
+    pinned ones (the commit GEMM's)."""
+    return not (s.splits <= 1 and (s.tp_shards <= 1 or s.tp_pinned))
 
 
 def encoder_gemms(cfg):
@@ -1192,7 +1281,7 @@ def expected_launches(cfg, eng, paged):
     one attention launch per layer: on the paged lane the fast paged kernel
     where its kv_splits divides the table reach, else the commit one; on
     the gathered lane the dense decode kernel.  A sliding config's ring
-    passes and an rwkv layer launch no attention kernel.  A ``prefill`` event covers
+    passes and an rwkv or mamba layer launch no attention kernel.  A ``prefill`` event covers
     ``padded`` over the engine's ring-pass cap passes (one, but for a
     sliding prompt longer than the cap).  An encoder-decoder config's
     single-token forwards also run the dense decode kernel once a layer
@@ -1220,8 +1309,7 @@ def expected_launches(cfg, eng, paged):
             s = commit
         elif ev["kind"] == "decode":
             s = Schedule(*ev["schedule"])
-            split = s.splits > 1 and s.tp_shards == 1
-            want["gemm_splitk" if split else "gemm_batch_invariant"] += gemms
+            want["gemm_splitk" if splitk_schedule(s) else "gemm_batch_invariant"] += gemms
             want["gemm_batch_invariant"] += experts
         else:
             continue
@@ -1302,11 +1390,12 @@ def phase_reference(torch, cfg, params) -> None:
                 f"{lane}: card argmax disagrees with the CPU reference")
 
 
-def phase_determinism(torch, cfg, params, summary) -> None:
+def phase_determinism(torch, cfg, params, results, summary) -> None:
     """The divergence demo's experiment (examples/dvr_divergence_demo.py)
     on each lane, with three tracked requests (one greedy, two seeded at
     temperature 0.8 with top-k 0 and 50) beside 0, 3 and 6 greedy
-    neighbours."""
+    neighbours; then the paged LLM42 runs at TP widths 2 and 4
+    (``determinism_tp``)."""
     from repro_torch.core.determinism import Mode, ReductionPolicy
     from repro_torch.core.spans import consistent_spans
     from repro_torch.serving.engine import Engine
@@ -1318,9 +1407,9 @@ def phase_determinism(torch, cfg, params, summary) -> None:
     tracked = {0: dict(seed=7), 1: dict(seed=8, temperature=0.8),
                2: dict(seed=9, temperature=0.8, top_k=50)}
 
-    def run(lane, mode, n_neighbours):
+    def run(lane, mode, n_neighbours, tp=1, engine=None):
         eng = Engine(cfg, params, mode=mode, policy=policy, window=6, group=2,
-                     max_batch=12, capacity=256, paged_attention=LANES[lane])
+                     max_batch=12, capacity=256, paged_attention=LANES[lane], tp=tp)
         for rid, kw in tracked.items():
             eng.submit(Request(rid=rid, prompt=[rid * 11 + k for k in range(1, 11)],
                                sampling=SamplingParams(
@@ -1329,6 +1418,8 @@ def phase_determinism(torch, cfg, params, summary) -> None:
         for i in range(n_neighbours):
             eng.submit(Request(rid=10 + i, prompt=[3 * i + k for k in range(6)],
                                sampling=SamplingParams(max_new_tokens=max_new)))
+        if engine is not None:
+            engine.append(eng)
         done = {r.rid: r for r in eng.run()}
         return {rid: done[rid] for rid in tracked}
 
@@ -1364,6 +1455,47 @@ def phase_determinism(torch, cfg, params, summary) -> None:
     log(f"[determinism] LLM42 streams of the gathered lane equal the paged "
         f"lane's: {same}")
     require(same, "LLM42 streams differ between the gathered and paged lanes")
+    determinism_tp(torch, cfg, run, streams["paged", Mode.LLM42], results, summary)
+
+
+#: the fast path's logical TP widths the determinism phase serves at
+DETERMINISM_TP = (2, 4)
+
+
+def determinism_tp(torch, cfg, run, base, results, summary) -> None:
+    """Paged LLM42 with the fast path at TP widths 2 and 4 (decode GEMMs
+    fold tp K chunks un-pinned, in the split-K kernel): the tracked greedy
+    and seeded requests, alone and beside 3 neighbours, must commit the tp 1
+    streams ``base``; each run's launches equal its passes.  NONDET at tp 1
+    against tp 4 is printed."""
+    from repro_torch.core.determinism import Mode
+
+    seen = {}
+    for tp in DETERMINISM_TP:
+        for n in (0, 3):
+            engines = []
+            fns = reset_launches()
+            got = run("paged", Mode.LLM42, n, tp=tp, engine=engines)
+            sync(torch)
+            counts = launch_counts(fns)
+            want = expected_launches(cfg, engines[0], True)
+            require(counts == want, f"determinism tp={tp} beside {n}: launches {counts} "
+                    f"do not match the passes {want}")
+            name = f"determinism/paged/llm42/tp{tp}/{n}"
+            record_launches(results, name, counts)
+            same = {rid: r.committed for rid, r in got.items()} == base
+            rb = sum(r.num_rollbacks for r in got.values())
+            seen[f"tp{tp}_{n}"] = {"identical": same, "rollbacks": rb}
+            log(f"[determinism] paged llm42 at tp={tp} beside {n} neighbours: streams "
+                f"equal tp 1's={same} (greedy + 2 seeded) rollbacks={rb}; launches "
+                f"{counts} (= the passes)")
+            require(same, f"paged LLM42 streams at tp={tp} beside {n} differ from tp 1's")
+            del engines
+    nd = {tp: run("paged", Mode.NONDET, 0, tp=tp) for tp in (1, 4)}
+    diverged = [rid for rid in nd[1] if nd[1][rid].committed != nd[4][rid].committed]
+    seen["nondet_tp1_vs_tp4"] = {"diverged": diverged}
+    log(f"[determinism] paged NONDET alone at tp 1 vs tp 4: diverged rids {diverged}")
+    summary["determinism"]["tp"] = seen
 
 
 def phase_profile(torch, cfg, params, capacity, summary, warm=4, active=4) -> None:
@@ -2628,8 +2760,9 @@ def rwkv_rows_invariant(torch, cfg, params) -> dict:
                 tree_vs_einsum=err)
 
 
-def rwkv_depth(torch, cfg, params, results) -> dict:
-    """The counterpart of the JAX ``TestRecurrentDepth`` at full width:
+def recurrent_depth(torch, cfg, params, results, phase="families") -> dict:
+    """The counterpart of the JAX ``TestRecurrentDepth`` (rwkv at full
+    width in the families phase, jamba-smoke in the hybrid phase):
     LLM42 under the pause scheduler, then under an overlap scheduler at
     spec_depth 2 with a 20 ms verify latency (the costed clock), 4 requests
     (2 deterministic) of 32 + 16 tokens under the demo's fast path; the
@@ -2664,18 +2797,18 @@ def rwkv_depth(torch, cfg, params, results) -> dict:
         require(counts == expected_launches(cfg, eng, eng._paged_fwd),
                 f"{cfg.name} {name}: launches {counts}")
         for k, c in counts.items():
-            results[k]["launches_by_mode"][f"families/{cfg.name}/{name}"] = c
+            results[k]["launches_by_mode"][f"{phase}/{cfg.name}/{name}"] = c
         streams[name] = {rid: done[rid].committed for rid in (0, 2)}
         out[name] = dict(iterations=eng._now, peak_depth=eng.statepool.peak_depth,
                          rollbacks=[done[r].num_rollbacks for r in range(4)],
                          seconds=time.perf_counter() - t0)
-        log(f"[families] {cfg.name} LLM42 {name}: {eng._now} iterations, state pool "
+        log(f"[{phase}] {cfg.name} LLM42 {name}: {eng._now} iterations, state pool "
             f"peak depth {eng.statepool.peak_depth}, rollbacks by rid "
             f"{out[name]['rollbacks']}, launches {counts} (= the passes); "
             f"{out[name]['seconds']:.1f} s")
         del eng
     same = streams["pause"] == streams["overlap depth 2"]
-    log(f"[families] {cfg.name}: the overlap run at spec_depth 2 commits the pause "
+    log(f"[{phase}] {cfg.name}: the overlap run at spec_depth 2 commits the pause "
         f"run's deterministic streams: {same}")
     require(same, f"{cfg.name}: spec_depth 2 changed the committed streams")
     require(out["overlap depth 2"]["peak_depth"] >= 2,
@@ -2761,7 +2894,7 @@ def phase_families(torch, results, summary) -> None:
     rwkv.update(step("rwkv nondet", variant_serve, torch, cfg, arch, params, results,
                      lanes=("state",), modes=(Mode.NONDET,), prompts=(32, 32),
                      max_new=16, neighbours=3, capacity=CAPACITY, phase="families"))
-    rwkv["depth"] = step("rwkv depth", rwkv_depth, torch, cfg, params, results)
+    rwkv["depth"] = step("rwkv depth", recurrent_depth, torch, cfg, params, results)
     rwkv["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[families] {arch}: weights {weights:.3f} GiB, peak device memory "
         f"{rwkv['peak_mem_gib']:.3f} GiB")
@@ -3206,7 +3339,191 @@ def phase_modalities(torch, results, summary) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: cluster (replicas behind the deterministic router)
+# phase 11: hybrid (jamba: mamba layers, the stacked block period)
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "jamba-1.5-large-398b"
+#: batch sizes and pass widths of the mamba row check at jamba's widths
+MAMBA_ROWS = (1, 7, 32)
+MAMBA_WS = (1, 8)
+#: the decode batch the mamba layer is timed at
+MAMBA_TIME_B = 8
+#: KV reach of the jamba-smoke engine runs (its max_seq_len)
+HYBRID_CAPACITY = 512
+
+
+def mamba_weights(torch, cfg):
+    """One mamba layer's weights at ``cfg``'s widths and dtype, drawn as
+    ``init_params`` draws a leaf (seed 0)."""
+    from repro_torch.models.base import _fill, mamba_specs
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    out = {}
+    for name, spec in sorted(mamba_specs(cfg).items()):
+        out[name] = torch.empty(spec.shape, dtype=getattr(torch, cfg.dtype), device=DEV)
+        _fill(out[name], spec, gen)
+    return out
+
+
+def mamba_rows(torch, cfg, results) -> dict:
+    """``mamba_layer`` at jamba's published widths (d_model 8192, d_inner
+    16384, d_state 16, d_conv 4, dt_rank 512; bf16) from a random state
+    under VERIFY_SCHEDULE: at each W of MAMBA_WS the rows of ``out`` and of
+    both per-position state leaves at every B of MAMBA_ROWS must be the bits
+    of the same rows at the largest B.  Then its device time at B =
+    MAMBA_TIME_B, W = 1 under the commit schedule and the fast path's, with
+    its launches per call (its 4 projections), beside the least time of its
+    bytes (weights, state read and written, x and out) and products."""
+    from repro_torch.core.determinism import FAST_PATH_POLICY, VERIFY_SCHEDULE
+    from repro_torch.models import mamba
+
+    p = mamba_weights(torch, cfg)
+    g = torch.Generator(device=DEV).manual_seed(1)
+    dt = getattr(torch, cfg.dtype)
+    di, ds, dc, D = cfg.d_inner, cfg.d_state, cfg.d_conv, cfg.d_model
+    big = max(MAMBA_ROWS)
+    out = {}
+    for W in MAMBA_WS:
+        x = torch.randn((big, W, D), generator=g, device=DEV).to(dt)
+        conv = torch.randn((big, dc - 1, di), generator=g, device=DEV).to(dt)
+        ssm = 0.3 * torch.randn((big, di, ds), generator=g, device=DEV)
+        full = None
+        for B in sorted(MAMBA_ROWS, reverse=True):
+            st = {"conv": conv[:B].clone(), "ssm": ssm[:B].clone()}
+            y, _, pp = mamba.mamba_layer(p, cfg, x[:B], st, VERIFY_SCHEDULE, True)
+            got = (y, pp["conv"], pp["ssm"])
+            require(all(bool(torch.isfinite(t.float()).all()) for t in got),
+                    f"mamba_layer W={W} B={B}: non-finite values")
+            if full is None:
+                full = got
+                continue
+            for name, a, b in zip(("out", "conv", "ssm"), got, full):
+                require(torch.equal(a, b[:B]), f"mamba_layer W={W}: {name} rows at "
+                        f"B={B} differ from B={big}")
+        sync(torch)
+        log(f"[hybrid] mamba_layer ({cfg.name} widths: d_model {D}, d_inner {di}, "
+            f"d_state {ds}, d_conv {dc}, dt_rank {max(D // 16, 1)}, {cfg.dtype}) W={W} "
+            f"under VERIFY_SCHEDULE: out and per-position conv and ssm rows bitwise "
+            f"equal for B in {MAMBA_ROWS}")
+        out[f"rows_W{W}"] = True
+        del x, conv, ssm, full, y, pp, got
+    B = MAMBA_TIME_B
+    x = torch.randn((B, 1, D), generator=g, device=DEV).to(dt)
+    st = mamba.init_state(cfg, B, dt, DEV)
+    st["ssm"].normal_(generator=g)
+    weight_bytes = sum(t.numel() * t.element_size() for t in p.values())
+    state_bytes = sum(t.numel() * t.element_size() for t in st.values())
+    dt_rank = max(D // 16, 1)
+    flops = 2.0 * B * (D * 2 * di + di * (dt_rank + 2 * ds) + dt_rank * di + di * D)
+    b_ms, b_by = bound(weight_bytes + 2 * state_bytes + 2 * x.numel() * 2, flops)
+    for name, sched in (("commit", VERIFY_SCHEDULE),
+                        ("fast", FAST_PATH_POLICY.schedule_for(B))):
+        fns = reset_launches()
+        mamba.mamba_layer(p, cfg, x, st, sched)
+        sync(torch)
+        counts = {k: c for k, c in launch_counts(fns).items() if c}
+        record_launches(results, f"hybrid/mamba_layer/{name}", launch_counts(fns),
+                        main_path=False)
+        ms = time_ms(torch, lambda: mamba.mamba_layer(p, cfg, x, st, sched), reps=50)
+        out[f"ms_{name}"] = ms
+        log(f"[hybrid] mamba_layer B={B} W=1 {name} schedule ({tuple(sched)[:3]}): "
+            f"{ms:.4f} ms device time (median of 50, CUDA events), launches per call "
+            f"{counts}; bound {b_ms:.4f} ms ({b_by}: {weight_bytes / 2 ** 20:.0f} MiB of "
+            f"weights), {100 * b_ms / ms:.0f}% of it")
+    out["bound_ms"] = b_ms
+    del p
+    return out
+
+
+def hybrid_restore(torch, cfg, params, results) -> dict:
+    """Paged LLM42, the two tracked requests and one neighbour, once
+    unpressured and once with tracked request 0 preempted after iteration
+    PREEMPT_AT (its KV blocks freed, its slot's mamba state wiped for the
+    replay): both tracked streams must equal the unpressured run's.
+    Launches held to the passes."""
+    from repro_torch.core.determinism import Mode
+
+    def run(preempt):
+        gc.collect()
+        eng = tracked_engine(cfg, params, Mode.LLM42, (32, 32), 16, neighbours=1,
+                             capacity=HYBRID_CAPACITY)
+        fns = reset_launches()
+        while eng.step():
+            if preempt and eng._now == PREEMPT_AT:
+                victim = next(r for r in eng.running if r.rid == 0)
+                require(eng.preempt(victim), "the tracked request was not preempted")
+        sync(torch)
+        counts = launch_counts(fns)
+        require(counts == expected_launches(cfg, eng, True),
+                f"{cfg.name} restore run: launches {counts}")
+        done = {r.rid: r for r in eng.finished}
+        return {rid: done[rid].committed for rid in (0, 1)}, eng, counts
+
+    base, _, _ = run(False)
+    got, eng, counts = run(True)
+    for name, c in counts.items():
+        results[name]["launches_by_mode"][f"hybrid/{cfg.name}/restore"] = c
+    same = got == base
+    log(f"[hybrid] {cfg.name} paged LLM42, request 0 preempted after iteration "
+        f"{PREEMPT_AT}: {eng.num_preemptions} preemption(s), {eng.num_restores} "
+        f"restore(s), state pool preempts {eng.statepool.num_preempts}; streams equal "
+        f"the unpressured run's: {same}; launches {counts} (= the passes)")
+    require(eng.num_preemptions == 1 and eng.num_restores == 1, f"{cfg.name}: no restore")
+    require(same, f"{cfg.name}: the restored streams differ from the unpressured run's")
+    return dict(streams_equal=same, iterations=eng._now)
+
+
+def phase_hybrid(torch, results, summary) -> None:
+    """jamba-1.5-large-398b: ``mamba_rows`` at its published widths (one
+    period of 8 layers holds about 90 GB of bf16 weights, more than the
+    card's 80 GB, so no engine runs at that width on one card); then the
+    jamba-smoke engine (4 layers, attention every 2nd, 4 experts, f32;
+    random weights from seed 0): the tracked greedy and seeded requests'
+    LLM42 and BATCH_INVARIANT streams alone and beside 3 neighbours on both
+    lanes, the lanes equal (NONDET printed), overlap at spec_depth 2 with a
+    20 ms verify latency equal to pause (``recurrent_depth``), and a
+    preempted and restored request (``hybrid_restore``); launches held to
+    the passes."""
+    from repro_torch import configs
+    from repro_torch.core.determinism import Mode
+    from repro_torch.models.base import init_params
+
+    full = configs.get_config(HYBRID_ARCH)
+    summary["hybrid"] = out = {}
+    out["mamba"] = mamba_rows(torch, full, results)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get_smoke_config(HYBRID_ARCH)
+    log(f"[hybrid] {cfg.name}: {cfg.num_layers} layers (block period "
+        f"{cfg.block_period()}: {[cfg.layer_kind(i) + '/' + cfg.ffn_kind(i) for i in range(cfg.num_layers)]}), "
+        f"d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
+        f"{cfg.num_experts} experts top-{cfg.top_k}, d_state {cfg.d_state}, {cfg.dtype}")
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    both = (Mode.LLM42, Mode.BATCH_INVARIANT)
+    smoke = variant_serve(torch, cfg, cfg.name, params, results,
+                          lanes=("paged", "gathered"), modes=both, prompts=(32, 32),
+                          max_new=16, neighbours=3, capacity=HYBRID_CAPACITY,
+                          phase="hybrid")
+    smoke.update(variant_serve(torch, cfg, cfg.name, params, results, lanes=("paged",),
+                               modes=(Mode.NONDET,), prompts=(32, 32), max_new=16,
+                               neighbours=3, capacity=HYBRID_CAPACITY, phase="hybrid"))
+    same = smoke["paged/llm42"]["streams"] == smoke["gathered/llm42"]["streams"]
+    log(f"[hybrid] {cfg.name} LLM42 streams of the gathered lane equal the paged lane's: "
+        f"{same}")
+    require(same, f"{cfg.name}: LLM42 streams differ between the lanes")
+    smoke["depth"] = recurrent_depth(torch, cfg, params, results, phase="hybrid")
+    smoke["restore"] = hybrid_restore(torch, cfg, params, results)
+    for v in smoke.values():
+        if isinstance(v, dict):
+            v.pop("streams", None)
+    out[cfg.name] = smoke
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 12: cluster (replicas behind the deterministic router)
 # ---------------------------------------------------------------------------
 
 #: the cluster phase's config (the serve and train drivers' default arch),
@@ -3225,6 +3542,9 @@ CLUSTER_REQUESTS, CLUSTER_MAX_NEW, CLUSTER_GAP_S = 12, 16, 0.004
 
 #: (replicas, transfer policy) of the cluster runs; the last is run twice
 CLUSTER_RUNS = ((1, "copy"), (2, "copy"), (2, "recompute"), (3, "copy"))
+#: device memory the cluster phase may leave allocated above what it was
+#: handed, once it dropped its engines and weights
+CLUSTER_LEFT_MIB = 64
 
 
 def cluster_requests(cfg):
@@ -3378,6 +3698,28 @@ def time_copy_blocks(torch, cfg, params, summary) -> None:
 
 
 def phase_cluster(torch, results, summary) -> None:
+    """``cluster_runs``, with the device memory allocated read before it and
+    after it, once everything it made is dropped: an engine is freed only
+    by a collection (its metrics gauges and the replicas' step wrappers
+    close over it, reference cycles), so the phase collects before it
+    reads, and the next phase starts with the weights and pools freed.  At
+    most CLUSTER_LEFT_MIB may stay."""
+    gc.collect()
+    held = torch.cuda.memory_allocated()
+    log(f"[cluster] device memory allocated before the phase: {held / 2 ** 30:.3f} GiB")
+    cluster_runs(torch, results, summary)
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    summary["cluster"]["held_after_mib"] = (left - held) / 2 ** 20
+    log(f"[cluster] device memory allocated after the phase, engines, replicas, "
+        f"pools and weights dropped: {left / 2 ** 30:.3f} GiB ({(left - held) / 2 ** 20:.1f} "
+        f"MiB above what the phase was handed; at most {CLUSTER_LEFT_MIB} MiB)")
+    require(left - held <= CLUSTER_LEFT_MIB * 2 ** 20,
+            "the cluster phase left device memory allocated")
+
+
+def cluster_runs(torch, results, summary) -> None:
     """Replicas 1, 2 and 3 of one tinyllama engine (22 layers, full width,
     random weights from seed 0) on one card, sharing the weights, each with
     its own paged pool, behind the deterministic router on the
@@ -3434,11 +3776,10 @@ def phase_cluster(torch, results, summary) -> None:
     log(f"[cluster] {len(solo)} deterministic streams identical alone and at 1, 2 and 3 "
         f"replicas under copy and recompute")
     time_copy_blocks(torch, cfg, params, summary)
-    del params
 
 
 # ---------------------------------------------------------------------------
-# phase 12: training (forward_train, the GEMMs' backward, AdamW, checkpoints)
+# phase 13: training (forward_train, the GEMMs' backward, AdamW, checkpoints)
 # ---------------------------------------------------------------------------
 
 #: the training phase: tinyllama at full width and depth, TRAIN_STEPS
@@ -3845,7 +4186,7 @@ def phase_training(torch, results, summary) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 13: timings
+# phase 14: timings
 # ---------------------------------------------------------------------------
 
 
@@ -3889,7 +4230,7 @@ def phase_timings(torch, cfg, results) -> None:
     def flush():  # the weights of a layer are cold in L2 on the main path
         scratch.zero_()
 
-    def gemm_row(name, M, K, N, kernel, plain, extra):
+    def gemm_row(name, M, K, N, kernel, plain, extra, into=None):
         x = torch.randn((M, K), generator=g, device=DEV).to(bf)
         w = (torch.randn((K, N), generator=g, device=DEV) * K ** -0.5).to(bf)
         # kernel, library, library, kernel: two readings of each in turns
@@ -3900,9 +4241,9 @@ def phase_timings(torch, cfg, results) -> None:
         plain_ms = time_ms(torch, lambda: plain(x, w), reps=20, flush=flush)
         ms, lib_ms = (k1 + k2) / 2, (l1 + l2) / 2
         b_ms, b_by = gemm_bound(M, K, N)
-        results[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=b_ms, bound_by=b_by,
-                             shape=f"({M},{K})@({K},{N}) {extra}")
+        (results[name] if into is None else into).update(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+            shape=f"({M},{K})@({K},{N}) {extra}")
         log(f"[timings] {name} ({M},{K})@({K},{N}) {extra}: {ms:.4f} ms "
             f"(readings {k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms, "
             f"torch.matmul {lib_ms:.4f} ms ({l1:.4f}, {l2:.4f}), bound "
@@ -3917,6 +4258,13 @@ def phase_timings(torch, cfg, results) -> None:
              lambda x, w: gemm_splitk(x, w, splits=4, combine_dtype="bfloat16"),
              lambda x, w: ref.gemm_splitk(x, w, 4, "bfloat16"),
              "splits=4 bf16 combine")
+    # the same decode GEMM with the fast path at TP width 4 (Engine(tp=4))
+    gemm_row("gemm_splitk TP fold", 8, F, D,
+             lambda x, w: gemm_splitk(x, w, splits=4, combine_dtype="bfloat16",
+                                      tp_shards=4),
+             lambda x, w: ref.gemm_splitk(x, w, 4, "bfloat16", tp_shards=4),
+             "tp=4 splits=4 bf16 combine",
+             into=results["gemm_splitk"].setdefault("tp_fold", {}))
     time_gemm_table(torch, cfg, flush)
     time_gemm_host(torch, cfg)
     tiny = torch.zeros(1, device=DEV)
@@ -4243,7 +4591,7 @@ def main() -> int:
             timed("serve", phase_serve, torch, cfg, params, CAPACITY, results, summary)
             timed("reference", phase_reference, torch, cfg, params)
         if "determinism" in phases:
-            timed("determinism", phase_determinism, torch, cfg, params, summary)
+            timed("determinism", phase_determinism, torch, cfg, params, results, summary)
         if "profile" in phases:
             timed("profile", phase_profile, torch, cfg, params, CAPACITY, summary)
         if "online" in phases:
@@ -4259,6 +4607,8 @@ def main() -> int:
         timed("families", phase_families, torch, results, summary)
     if "modalities" in phases:
         timed("modalities", phase_modalities, torch, results, summary)
+    if "hybrid" in phases:
+        timed("hybrid", phase_hybrid, torch, results, summary)
     if "cluster" in phases:
         timed("cluster", phase_cluster, torch, results, summary)
     if "training" in phases:
@@ -4273,7 +4623,8 @@ def main() -> int:
                            "launches_by_mode", "max_abs_err", "max_abs_err_by_config",
                            "ms", "plain_ms",
                            "bound_ms", "bound_by", "library_ms", "ms_kv_splits_1",
-                           "plain_ms_kv_splits_1", "ms_with_residual", "shapes", "backward")
+                           "plain_ms_kv_splits_1", "ms_with_residual", "shapes", "backward",
+                           "tp_fold")
          if k in r} for r in results.values()
     ]}))
     log(json.dumps({"ok": True, "device": {

@@ -1,13 +1,13 @@
-"""Model configs ported so far: the dense family, llama4-scout and kimi-k2
-(MoE), with their sliding-window long-context variants, rwkv6-3b (the
-recurrent ssm family), seamless-m4t-medium (encoder-decoder) and
-llava-next-mistral-7b (prefix embeddings).  jamba (the hybrid family) is
-not ported.
+"""Model configs: every architecture of ``repro.configs`` (dense, MoE,
+the recurrent ssm family: rwkv6, the hybrid family: jamba, the
+encoder-decoder family and prefix embeddings), with their sliding-window
+long-context variants, plus the paper's own Llama-3-8B.
 
 Each module exposes ``config()`` (the exact architecture) and
 ``smoke_config()`` (a reduced same-family variant for CPU tests), and
 where it has one ``long_config()`` (the sliding-window variant), as in
-``repro.configs``.
+``repro.configs``.  ``list_archs`` is the reference's list of the assigned
+architectures; ``llama3-8b`` is served besides them.
 """
 
 from __future__ import annotations
@@ -17,18 +17,22 @@ from typing import List
 
 from repro_torch.models.base import ModelConfig
 
-ARCH_IDS: List[str] = [
-    "llama3_8b",
+#: the assigned architectures, in the reference's order
+ASSIGNED: List[str] = [
+    "llava_next_mistral_7b",
+    "kimi_k2_1t_a32b",
     "tinyllama_1_1b",
-    "phi3_mini_3_8b",
+    "seamless_m4t_medium",
     "internlm2_20b",
     "command_r_35b",
     "llama4_scout_17b_a16e",
-    "kimi_k2_1t_a32b",
+    "jamba_1_5_large_398b",
     "rwkv6_3b",
-    "seamless_m4t_medium",
-    "llava_next_mistral_7b",
+    "phi3_mini_3_8b",
 ]
+
+#: every module of this registry: the assigned ones and the paper's model
+ARCH_IDS: List[str] = ["llama3_8b"] + ASSIGNED
 
 #: canonical dashed ids -> module names
 DASHED = {
@@ -42,13 +46,14 @@ DASHED = {
     "rwkv6-3b": "rwkv6_3b",
     "seamless-m4t-medium": "seamless_m4t_medium",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 
 def _module(name: str):
     key = DASHED.get(name, name).replace("-", "_").replace(".", "_")
     if key not in ARCH_IDS:
-        raise ValueError(f"{name}: not ported yet (ported: {ARCH_IDS})")
+        raise ValueError(f"{name}: no such architecture (known: {ARCH_IDS})")
     return importlib.import_module(f"repro_torch.configs.{key}")
 
 
@@ -71,3 +76,8 @@ def get_long_config(name: str) -> ModelConfig:
 
 def supports_long(name: str) -> bool:
     return hasattr(_module(name), "long_config")
+
+
+def list_archs() -> List[str]:
+    """The assigned architectures (``repro.configs.list_archs``)."""
+    return list(ASSIGNED)

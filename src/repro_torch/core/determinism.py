@@ -17,8 +17,10 @@ package's; the arithmetic lives in ``repro_torch.kernels``:
   fixed tree of elementwise adds, so each row's sum is independent of the
   row count on the card too.
 
-Fast-path schedules with ``tp_shards > 1`` (a tensor-parallel mesh) wait
-for the port of ``distributed/``; ``matmul`` raises on them.
+A schedule with ``tp_shards > 1`` cuts K into that many chunks above its
+split schedule: pinned (the commit path), the chunk partials combine by the
+balanced f32 tree; un-pinned (the fast path at ``Engine(tp=N)``), in chunk
+order through ``combine_dtype``, as a width-N ring all-reduce would.
 """
 
 from __future__ import annotations
@@ -128,6 +130,14 @@ def matmul(x: torch.Tensor, w: torch.Tensor, schedule: Schedule) -> torch.Tensor
     from repro_torch.kernels import ops
 
     return ops.matmul(x, w, schedule)
+
+
+def fixed_order(schedule: Schedule) -> bool:
+    """True when a recurrent layer's per-step reductions run as fixed trees
+    (``_pairwise_sum``): the schedules without splits, which also run the
+    commit GEMM (``kernels.ops``).  A split schedule (the fast path) may
+    keep library reductions, whose order can follow the batch."""
+    return schedule.splits <= 1
 
 
 def _pairwise_sum(x: torch.Tensor, axis: int) -> torch.Tensor:

@@ -27,12 +27,12 @@ position-for-position identical, so committed streams are bitwise equal
 between them.  Slot leaves (sliding rings, recurrent state) are row-packed
 by ``slots`` in either lane and written back after the replay.
 
-Recurrent state (rwkv) cannot be truncated.  ``verify_recurrent`` replays
-from the state pool's anchor (``serving.statepool``), collects the state
-after every window position, and routes two selections through the pool:
-the state at index ``n_match`` (the window's commit checkpoint, which the
-engine writes to a ring buffer) and the state before the last real input
-(the anchor the next chained window starts from).  The live recurrent
+Recurrent state (rwkv, mamba) cannot be truncated.  ``verify_recurrent``
+replays from the state pool's anchor (``serving.statepool``), collects the
+state after every window position, and routes two selections through the
+pool: the state at index ``n_match`` (the window's commit checkpoint,
+which the engine writes to a ring buffer) and the state before the last
+real input (the anchor the next chained window starts from).  The live recurrent
 state is written back unchanged: the fast path may be speculating past
 the window right now.
 """

@@ -54,7 +54,7 @@ template <typename T>
 cudaError_t run(const void* x, const void* w, float* part, void* out, int M,
                 int N, int K, int chunks, cudaStream_t stream) {
   cudaError_t e =
-      gemm_tile::launch_partials<T>(x, w, part, M, N, K, chunks, stream);
+      gemm_tile::launch_partials<T>(x, w, part, M, N, K, chunks, 1, stream);
   if (e != cudaSuccess) return e;
   const long long mn = (long long)M * N;
   const int threads = 256;

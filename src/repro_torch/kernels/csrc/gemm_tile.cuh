@@ -2,10 +2,15 @@
 // (gemm_batch_invariant.cu) and the fast split-K GEMM (gemm_splitk.cu).
 //
 // One CTA computes the f32 partial  P[c] = x[:, kb:ke] @ w[kb:ke, :]  of one
-// output tile over one contiguous K chunk c, where [kb, ke) is chunk c of
-// _split_sizes(K, chunks): near-equal chunks, the remainder spread over the
-// leading ones.  The chunk's partial goes to an f32 workspace; the caller's
-// second pass combines the chunks in the order its schedule prescribes.
+// output tile over one contiguous K chunk c of a two-level partition
+// (nested_bounds): K is cut into `outer` chunks by _split_sizes(K, outer)
+// (near-equal, the remainder spread over the leading ones), and each of
+// those into `inner` sub-chunks by _split_sizes of its own width, or kept
+// whole when it is narrower than `inner` (the trailing sub-chunks then
+// empty, their partials zero).  The commit GEMM passes (chunks, 1); the
+// split-K GEMM (tp_shards, splits), the reference's _tp_partials over
+// _reduce_k_f32.  The partials go to an f32 workspace, chunk-major; the
+// caller's second pass combines them in the order its schedule prescribes.
 // There are two tiles, chosen by the operand dtype alone, never by M:
 //
 // * bf16: wgmma_partial_kernel, the tensor cores fed by TMA.  At the decode
@@ -144,18 +149,38 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[TC_BM / 2],
       : "l"(a), "l"(b), "r"(1));
 }
 
-__device__ __forceinline__ void chunk_bounds(int K, int chunks, int c, int* kb,
-                                             int* ke) {
+__host__ __device__ __forceinline__ void chunk_bounds(int K, int chunks,
+                                                      int c, int* kb,
+                                                      int* ke) {
   const int base = K / chunks, rem = K % chunks;
   *kb = c * base + min(c, rem);
   *ke = *kb + base + (c < rem ? 1 : 0);
+}
+
+// Chunk c of the two-level partition: outer chunk c / inner, sub-chunk
+// c % inner.  Nested bounds, not _split_sizes(K, outer * inner): the two
+// differ wherever a cut is uneven.
+__host__ __device__ __forceinline__ void nested_bounds(int K, int outer,
+                                                       int inner, int c,
+                                                       int* kb, int* ke) {
+  int ob, oe;
+  chunk_bounds(K, outer, c / inner, &ob, &oe);
+  const int s = c % inner, n = oe - ob;
+  if (inner <= n) {
+    chunk_bounds(n, inner, s, kb, ke);
+    *kb += ob;
+    *ke += ob;
+  } else {  // one pass over the whole outer chunk, in sub-chunk 0
+    *kb = ob;
+    *ke = s == 0 ? oe : ob;
+  }
 }
 
 __global__ void __launch_bounds__(TC_THREADS)
 wgmma_partial_kernel(const __grid_constant__ CUtensorMap wmap,
                      const __grid_constant__ CUtensorMap xmap,
                      float* __restrict__ part, int M, int N, int K,
-                     int chunks) {
+                     int outer, int inner) {
   extern __shared__ __align__(1024) uint8_t smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + TC_STAGES * TC_STAGE_BYTES);
   uint64_t* empty = full + TC_STAGES;
@@ -164,7 +189,7 @@ wgmma_partial_kernel(const __grid_constant__ CUtensorMap wmap,
   const int n0 = blockIdx.y * TC_BN;  // weight tile run together and share it
   const int c = blockIdx.z;           // through L2
   int kb, ke;
-  chunk_bounds(K, chunks, c, &kb, &ke);
+  nested_bounds(K, outer, inner, c, &kb, &ke);
   // K steps lie on the 64-column grid: a TMA box's inner coordinate must be
   // 16-byte aligned, and a chunk bound need not be
   const int k_first = kb - kb % TC_BK;
@@ -264,7 +289,8 @@ constexpr int THREADS = 256; // 8 warps: warp w owns tile rows 4w..4w+3,
 
 __global__ void __launch_bounds__(THREADS)
 fmaf_partial_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    float* __restrict__ part, int M, int N, int K, int chunks) {
+                    float* __restrict__ part, int M, int N, int K, int outer,
+                    int inner) {
   constexpr int VPR = BN / 4;                   // float4 vectors per w row
   constexpr int W_VECS = BK * BN / 4 / THREADS; // w vectors per thread
   constexpr int X_ELTS = BM * BK / THREADS;     // x elements per thread
@@ -276,7 +302,7 @@ fmaf_partial_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int m0 = blockIdx.y * BM;
   const int c = blockIdx.z;
   int kb, ke;
-  chunk_bounds(K, chunks, c, &kb, &ke);
+  nested_bounds(K, outer, inner, c, &kb, &ke);
 
   const int tid = threadIdx.x;
   const int r0 = (tid / 32) * 4;
@@ -430,18 +456,19 @@ inline bool weight_map(const void* w, int K, int N, CUtensorMap* out) {
   return true;
 }
 
-// Launch the partial pass of x (M, K) @ w (K, N) over `chunks` K chunks.
-// The operand dtype alone picks the tile.  bf16: grid (M tiles, N tiles,
-// chunks) of the tensor-core tile; K and N multiples of 8 and
-// 16-byte-aligned bases (the wrappers check).
+// Launch the partial pass of x (M, K) @ w (K, N) over the outer * inner
+// chunks of nested_bounds.  The operand dtype alone picks the tile.  bf16:
+// grid (M tiles, N tiles, outer * inner) of the tensor-core tile; K and N
+// multiples of 8 and 16-byte-aligned bases (the wrappers check).
 template <typename T>
 cudaError_t launch_partials(const void* x, const void* w, float* part, int M,
-                            int N, int K, int chunks, cudaStream_t stream);
+                            int N, int K, int outer, int inner,
+                            cudaStream_t stream);
 
 template <>
 inline cudaError_t launch_partials<__nv_bfloat16>(const void* x, const void* w,
                                                   float* part, int M, int N,
-                                                  int K, int chunks,
+                                                  int K, int outer, int inner,
                                                   cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       wgmma_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -450,20 +477,21 @@ inline cudaError_t launch_partials<__nv_bfloat16>(const void* x, const void* w,
   CUtensorMap wmap, xmap;
   if (!weight_map(w, K, N, &wmap) || !encode_bf16(x, M, K, TC_BM, &xmap))
     return cudaErrorInvalidValue;
-  dim3 grid((M + TC_BM - 1) / TC_BM, (N + TC_BN - 1) / TC_BN, chunks);
+  dim3 grid((M + TC_BM - 1) / TC_BM, (N + TC_BN - 1) / TC_BN, outer * inner);
   wgmma_partial_kernel<<<grid, TC_THREADS, TC_SMEM, stream>>>(
-      wmap, xmap, part, M, N, K, chunks);
+      wmap, xmap, part, M, N, K, outer, inner);
   return cudaGetLastError();
 }
 
 template <>
 inline cudaError_t launch_partials<float>(const void* x, const void* w,
                                           float* part, int M, int N, int K,
-                                          int chunks, cudaStream_t stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, chunks);
+                                          int outer, int inner,
+                                          cudaStream_t stream) {
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, outer * inner);
   fmaf_partial_kernel<<<grid, THREADS, 0, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w), part, M, N,
-      K, chunks);
+      K, outer, inner);
   return cudaGetLastError();
 }
 

@@ -2,12 +2,15 @@
 
 * ``matmul(x, w, schedule)``: the pinned commit schedule (``tp_shards``
   chunks, balanced f32 tree, ``splits == 1``) goes to the batch-invariant
-  GEMM; an un-split schedule without TP chunks too (one chunk); every other
-  ``tp_shards == 1`` schedule goes to the split-K GEMM with
-  ``_split_sizes`` chunks, uneven where ``splits`` does not divide K, as
-  ``repro.core.determinism.matmul`` computes on the model path.  (The JAX
-  package's Pallas dispatch drops to one split instead; the model path on
-  the TPU never takes it.)  Un-pinned TP schedules wait for ``distributed/``.
+  GEMM; an un-split schedule without TP chunks too (one chunk).  Every
+  other schedule goes to the split-K GEMM, which folds two levels of
+  ``_split_sizes`` chunks (TP chunks, then the splits inside each), uneven
+  where a count does not divide its width, as
+  ``repro.core.determinism.matmul`` computes on the model path: un-pinned
+  TP schedules (the fast path at ``Engine(tp=N)``) at any ``splits``,
+  pinned ones with ``splits > 1`` (no engine path makes them), and
+  ``tp_shards == 1`` split schedules.  (The JAX package's Pallas dispatch
+  drops to one split instead; the model path on the TPU never takes it.)
   When an operand requires grad, the launch runs inside ``GemmGrad``, whose
   backward computes the two products of JAX's autodiff of
   ``core.determinism.matmul``, each in the commit GEMM with one chunk.
@@ -58,18 +61,14 @@ def matmul(x: torch.Tensor, w: torch.Tensor, schedule: Schedule) -> torch.Tensor
 def _schedule_gemm(x2: torch.Tensor, w: torch.Tensor, schedule: Schedule) -> torch.Tensor:
     """The launch ``matmul`` dispatches to: x2 (M, K) @ w (K, N)."""
     K = x2.shape[-1]
-    if schedule.tp_shards > 1 and schedule.tp_shards <= K:
-        if not schedule.tp_pinned or schedule.splits > 1:
-            raise NotImplementedError(
-                "split or un-pinned tensor-parallel schedules wait for the "
-                "distributed/ port")
-        out = gemm_batch_invariant(x2, w, chunks=schedule.tp_shards)
-    elif schedule.splits <= 1 or schedule.splits > K:
-        out = gemm_batch_invariant(x2, w, chunks=1)
-    else:
-        out = gemm_splitk(x2, w, splits=schedule.splits,
-                          combine_dtype=schedule.combine_dtype)
-    return out
+    tp = schedule.tp_shards if 1 < schedule.tp_shards <= K else 1
+    if tp > 1 and schedule.tp_pinned and schedule.splits <= 1:
+        return gemm_batch_invariant(x2, w, chunks=tp)
+    if tp == 1 and (schedule.splits <= 1 or schedule.splits > K):
+        return gemm_batch_invariant(x2, w, chunks=1)
+    return gemm_splitk(x2, w, splits=schedule.splits,
+                       combine_dtype=schedule.combine_dtype, tp_shards=tp,
+                       tp_pinned=schedule.tp_pinned)
 
 
 #: the backward products' contraction is padded with zero columns to a

@@ -39,21 +39,48 @@ def gemm_batch_invariant(x: torch.Tensor, w: torch.Tensor, *,
     return tree_combine(parts).to(x.dtype)
 
 
-def gemm_splitk(x: torch.Tensor, w: torch.Tensor, splits: int,
-                combine_dtype: str = "float32") -> torch.Tensor:
-    """Fast split-K GEMM.  x (M, K), w (K, N) -> (M, N) in x.dtype.
-
-    Per-chunk f32 partials over ``_split_sizes(K, splits)``; with
-    ``splits > 1`` each partial is rounded to ``combine_dtype`` and folded in
-    split order, the running sum rounded after each fold."""
-    if splits <= 1:
-        return (x.to(F32) @ w.to(F32)).to(x.dtype)
-    cd = torch_dtype(combine_dtype)
-    sizes = _split_sizes(x.shape[-1], splits)
+def _reduce_k_f32(x: torch.Tensor, w: torch.Tensor, splits: int,
+                  cd: torch.dtype) -> torch.Tensor:
+    """One K chunk under the local split schedule, as an f32 value: one f32
+    pass when ``splits <= 1`` or the chunk is narrower than ``splits``;
+    else per-split f32 partials over ``_split_sizes``, each rounded to
+    ``cd`` and folded in split order, the running sum rounded after each
+    fold (``repro.core.determinism._reduce_k_f32``)."""
+    K = x.shape[-1]
+    if splits <= 1 or splits > K:
+        return x.to(F32) @ w.to(F32)
+    sizes = _split_sizes(K, splits)
     acc = None
     for xc, wc in zip(torch.split(x, sizes, dim=-1), torch.split(w, sizes, dim=0)):
         partial = (xc.to(F32) @ wc.to(F32)).to(cd)
         acc = partial if acc is None else acc + partial
+    return acc.to(F32)
+
+
+def gemm_splitk(x: torch.Tensor, w: torch.Tensor, splits: int,
+                combine_dtype: str = "float32", *, tp_shards: int = 1,
+                tp_pinned: bool = False) -> torch.Tensor:
+    """Fast split-K GEMM under a TP fold.  x (M, K), w (K, N) -> (M, N) in
+    x.dtype.
+
+    K is cut into ``tp_shards`` chunks (``_split_sizes``), each reduced by
+    ``_reduce_k_f32``.  One chunk is the split-K GEMM.  Several: un-pinned,
+    each chunk's value is rounded to ``combine_dtype`` and the chunks fold
+    in order, the running sum rounded after each fold; pinned, they combine
+    by ``tree_combine`` in f32 (the TP branch of
+    ``repro.core.determinism.matmul``)."""
+    cd = torch_dtype(combine_dtype)
+    sizes = _split_sizes(x.shape[-1], tp_shards)
+    parts = [_reduce_k_f32(xc, wc, splits, cd) for xc, wc in zip(
+        torch.split(x, sizes, dim=-1), torch.split(w, sizes, dim=0))]
+    if tp_shards == 1:
+        return parts[0].to(x.dtype)
+    if tp_pinned:
+        return tree_combine(parts).to(x.dtype)
+    acc = None
+    for p in parts:
+        pc = p.to(cd)
+        acc = pc if acc is None else acc + pc
     return acc.to(x.dtype)
 
 

@@ -36,8 +36,12 @@ trace.
 
   python -m repro_torch.launch.serve --smoke --device cpu --replicas 2 --qps 20
 
-``--tp`` (tensor-parallel serving) waits for the port's ``distributed/``
-slice.
+``--tp N`` runs the fast path at logical tensor-parallel width N (1, 2 or
+4) for the single engine and for every replica: decode GEMMs fold N K
+chunks in chunk order, while every committed token comes from the pinned
+canonical tree, so committed streams do not change with N.
+
+  python -m repro_torch.launch.serve --smoke --device cpu --tp 2
 """
 
 from __future__ import annotations
@@ -259,6 +263,12 @@ def main() -> None:
                          "undersized pool preempts and restores by recompute")
     ap.add_argument("--prefix-cache", default="on", choices=["on", "off"],
                     help="commit-aware radix prefix cache")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="logical tensor-parallel width of the FAST path: "
+                         "decode schedules fold tp K chunks in chunk order "
+                         "(must divide the canonical pinned width 4).  The "
+                         "commit path replays under the canonical pinned "
+                         "tree, so committed streams are the same at any --tp")
     ap.add_argument("--replicas", type=int, default=1,
                     help="engine replicas behind the deterministic cluster "
                          "router (they share the params; each owns its pool)")
@@ -281,7 +291,7 @@ def main() -> None:
     full_cfg = config_registry.get_config(args.arch)
     cfg = config_registry.get_smoke_config(args.arch) if args.smoke else full_cfg
     print(f"arch={cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
-          f"device={device} mode={args.mode} n={args.requests} "
+          f"device={device} mode={args.mode} tp={args.tp} n={args.requests} "
           f"det_ratio={args.det_ratio} workload={args.workload}")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device)
@@ -304,6 +314,7 @@ def main() -> None:
             prefix_cache=args.prefix_cache == "on",
             trace=args.trace_out is not None,
             audit=args.audit_out is not None,
+            tp=args.tp,
         )
 
     reqs = build_requests(cfg, args.requests, args.det_ratio, args.max_new,

@@ -3,7 +3,8 @@
 The counterpart of ``repro.launch.train_launch``, with the same flags plus
 ``--device`` and ``--smoke``, as the port's serve driver has them.  It
 trains the full config (published widths, random weights from ``--seed``)
-on ``cuda`` unless ``--smoke`` picks the reduced config, AdamW with a
+on ``cuda`` unless ``--smoke`` picks the reduced config, AdamW (peak
+``--lr``: 1e-3 under ``--smoke``, 3e-4 for the full config) with a
 linear warmup over a tenth of ``--steps`` and cosine decay, on
 ``training.data.SyntheticTextStream`` batches; it prints the step, loss,
 gradient norm, learning rate and tokens/s every ``--log-every`` steps (and
@@ -57,7 +58,16 @@ def batch_on(cfg, b, step: int, device: torch.device) -> dict:
     return batch
 
 
-def main() -> None:
+#: ``--lr`` defaults: ``repro.launch.train_launch``'s rate for the reduced
+#: config it always trains, and a lower one for the full config, whose loss
+#: that rate drove up (tinyllama-1.1b at 1e-3 read 15.18 at step 4 on an H100)
+SMOKE_LR = 1e-3
+FULL_LR = 3e-4
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The command-line flags; ``--lr`` left unset resolves to ``SMOKE_LR``
+    under ``--smoke`` and to ``FULL_LR`` otherwise."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--smoke", action="store_true",
@@ -67,13 +77,25 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
-    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--lr", type=float, default=None,
+                    help=f"peak learning rate; default {SMOKE_LR:g} under --smoke "
+                         f"(the JAX package's, which trains the reduced "
+                         f"config) and {FULL_LR:g} for the full config (at "
+                         f"{SMOKE_LR:g} the full tinyllama's loss diverged "
+                         f"within 4 steps)")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--resume", default=None)
     ap.add_argument("--log-every", type=int, default=10)
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
+    if args.lr is None:
+        args.lr = SMOKE_LR if args.smoke else FULL_LR
+    return args
+
+
+def main() -> None:
+    args = parse_args()
 
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     device = resolve_device(args.device)

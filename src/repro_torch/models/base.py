@@ -1,17 +1,22 @@
 """Model configs, parameter specs and the port's initializer (dense and MoE
 families with full or sliding-window attention, ``first_k_dense`` head
-layers, the recurrent ssm family: rwkv6, the encoder-decoder family and
-prefix embeddings).
+layers, the recurrent ssm family: rwkv6, the hybrid family: jamba's
+attention and mamba layers, the encoder-decoder family and prefix
+embeddings).
 
 PyTorch counterpart of ``repro.models.base``.  ``ModelConfig`` is the JAX
 package's dataclass field for field, so configs read the same.  Parameters
 are nested dicts of tensors with the JAX tree's keys and layouts: decoder
-layers stacked along a leading ``layers`` dimension under
-``params["blocks"]["0"]`` (the ported configs' block period is 1), weights
+layers grouped into repeating blocks of ``cfg.block_period()`` layers,
+block position p stacked along a leading ``layers`` dimension under
+``params["blocks"][str(p)]`` (layer ``b * period + p`` is row b; every
+config but jamba has period 1, so ``blocks/0`` holds them all), weights
 stored ``(in, out)``; a MoE layer's ``moe`` leaves stack the experts after
 the layer axis, ``(layers, experts, in, out)``; the ``first_k_dense`` head
 layers are unstacked, ``params["head_layers"][str(i)]``, as in the JAX
-tree; an rwkv layer's weights sit under ``rwkv`` (time and channel mixing); an
+tree; an rwkv layer's weights sit under ``rwkv`` (time and channel mixing), a
+mamba layer's under ``mamba``; an attention layer of a ``use_bias`` config
+adds ``bq``, ``bk`` and ``bv``; an
 encoder-decoder config's decoder layers add ``cross_attn`` and a third
 norm (``norm2``: self-attention, cross-attention and FFN each get one),
 and its encoder stacks under ``enc_blocks/0`` with ``enc_final_norm``.
@@ -27,9 +32,6 @@ multiple of ``UNEMBED_ALIGN`` gets zero columns up to the next multiple
 TMA, which needs 16-byte rows, and ``models.transformer._unembed`` slices
 the logits back to ``vocab_size``.  Neither the copy nor the padding is a
 parameter: ``param_count`` counts the spec tree.
-
-The hybrid family (jamba), attention biases and block periods above one
-wait for later slices; ``param_specs`` raises on them (``check_ported``).
 """
 
 from __future__ import annotations
@@ -151,32 +153,31 @@ class ParamSpec:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise on what the port does not serve yet: the hybrid family,
-    attention biases and block periods above one.  Dense and MoE configs
-    with full or sliding-window attention (and ``first_k_dense`` head
-    layers), the ssm family (rwkv6), the encoder-decoder family
-    (seamless-m4t) and prefix embeddings (llava-next) pass."""
+    """Raise on what the port does not serve: a family or attention kind
+    the reference has no code for.  Every config of ``repro.configs``
+    passes."""
     missing = []
-    if cfg.family not in ("dense", "moe", "ssm", "encdec"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec"):
         missing.append(f"the {cfg.family} family")
     if cfg.attn_kind not in ("full", "sliding"):
         missing.append(f"attn_kind {cfg.attn_kind!r}")
-    if cfg.use_bias:
-        missing.append("attention biases")
-    if cfg.block_period() != 1:
-        missing.append(f"block period {cfg.block_period()}")
     if missing:
-        raise NotImplementedError(f"{cfg.name}: not ported yet: {', '.join(missing)}")
+        raise NotImplementedError(f"{cfg.name}: not ported: {', '.join(missing)}")
 
 
 def attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    return {
+    specs = {
         "wq": ParamSpec((d, h * hd), ("embed", "heads")),
         "wk": ParamSpec((d, kv * hd), ("embed", "kv")),
         "wv": ParamSpec((d, kv * hd), ("embed", "kv")),
         "wo": ParamSpec((h * hd, d), ("heads", "embed")),
     }
+    if cfg.use_bias:
+        specs["bq"] = ParamSpec((h * hd,), ("heads",), init="zeros")
+        specs["bk"] = ParamSpec((kv * hd,), ("kv",), init="zeros")
+        specs["bv"] = ParamSpec((kv * hd,), ("kv",), init="zeros")
+    return specs
 
 
 def dense_ffn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -195,6 +196,22 @@ def moe_ffn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
         "wi_gate": ParamSpec((e, d, f), ("experts", "embed", "ffn")),
         "wi_up": ParamSpec((e, d, f), ("experts", "embed", "ffn")),
         "wo": ParamSpec((e, f, d), ("experts", "ffn", "embed")),
+    }
+
+
+def mamba_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, di, ds, dc = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.d_conv
+    dt_rank = max(d // 16, 1)
+    return {
+        "in_proj": ParamSpec((d, 2 * di), ("embed", "inner")),
+        "conv_w": ParamSpec((dc, di), ("state", "inner"), scale=0.5),
+        "conv_b": ParamSpec((di,), ("inner",), init="zeros"),
+        "x_proj": ParamSpec((di, dt_rank + 2 * ds), ("inner", "state")),
+        "dt_proj_w": ParamSpec((dt_rank, di), ("state", "inner")),
+        "dt_proj_b": ParamSpec((di,), ("inner",), init="zeros"),
+        "A_log": ParamSpec((di, ds), ("inner", "state"), init="ones"),
+        "D": ParamSpec((di,), ("inner",), init="ones"),
+        "out_proj": ParamSpec((di, d), ("inner", "embed")),
     }
 
 
@@ -230,13 +247,13 @@ def rwkv_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 def layer_specs(cfg: ModelConfig, i: int, *, decoder: bool = True) -> Dict[str, Any]:
     """Specs of decoder layer ``i`` (an encoder layer with ``decoder=False``:
-    bidirectional attention and a dense FFN): attention or rwkv mixing, an
-    encoder-decoder decoder layer's ``cross_attn``, two norms (three with
-    cross-attention), and the layer's dense or MoE FFN (rwkv's channel
-    mixing is its FFN)."""
+    bidirectional attention and a dense FFN): attention, mamba or rwkv
+    mixing, an encoder-decoder decoder layer's ``cross_attn``, two norms
+    (three with cross-attention), and the layer's dense or MoE FFN (rwkv's
+    channel mixing is its FFN)."""
     kind = cfg.layer_kind(i) if decoder else "attn"
-    specs: Dict[str, Any] = (
-        {"rwkv": rwkv_specs(cfg)} if kind == "rwkv" else {"attn": attn_specs(cfg)})
+    mixers = {"attn": attn_specs, "mamba": mamba_specs, "rwkv": rwkv_specs}
+    specs: Dict[str, Any] = {kind: mixers[kind](cfg)}
     cross = decoder and cfg.family == "encdec"
     if cross:
         specs["cross_attn"] = attn_specs(cfg)
@@ -269,16 +286,27 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         specs["unembed"] = ParamSpec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
     # first_k_dense head layers break homogeneity: unstacked, as in the JAX
-    # tree; the rest stack along their layer axis (block period 1)
+    # tree; the rest stack by block position along their layer axis
     fkd = cfg.first_k_dense
     if fkd:
         specs["head_layers"] = {str(i): layer_specs(cfg, i) for i in range(fkd)}
-    specs["blocks"] = {"0": _stack(layer_specs(cfg, fkd), cfg.num_layers - fkd)}
+    period = stack_period(cfg)
+    specs["blocks"] = {str(p): _stack(layer_specs(cfg, fkd + p),
+                                      (cfg.num_layers - fkd) // period)
+                       for p in range(period)}
     if cfg.family == "encdec":
         specs["enc_blocks"] = {"0": _stack(layer_specs(cfg, 0, decoder=False),
                                            cfg.num_encoder_layers)}
         specs["enc_final_norm"] = ParamSpec((cfg.d_model,), ("embed",), init="ones")
     return specs
+
+
+def stack_period(cfg: ModelConfig) -> int:
+    """The period the decoder layers after the ``first_k_dense`` head
+    layers stack by: ``cfg.block_period()``, or 1 where it does not divide
+    their count (the reference's ``models.transformer._period``)."""
+    period = cfg.block_period()
+    return period if (cfg.num_layers - cfg.first_k_dense) % period == 0 else 1
 
 
 def iter_specs(tree: Any, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], ParamSpec]]:

@@ -2,9 +2,12 @@
 
 ``params_from_numpy`` takes the JAX package's parameter pytree converted to
 numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``: nested dicts,
-decoder layers stacked under ``blocks/0``, a MoE config's experts under
-``blocks/0/moe/{router, wi_gate, wi_up, wo}``, an encoder-decoder config's
-``blocks/0/cross_attn`` and ``enc_blocks/0``) and returns the port's tree of
+decoder layers stacked by block position under ``blocks/0`` ..
+``blocks/{period - 1}`` (jamba's attention and mamba layers; every other
+config has period 1), a MoE config's experts under
+``blocks/{p}/moe/{router, wi_gate, wi_up, wo}``, an encoder-decoder
+config's ``blocks/0/cross_attn`` and ``enc_blocks/0``) and returns the
+port's tree of
 tensors, same keys, same layouts.  ``models.base.finish_unembedding`` then
 gives a tied config the ``unembed`` copy of ``embed.T`` and pads an
 unembedding whose vocabulary is not a multiple of 8 with zero columns.

@@ -83,11 +83,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 def _qkv(p: Dict, cfg, x: torch.Tensor, schedule: Schedule):
-    """Project to q, k, v heads.  x: (B, T, D)."""
+    """Project to q, k, v heads (plus ``bq``, ``bk``, ``bv`` in x's dtype
+    when ``cfg.use_bias``).  x: (B, T, D)."""
     B, T, _ = x.shape
-    q = matmul(x, p["wq"], schedule).reshape(B, T, cfg.num_heads, cfg.hd)
-    k = matmul(x, p["wk"], schedule).reshape(B, T, cfg.num_kv_heads, cfg.hd)
-    v = matmul(x, p["wv"], schedule).reshape(B, T, cfg.num_kv_heads, cfg.hd)
+    q = matmul(x, p["wq"], schedule)
+    k = matmul(x, p["wk"], schedule)
+    v = matmul(x, p["wv"], schedule)
+    if cfg.use_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, T, cfg.num_heads, cfg.hd)
+    k = k.reshape(B, T, cfg.num_kv_heads, cfg.hd)
+    v = v.reshape(B, T, cfg.num_kv_heads, cfg.hd)
     return q, k, v
 
 

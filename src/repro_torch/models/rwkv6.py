@@ -30,15 +30,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.determinism import Schedule, _pairwise_sum, matmul
+from repro_torch.core.determinism import Schedule, _pairwise_sum, fixed_order, matmul
 
 F32 = torch.float32
-
-
-def fixed_order(schedule: Schedule) -> bool:
-    """True when the step's reductions run as fixed trees: the schedules
-    without splits, which also run the commit GEMM (``kernels.ops``)."""
-    return schedule.splits <= 1
 
 
 def init_state(cfg, batch: int, dtype: torch.dtype,

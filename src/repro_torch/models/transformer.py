@@ -1,5 +1,5 @@
-"""Incremental forward pass for the attention, rwkv and encoder-decoder
-families (prefill / decode / verify), and the encoder.
+"""Incremental forward pass for the attention, rwkv, hybrid and
+encoder-decoder families (prefill / decode / verify), and the encoder.
 
 PyTorch counterpart of ``repro.models.transformer``: ``cache_spec``,
 ``_apply_layer`` (attention with its dense or MoE FFN, an encoder-decoder
@@ -15,7 +15,12 @@ head layers run first, one by one, then the JAX ``lax.scan`` over the
 stacked layer block is a Python loop over the stacked leaves; cache leaves
 are updated in place.  Every entry point takes an explicit reduction
 ``Schedule``: the schedule, not the code, decides between fast-path and
-verifier-grade numerics.
+verifier-grade numerics.  A hybrid config's (jamba) layers come in blocks
+of ``models.base.stack_period`` layers, each block position stacked under
+its own ``blocks/{p}`` key in the params, the cache and the per-position
+trees; attention layers are paged or gathered as above, mamba layers keep
+``conv`` and ``ssm`` state per row (``models.mamba``).  Training the hybrid
+family is not ported: ``forward_train`` refuses it.
 
 Cache and per-position trees lead with a layer axis everywhere: the JAX
 tree's ``head_layers/{i}`` leaves, unstacked there (slot axis 0), and the
@@ -33,8 +38,8 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core.determinism import Schedule, VERIFY_SCHEDULE, matmul
-from repro_torch.models import rwkv6
-from repro_torch.models.base import ModelConfig, check_ported, padded_vocab
+from repro_torch.models import mamba, rwkv6
+from repro_torch.models.base import ModelConfig, check_ported, padded_vocab, stack_period
 from repro_torch.models.layers import (
     PagedView, _qkv, _softmax_attend, attention_cached, attention_paged,
     attention_train, cross_attention, encode_cross_kv, moe_ffn, q_scale, rms_norm,
@@ -60,6 +65,11 @@ def _layer_cache_shape(cfg: ModelConfig, kind: str, n: int, batch: int,
             "cm_shift": ((n, batch, cfg.d_model), dtype),
             "wkv": ((n, batch, h, cfg.rwkv_head_dim, cfg.rwkv_head_dim), F32),
         }
+    if kind == "mamba":
+        return {
+            "conv": ((n, batch, cfg.d_conv - 1, cfg.d_inner), dtype),
+            "ssm": ((n, batch, cfg.d_inner, cfg.d_state), F32),
+        }
     cap = (min(capacity, cfg.window + RING_SLACK) if cfg.attn_kind == "sliding"
            else capacity)
     kv = (n, batch, cap, cfg.num_kv_heads, cfg.hd)
@@ -72,8 +82,10 @@ def cache_spec(cfg: ModelConfig, batch: int, capacity: int) -> Dict[str, Any]:
     (layers, batch, cap) int32, cap = ``capacity`` for full attention and
     ``min(capacity, window + RING_SLACK)`` for a sliding window's ring.
     rwkv layers: ``tm_shift`` and ``cm_shift`` (layers, batch, d_model),
-    ``wkv`` (layers, batch, H, hd, hd) f32.  ``blocks/0`` stacks the block
-    layers; ``head_layers/{i}`` holds head layer i with a layer axis of
+    ``wkv`` (layers, batch, H, hd, hd) f32.  mamba layers: ``conv``
+    (layers, batch, d_conv - 1, d_inner) and ``ssm`` (layers, batch,
+    d_inner, d_state) f32.  ``blocks/{p}`` stacks the layers at block
+    position p; ``head_layers/{i}`` holds head layer i with a layer axis of
     one.  An encoder-decoder config adds ``cross``: the decoder layers'
     cross-attention ``{k,v}`` (layers, batch, Se, KV, HD) and the encoder
     ``mask`` (1, batch, Se) bool, Se = ``encoder_seq_len``."""
@@ -84,8 +96,10 @@ def cache_spec(cfg: ModelConfig, batch: int, capacity: int) -> Dict[str, Any]:
         spec["head_layers"] = {
             str(i): _layer_cache_shape(cfg, cfg.layer_kind(i), 1, batch, capacity)
             for i in range(fkd)}
-    spec["blocks"] = {"0": _layer_cache_shape(
-        cfg, cfg.layer_kind(fkd), cfg.num_layers - fkd, batch, capacity)}
+    period = stack_period(cfg)
+    spec["blocks"] = {str(p): _layer_cache_shape(
+        cfg, cfg.layer_kind(fkd + p), (cfg.num_layers - fkd) // period, batch,
+        capacity) for p in range(period)}
     if cfg.family == "encdec":
         se, dtype = cfg.encoder_seq_len, getattr(torch, cfg.dtype)
         kv = (cfg.num_layers, batch, se, cfg.num_kv_heads, cfg.hd)
@@ -122,9 +136,10 @@ def _apply_layer(
     ``cross_kv`` (an encoder-decoder layer: ``{k, v}`` (B, Se, KV, HD) and
     ``mask`` (B, Se)) adds cross-attention after self-attention, under
     ``norm1``; the FFN's norm moves to ``norm2``.
-    ``per_pos`` (rwkv with ``collect_states``) holds the state after each
-    position, ``{tm_shift, cm_shift: (B, W, D), wkv: (B, W, H, hd, hd)}``;
-    None for an attention layer."""
+    ``per_pos`` (rwkv or mamba with ``collect_states``) holds the state
+    after each position, ``{tm_shift, cm_shift: (B, W, D), wkv: (B, W, H,
+    hd, hd)}`` or ``{conv: (B, W, d_conv - 1, d_inner), ssm: (B, W,
+    d_inner, d_state)}``; None for an attention layer."""
     if cfg.layer_kind(i) == "rwkv":
         h_tm = rms_norm(x, lp["norm0"], cfg.norm_eps, schedule)
         tm_out, tm_shift, wkv, pp_wkv = rwkv6.time_mix(
@@ -143,7 +158,13 @@ def _apply_layer(
 
     window = cfg.window if cfg.attn_kind == "sliding" else 0
     h = rms_norm(x, lp["norm0"], cfg.norm_eps, schedule)
-    if paged is not None and window == 0:
+    per_pos = None
+    if cfg.layer_kind(i) == "mamba":
+        out, st, per_pos = mamba.mamba_layer(lp["mamba"], cfg, h, lc, schedule,
+                                             collect_states)
+        lc["conv"].copy_(st["conv"])
+        lc["ssm"].copy_(st["ssm"])
+    elif paged is not None and window == 0:
         out, _ = attention_paged(lp["attn"], cfg, h, lc, tables, start_pos,
                                  schedule, paged)
     else:
@@ -161,7 +182,7 @@ def _apply_layer(
         out, _aux = moe_ffn(lp["moe"], cfg, h, schedule)
     else:
         out = swiglu_ffn(lp["ffn"], h, schedule)
-    return x + out, None
+    return x + out, per_pos
 
 
 def _embed(params, cfg, tokens, inputs_embeds):
@@ -208,19 +229,19 @@ def forward(
     ``inputs_embeds`` (B, W, D) replaces the token embeddings (prefix
     embeddings, prefill chunks).  Returns ``(logits (B, W, V) f32, cache,
     per_pos)``, the JAX signature's ``(logits, new_cache, per_pos)``: with
-    ``collect_states``, ``per_pos`` mirrors the cache tree, each rwkv leaf
-    with a window axis after the row axis (the state after each position:
-    ``blocks/0`` (L, B, W, ...), ``head_layers/{i}`` (1, B, W, ...)) and None
-    in place of an attention layer's leaves; else None."""
+    ``collect_states``, ``per_pos`` mirrors the cache tree, each rwkv or
+    mamba leaf with a window axis after the row axis (the state after each
+    position: ``blocks/{p}`` (L, B, W, ...), ``head_layers/{i}`` (1, B, W,
+    ...)) and None in place of an attention layer's leaves; else None."""
     if (paged is None) != (tables is None):
         raise ValueError("pass both tables and paged (paged pool) or neither "
                          "(gathered views)")
     x = _embed(params, cfg, tokens, inputs_embeds)
     fkd = cfg.first_k_dense
-    blocks, pool = params["blocks"]["0"], cache["blocks"]["0"]
+    period = stack_period(cfg)
     heads = cache.get("head_layers", {})
     if paged is None and cfg.attn_kind != "sliding":
-        for leaves in [pool] + list(heads.values()):
+        for leaves in list(cache["blocks"].values()) + list(heads.values()):
             if "k" in leaves:
                 C = leaves["k"].shape[2]
                 assert int(start_pos.max()) + x.shape[1] <= C, (
@@ -231,20 +252,23 @@ def forward(
                              _index(heads[str(i)], 0), tables, start_pos, schedule,
                              paged, collect_states)
         per_head[str(i)] = _stack_states([pp])
-    cross = cache.get("cross") if cfg.family == "encdec" else None
-    pps = []
-    for i in range(cfg.num_layers - fkd):
+    cross = cache.get("cross") if cfg.family == "encdec" else None  # period 1
+    pps: Dict[str, list] = {str(p): [] for p in range(period)}
+    for b in range((cfg.num_layers - fkd) // period):
         cross_kv = (None if cross is None else
-                    {"k": cross["k"][i], "v": cross["v"][i], "mask": cross["mask"][0]})
-        x, pp = _apply_layer(cfg, fkd + i, _index(blocks, i), x, _index(pool, i),
-                             tables, start_pos, schedule, paged, collect_states,
-                             cross_kv)
-        pps.append(pp)
+                    {"k": cross["k"][b], "v": cross["v"][b], "mask": cross["mask"][0]})
+        for p in range(period):
+            key = str(p)
+            x, pp = _apply_layer(cfg, fkd + b * period + p,
+                                 _index(params["blocks"][key], b), x,
+                                 _index(cache["blocks"][key], b), tables, start_pos,
+                                 schedule, paged, collect_states, cross_kv)
+            pps[key].append(pp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, schedule)
     logits = _unembed(params, cfg, x, schedule).to(F32)
     per_pos = None
     if collect_states:
-        per_pos = {"blocks": {"0": _stack_states(pps)}}
+        per_pos = {"blocks": {k: _stack_states(v) for k, v in pps.items()}}
         if fkd:
             per_pos["head_layers"] = per_head
     return logits, cache, per_pos
@@ -324,6 +348,10 @@ def forward_train(
     no meaning for a Python loop and is dropped.  ``params`` is the JAX
     tree (``training.train.train_params``) or a serving tree with the
     derived ``unembed``."""
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"{cfg.name}: training the hybrid family is not ported (its mamba "
+            "layers' scan has no backward pass here yet)")
     x = _embed(params, cfg, tokens, inputs_embeds)
     fkd = cfg.first_k_dense
     cross_kv = None

@@ -1,6 +1,6 @@
 """Fixed-size KV block pool: allocator + block-indexed device cache layout.
 
-PyTorch counterpart of ``repro.serving.blockpool``, attention-arch subset.
+PyTorch counterpart of ``repro.serving.blockpool``.
 ``build_layout`` classifies every cache leaf once, by shape, into one of
 two kinds, plus a third by name:
 
@@ -13,7 +13,9 @@ two kinds, plus a third by name:
 * ``slot``: dense per-slot leaves, ``(layers, num_slots + 1, ...)``, the
   last row a scratch slot that verify pad rows write.  Sliding-window
   rings (``window + RING_SLACK`` slots a row) and recurrent state (rwkv's
-  ``tm_shift``, ``cm_shift`` and ``wkv``) are slot leaves.  Every scatter
+  ``tm_shift``, ``cm_shift`` and ``wkv``, mamba's ``conv`` and ``ssm``) are
+  slot leaves; a hybrid config's pool holds paged and slot leaves side by
+  side.  Every scatter
   into slot leaves is an ``index_put_``, whose duplicate indices are
   nondeterministic on CUDA: pad rows may share the scratch slot, but no
   real slot may take two rows of one scatter (``check_slots``).

@@ -41,7 +41,8 @@ the two hand-written GEMMs and single-token attention in the paged kernels
 
 Served families: dense and MoE (``first_k_dense`` head layers included),
 with full or sliding-window attention, the recurrent ssm family (rwkv6),
-the encoder-decoder family (seamless-m4t) and prefix embeddings
+the hybrid family (jamba: attention and mamba layers in a stacked block
+period), the encoder-decoder family (seamless-m4t) and prefix embeddings
 (llava-next).  A sliding config keeps per-slot rings (``window + RING_SLACK``
 slots) in place of paged KV, so it has no paged lane and no prefix cache;
 its prefill runs in chunks the ring contract allows (``_ring_pass_cap``).
@@ -50,7 +51,11 @@ fast path: the double-buffered state pool (``serving.statepool``) carries
 the verify replay's anchor and one commit checkpoint per in-flight window,
 so speculation runs ``spec_depth`` windows deep; its prefill passes keep
 the state after their last real position (pads never enter it), and it
-has no paged lane and no prefix cache either.  An encoder-decoder
+has no prefix cache (rwkv, with slot leaves only, has no paged lane
+either).  A hybrid config pages its attention layers' KV and keeps its
+mamba layers' ``conv`` and ``ssm`` state in slot leaves of the same pool:
+one verify pass repairs the KV and selects the per-position states
+together.  An encoder-decoder
 request carries ``enc_embeds`` (1, Se, D): at admission, and again on
 every restore, the encoder runs once under ``VERIFY_SCHEDULE`` at B = 1 in
 every mode (``_build_cross``) and its cross K/V fill the slot's
@@ -60,8 +65,13 @@ read-only ``cross`` leaves.  A prefix-embeds request carries
 replay) feeds them again (``_chunk_embeds``), and every position count
 (capacity, blocks, decode and verify positions, prefill events) includes
 them.  Neither config shares prefixes: the radix key sees tokens, not these
-side inputs.  What waits for later slices: the hybrid family and ``tp >
-1``; the constructor raises on each.
+side inputs.
+
+``tp`` is the fast path's logical tensor-parallel width: decode passes run
+with ``tp_shards=tp`` un-pinned (``kernels.ops.matmul`` folds the chunks in
+the split-K kernel), while the commit path replays under
+``VERIFY_SCHEDULE``'s pinned tree, so committed streams are the same at
+every ``tp`` dividing ``CANONICAL_TP_SHARDS``; other widths are refused.
 """
 
 from __future__ import annotations
@@ -73,6 +83,7 @@ import torch
 
 from repro_torch.core import dvr, pipeline
 from repro_torch.core.determinism import (
+    CANONICAL_TP_SHARDS,
     FAST_PATH_POLICY,
     INVARIANT_SCHEDULE,
     Mode,
@@ -129,8 +140,16 @@ class Engine:
         tp: int = 1,  # fast-path tensor-parallel width
     ):
         check_ported(cfg)
-        if tp != 1:
-            raise NotImplementedError("tp > 1 waits for the distributed/ port")
+        # Logical TP width of the FAST PATH: decode schedules carry
+        # tp_shards=tp un-pinned (the chunk-order combine a width-tp ring
+        # all-reduce would produce).  The commit path never reads it: the
+        # verify body closes over VERIFY_SCHEDULE, whose pinned balanced tree
+        # every power-of-two width dividing CANONICAL_TP_SHARDS realizes
+        # bitwise.
+        if not (tp >= 1 and CANONICAL_TP_SHARDS % tp == 0):
+            raise ValueError(
+                f"tp={tp} must divide the canonical shard count "
+                f"{CANONICAL_TP_SHARDS} for the commit tree to be realizable")
         assert spec_depth >= 1, "at least one verify window must be allowed"
         assert prefill_chunk >= 0, "prefill_chunk must be >= 0 (0 = exclusive)"
         self.cfg = cfg
@@ -1082,7 +1101,13 @@ class Engine:
     def _decode_schedule(self, B: int) -> Schedule:
         if self.mode == Mode.BATCH_INVARIANT:
             return INVARIANT_SCHEDULE
-        return self.policy.schedule_for(B)
+        sched_ = self.policy.schedule_for(B)
+        if self.tp > 1:
+            # fast path on a width-tp mesh: the TP partial-sum tree follows
+            # the mesh (un-pinned), which perturbs decode as batch geometry
+            # does, and DVR catches both the same way
+            sched_ = sched_._replace(tp_shards=self.tp, tp_pinned=False)
+        return sched_
 
     def _decode_prep(self, batch: List[Request]):
         """Device arguments for one decode pass over ``batch``."""

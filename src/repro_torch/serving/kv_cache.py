@@ -1,7 +1,7 @@
 """Paged cache manager: request slots + the KV block pool.
 
-PyTorch counterpart of ``repro.serving.kv_cache``, attention, rwkv and
-encoder-decoder archs.  ``CachePool`` owns the device pool
+PyTorch counterpart of ``repro.serving.kv_cache``, attention, rwkv,
+hybrid and encoder-decoder archs.  ``CachePool`` owns the device pool
 (``serving.blockpool``), the block allocator and the slot free list.
 Full-attention KV is paged; slots hold the slot-kind leaves
 (sliding-window rings, recurrent state) and the read-only cross caches,

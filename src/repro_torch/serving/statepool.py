@@ -3,9 +3,9 @@
 PyTorch counterpart of ``repro.serving.statepool``.  Attention KV rollback
 is pointer-free: the verifier's replay overwrites the window's cache
 entries positionally and anything past the commit point is shadowed by the
-position mask.  Recurrent state (rwkv's shift and wkv state) has no
-positions to hide behind: the fast path advances one O(1) state per slot
-irreversibly.  The pool double-buffers it per slot:
+position mask.  Recurrent state (rwkv's shift and wkv state, mamba's conv
+and ssm state) has no positions to hide behind: the fast path advances one
+O(1) state per slot irreversibly.  The pool double-buffers it per slot:
 
 * the **live** state stays in the engine's cache pool (``blockpool`` slot
   leaves) and is advanced only by the fast path (decode / prefill);

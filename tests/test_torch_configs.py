@@ -82,7 +82,7 @@ def test_configs_and_param_counts_equal_jax(arch):
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
         assert cfg.param_count() == jcfg.param_count()
         assert cfg.active_param_count() == jcfg.active_param_count()
-        assert cfg.block_period() == jcfg.block_period() == 1
+        assert cfg.block_period() == jcfg.block_period()
         assert [cfg.layer_kind(i) for i in range(cfg.num_layers)] == \
             [jcfg.layer_kind(i) for i in range(cfg.num_layers)]
         assert [cfg.ffn_kind(i) for i in range(cfg.num_layers)] == \
@@ -91,9 +91,15 @@ def test_configs_and_param_counts_equal_jax(arch):
 
 
 def test_registry_refuses_unported_archs():
+    """Every architecture of the reference is registered (``list_archs``
+    equals JAX's, the paper's llama3-8b besides them); an unknown name
+    raises."""
+    jax_configs = pytest.importorskip("repro.configs")
+    assert configs.list_archs() == jax_configs.list_archs()
     assert sorted(configs.ARCH_IDS) == sorted(configs.DASHED.values())
-    with pytest.raises(ValueError, match="not ported"):
-        configs.get_config("jamba-1.5-large-398b")
+    assert set(configs.ARCH_IDS) == set(configs.list_archs()) | {"llama3_8b"}
+    with pytest.raises(ValueError, match="no such architecture"):
+        configs.get_config("jamba-2-mini")
 
 
 def _shared(arch):

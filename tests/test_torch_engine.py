@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.configs import llama3_8b
 from repro_torch.core.determinism import Mode, ReductionPolicy
 from repro_torch.models.base import init_params
@@ -182,19 +183,26 @@ def test_prefix_cache_hit_keeps_stream(port_params):
 
 
 def test_engine_refuses_unported_options(port_params):
-    """Tensor parallelism, the hybrid family and attention biases still
-    wait (the sliding-window family is ported since
-    tests/test_torch_sliding.py, ``first_k_dense`` head layers and rwkv
-    since tests/test_torch_kimi.py and tests/test_torch_recurrent.py); the
-    gathered lane and seeded sampling are ported
-    (tests/test_torch_gathered.py, tests/test_torch_sampler.py)."""
+    """A TP width that does not divide the canonical tree is refused, as in
+    the reference; tp 2, the hybrid family and attention biases serve
+    (tests/test_torch_tp.py, tests/test_torch_hybrid.py), as do the
+    gathered lane and seeded sampling (tests/test_torch_gathered.py,
+    tests/test_torch_sampler.py)."""
     import dataclasses
 
-    with pytest.raises(NotImplementedError):
-        Engine(CFG, port_params, tp=2)
-    for unported in (dict(family="hybrid", attn_every=2), dict(use_bias=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Engine(dataclasses.replace(CFG, **unported), port_params)
+    from repro_torch.models.base import init_params
+
+    with pytest.raises(ValueError, match="canonical shard count"):
+        Engine(CFG, port_params, tp=3)
+    for ported in (dict(tp=2), dict(cfg=configs.get_smoke_config("jamba-1.5-large-398b")),
+                   dict(cfg=dataclasses.replace(CFG, use_bias=True))):
+        cfg = ported.pop("cfg", CFG)
+        params = (port_params if cfg is CFG
+                  else init_params(cfg, torch.Generator().manual_seed(0), "cpu"))
+        eng = Engine(cfg, params, capacity=64, **ported)
+        eng.submit(Request(rid=0, prompt=[1, 2, 3], sampling=SamplingParams(
+            max_new_tokens=3, is_deterministic=True)))
+        assert len(eng.run()[0].committed) == 3
     eng = Engine(CFG, port_params, capacity=64, paged_attention=False)
     eng.submit(Request(rid=0, prompt=[1, 2, 3], sampling=SamplingParams(
         max_new_tokens=4, temperature=0.8)))

@@ -191,7 +191,7 @@ def test_gemm_commit_rows_independent_of_other_rows():
 
 def test_ops_matmul_routing():
     """VERIFY -> 4-chunk commit tree; splits > K -> one pass; a fast
-    schedule -> split-K; un-pinned TP schedules wait."""
+    schedule -> split-K; an un-pinned TP schedule -> split-K's TP fold."""
     x, w = (torch.from_numpy(a) for a in _xw(3, 64, 32, seed=6))
     assert torch.equal(ops.matmul(x, w, VERIFY_SCHEDULE),
                        ref.gemm_batch_invariant(x, w, chunks=4))
@@ -201,8 +201,8 @@ def test_ops_matmul_routing():
     assert torch.equal(ops.matmul(x, w, fast),
                        ref.gemm_splitk(x, w, fast.splits, fast.combine_dtype))
     assert ops.matmul(x[None], w, fast).shape == (1, 3, 32)
-    with pytest.raises(NotImplementedError):
-        ops.matmul(x, w, Schedule(tp_shards=2))
+    assert torch.equal(ops.matmul(x, w, Schedule(tp_shards=2)),
+                       ref.gemm_splitk(x, w, 1, tp_shards=2))
 
 
 def test_wrappers_never_fall_back():

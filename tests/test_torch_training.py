@@ -239,6 +239,23 @@ def test_train_cli_smoke(tmp_path, monkeypatch, capsys):
     assert "at step 2" in out and "step     3  loss" in out
 
 
+@pytest.mark.parametrize("argv,lr", [
+    (["--smoke"], 1e-3), ([], 3e-4), (["--smoke", "--lr", "5e-4"], 5e-4),
+    (["--lr", "1e-3"], 1e-3)], ids=["smoke", "full", "smoke-given", "full-given"])
+def test_train_cli_lr_defaults(argv, lr):
+    """``--lr`` defaults to the JAX package's 1e-3 under ``--smoke``
+    and to 3e-4 for the full config; a given rate is kept."""
+    from repro_torch.launch import train_launch
+
+    assert train_launch.parse_args(argv).lr == lr
+
+
+def test_forward_train_refuses_the_hybrid_family():
+    cfg = configs.get_smoke_config("jamba-1.5-large-398b")
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        forward_train({}, cfg, torch.zeros((1, 4), dtype=torch.long))
+
+
 # ---------------------------------------------------------------------------
 # the GEMMs' backward and attention_train
 # ---------------------------------------------------------------------------
