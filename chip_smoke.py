@@ -37,8 +37,9 @@ the main path) and the gathered lane (``paged_attention=False``):
            its own path is its entry point ``kernels.ops.rmsnorm``, driven
            with counts reset the same way; then a 2-layer cut's logits on
            the card against the CPU, on each lane;
-4. determinism  the divergence demo's experiment on each lane, with
-           greedy and seeded deterministic requests: LLM42 and
+4. determinism  the divergence demo's experiment on each lane (16 of the
+           serve model's 32 layers), with greedy and seeded deterministic
+           requests: LLM42 and
            BATCH_INVARIANT streams must be bitwise identical alone and
            beside 3 and 6 neighbours, and the gathered lane's LLM42 streams
            equal to the paged lane's (NONDET divergence is printed); then
@@ -129,9 +130,27 @@ the main path) and the gathered lane (``paged_attention=False``):
            overlap at spec_depth 2 equal to pause, a preempted and restored
            request equal to the unpressured run (launches held to the
            passes);
-12. cluster replicas 1, 2 and 3 of one tinyllama-1.1b engine (22 layers,
-           full width) on one card, sharing the weights, each with its own
-           paged pool, behind the deterministic router (``cluster/``) on
+12. distribution ``distributed.sharding.tp_matmul``'s fallback on a
+           DeviceMesh over an NCCL group of world size 1 (d = 1: the
+           logical path, no collective; NCCL at d > 1 needs a card a rank)
+           and the d = 2 and 4 rank programs run one after another through
+           tp_matmul's own parts (``tp_rank_partial``: the commit GEMM's
+           partials entry on the rank's K slice and its local subtree;
+           ``tp_butterfly``'s adds),
+           every rank bitwise the four-chunk commit GEMM at Llama-3-8B's
+           widths (K, N) (4096, 4096), (4096, 1024), (4096, 14336), (4096,
+           128256), (14336, 4096) x M 1, 8, 32; the un-pinned bf16 ring
+           combine against tp 1 printed (negative control); the d = 4 rank
+           programs' device time beside one four-chunk launch; then the
+           dry run (``launch.dryrun.run_case``, the meta device) of every
+           arch but kimi-k2 at decode_32k on both production meshes and at
+           verify_32k while a 30 s budget lasts: no case may fail; each
+           case's argument GiB a rank printed beside the card's memory
+           (kimi-k2's cases: the optional ``dryrun_kimi`` phase, named in
+           ``--phases`` only);
+13. cluster replicas 1, 2 and 3 of one tinyllama-1.1b engine (11 of 22
+           layers, full width, priced by the H100 clock at 22) on one card,
+           sharing the weights, each with its own paged pool, behind the deterministic router (``cluster/``) on
            the ``costmodel.H100`` clock: 12 requests of a shared 2-block
            prefix at fixed modeled arrivals, half deterministic (greedy
            and seeded), ``imbalance=1``; each deterministic request commits
@@ -144,7 +163,7 @@ the main path) and the gathered lane (``paged_attention=False``):
            occupancy per replica; ``copy_blocks`` timed beside its bytes
            bound; the device memory allocated before the phase and after
            it, with everything it made dropped (at most 64 MiB more);
-13. training the GEMMs' backward (``kernels.ops.GemmGrad``: dX = dY W^T
+14. training the GEMMs' backward (``kernels.ops.GemmGrad``: dX = dY W^T
            and dW = X^T dY in the commit GEMM) against the plain version's
            autograd at tinyllama's projection shapes and LM head, at M =
            2048 and 1003, dX's rows bitwise across M, each product timed
@@ -157,8 +176,14 @@ the main path) and the gathered lane (``paged_attention=False``):
            resumed bitwise into step 4; step time (CUDA events), tok/s and
            peak memory; one more step split at its gradients and its update
            (device memory held and peak in each half), and one under
-           ``torch.profiler`` (device time by kernel, busy share);
-14. timings each kernel against its plain version and one PyTorch call,
+           ``torch.profiler`` (device time by kernel, busy share); then 4
+           AdamW steps of jamba-smoke (the hybrid family: attention and
+           mamba layers, MoE) at 4 x 64 tokens, with remat twice and
+           without it once, bitwise equal, launches per step held to the
+           step's GEMMs, step time and peak memory; the same for one mamba
+           layer at jamba-1.5-large's published widths (bf16, autograd
+           through its per-position loop, AdamW on its leaves);
+15. timings each kernel against its plain version and one PyTorch call,
            beside the least time the card could take (100 launches a
            reading); both GEMMs beside ``torch.matmul`` at every projection
            shape and serve-run M, their device time per forward, and the
@@ -174,8 +199,9 @@ The line before the last is a JSON object describing every kernel
 cluster runs and every training pass, each as its counters measured it;
 ``launches_by_mode`` splits them by lane, mode and run and adds the online
 run's, each config's and each variants, families and modalities run's, and
-the backward products' check, which is a comparison with the plain version
-and so stays out of ``launches``; ``max_abs_err_by_config`` holds the configs, variants,
+the backward products' check and the distribution phase's runs, which are
+comparisons with the logical commit GEMM and so stay out of
+``launches``; ``max_abs_err_by_config`` holds the configs, variants,
 families and modalities phases' errors, and the commit GEMM's ``backward``
 the backward products' error and times); the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check
@@ -191,6 +217,8 @@ is visible or when it runs outside a checkout of the repository.
     python3 chip_smoke.py --phases build,modalities
     python3 chip_smoke.py --phases build,hybrid
     python3 chip_smoke.py --phases build,cluster,training
+    python3 chip_smoke.py --phases build,distribution,training
+    python3 chip_smoke.py --phases build,dryrun_kimi
 """
 
 from __future__ import annotations
@@ -212,8 +240,10 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "serve", "determinism", "profile", "online", "configs",
-          "variants", "families", "modalities", "hybrid", "cluster", "training",
-          "timings")
+          "variants", "families", "modalities", "hybrid", "distribution", "cluster",
+          "training", "timings")
+#: phases outside the default run, only by name in ``--phases``
+OPTIONAL_PHASES = ("dryrun_kimi",)
 
 #: per-request KV reach of the serve phase (128 blocks of 16).  The paged
 #: kernels' cost no longer follows the reach (the timings phase times them
@@ -1151,7 +1181,7 @@ def phase_serve(torch, cfg, params, capacity, results, summary) -> None:
     for lane, paged in LANES.items():
         for mode in (Mode.LLM42, Mode.BATCH_INVARIANT, Mode.NONDET):
             run = f"{lane}/{mode.value}"
-            gc.collect()  # earlier engines' pools (the engine holds cycles)
+            gc.collect()  # a guard: a dropped engine frees its pool at once
             eng = Engine(cfg, params, mode=mode, capacity=capacity,
                          paged_attention=paged)
             reqs = build_requests(cfg, n_req, det_ratio=0.5, max_out=max_new, seed=0)
@@ -1390,16 +1420,42 @@ def phase_reference(torch, cfg, params) -> None:
                 f"{lane}: card argmax disagrees with the CPU reference")
 
 
+#: the determinism phase's depth: the serve phase's first 16 of llama3-8b's
+#: 32 layers at full width (its weights, as views), since the distribution
+#: phase came: the default run did not fit 1200 s on a slow host at 32
+DETERMINISM_DEPTH = 16
+
+
+def cut_layers(cfg, params, depth):
+    """``cfg`` at ``depth`` layers and its first ``depth`` layers' weights,
+    views of ``params`` (a stacked block leaf's leading axis is the layer;
+    a config of block period 1 without head layers)."""
+    assert cfg.block_period() == 1 and not cfg.first_k_dense
+
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:depth]
+
+    return (dataclasses.replace(cfg, num_layers=depth),
+            {k: (cut(v) if k == "blocks" else v) for k, v in params.items()})
+
+
 def phase_determinism(torch, cfg, params, results, summary) -> None:
     """The divergence demo's experiment (examples/dvr_divergence_demo.py)
-    on each lane, with three tracked requests (one greedy, two seeded at
-    temperature 0.8 with top-k 0 and 50) beside 0, 3 and 6 greedy
-    neighbours; then the paged LLM42 runs at TP widths 2 and 4
-    (``determinism_tp``)."""
+    on each lane, at DETERMINISM_DEPTH layers, with three tracked requests
+    (one greedy, two seeded at temperature 0.8 with top-k 0 and 50) beside
+    0, 3 and 6 greedy neighbours; then the paged LLM42 runs at TP widths 2
+    and 4 (``determinism_tp``)."""
     from repro_torch.core.determinism import Mode, ReductionPolicy
     from repro_torch.core.spans import consistent_spans
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import Request, SamplingParams
+
+    full = cfg.num_layers
+    cfg, params = cut_layers(cfg, params, DETERMINISM_DEPTH)
+    log(f"[determinism] {cfg.name}: {cfg.num_layers} of {full} layers (the serve "
+        f"phase's weights), d_model {cfg.d_model}")
 
     policy = ReductionPolicy(thresholds=((2, 16), (4, 8), (8, 4)),
                              combine_dtype="bfloat16")
@@ -3523,13 +3579,198 @@ def phase_hybrid(torch, results, summary) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: cluster (replicas behind the deterministic router)
+# phase 12: distribution (tp_matmul over torch.distributed, the dry run)
+# ---------------------------------------------------------------------------
+
+#: Llama-3-8B's row-parallel GEMM widths (K, N): q/o, k/v, gate/up, the LM
+#: head, down
+TP_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (4096, 128256), (14336, 4096))
+TP_MS = (1, 8, 32)
+#: the dry-run cases the phase runs on the card's host (every arch at
+#: decode_32k, verify_32k where DRYRUN_BUDGET_S allows); kimi-k2's run
+#: alone (its 384 experts a layer are about 10^5 meta ops a pass) takes
+#: the ``dryrun_kimi`` phase, outside the default run
+DRYRUN_SHAPES = ("decode_32k", "verify_32k")
+DRYRUN_BUDGET_S = 30.0
+DRYRUN_SLOW = ("kimi-k2-1t-a32b",)
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def rank_programs(torch, x, w, d, pinned=True):
+    """The d ranks of ``distributed.sharding.tp_matmul`` at VERIFY_SCHEDULE
+    run one after another in this process, through tp_matmul's own parts:
+    each rank's local subtree is ``tp_rank_partial`` (its K slice's
+    ``4 / d`` chunk partials from ``gemm_batch_invariant_partials``,
+    ``tree_combine``), then ``tp_butterfly`` runs its levels with an exchange
+    that hands over the partner's value entering the level (what
+    ``batch_isend_irecv`` carries between ranks).  Returns each rank's result
+    in x's dtype.  ``pinned=False`` combines the ranks' values in bf16 in
+    ring order instead (the un-pinned schedule's all-reduce, the negative
+    control)."""
+    from repro_torch.core.determinism import CANONICAL_TP_SHARDS
+    from repro_torch.distributed.sharding import tp_butterfly, tp_rank_partial
+
+    accs = [tp_rank_partial(x, w, r, d, CANONICAL_TP_SHARDS) for r in range(d)]
+    if not pinned:
+        acc = accs[0].to(torch.bfloat16)
+        for a in accs[1:]:
+            acc = acc + a.to(torch.bfloat16)
+        return [acc.to(x.dtype)] * d
+
+    def entering(r, step):  # rank r's value entering the level ``step``
+        return tp_butterfly(accs[r], r, step, lambda _a, p, s: entering(p, s))
+
+    return [entering(r, d).to(x.dtype) for r in range(d)]
+
+
+def distribution_tp(torch, results, summary) -> None:
+    """``tp_matmul``'s fallback on a world-size-1 NCCL group (d = 1: the
+    logical path, no collective), and the d = 2 and 4 rank programs through
+    tp_matmul's own parts, bitwise against the logical commit GEMM at
+    Llama-3-8B's widths."""
+    import torch.distributed as dist
+
+    from repro_torch.core.determinism import VERIFY_SCHEDULE, Schedule
+    from repro_torch.distributed.sharding import tp_matmul
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
+    from repro_torch.launch.mesh import make_host_mesh
+
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    cases = []
+    for K, N in TP_SHAPES:
+        w = (torch.randn((K, N), generator=gen, device=DEV) * K ** -0.5).to(torch.bfloat16)
+        for M in TP_MS:
+            cases.append((M, K, N, torch.randn((M, K), generator=gen, device=DEV)
+                          .to(torch.bfloat16), w))
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh(model=1, device="cuda")
+        fns = reset_launches()
+        for M, K, N, x, w in cases:
+            got = tp_matmul(x, w, mesh)
+            require(torch.equal(got, ops.matmul(x, w, VERIFY_SCHEDULE)),
+                    f"distribution: tp_matmul fallback ({M}, {K}) @ ({K}, {N}) differs")
+        sync(torch)
+        record_launches(results, "distribution/tp_matmul fallback d=1",
+                        launch_counts(fns), main_path=False)
+    finally:
+        dist.destroy_process_group()
+    log(f"[distribution] tp_matmul's fallback on a DeviceMesh over an NCCL group of "
+        f"world size 1 (d = 1: the logical matmul, no collective call): equal to "
+        f"ops.matmul(VERIFY_SCHEDULE) at {len(cases)} shapes (K, N) in {TP_SHAPES} x M "
+        f"in {TP_MS}, bf16; NCCL at d > 1 needs one card a rank, so it waits for a "
+        "call with four cards")
+    fns = reset_launches()
+    worst = {}
+    for M, K, N, x, w in cases:
+        want = gemm_batch_invariant(x, w, chunks=4)
+        for d in (2, 4):
+            for r, got in enumerate(rank_programs(torch, x, w, d)):
+                require(torch.equal(got, want), f"distribution: rank {r} of d={d} at "
+                        f"({M}, {K}) @ ({K}, {N}) differs from the commit GEMM")
+        tp1 = ops.matmul(x, w, Schedule())
+        ring = rank_programs(torch, x, w, 4, pinned=False)[0]
+        worst[(M, K, N)] = ((ring.float() - tp1.float()).abs().max().item(),
+                            not torch.equal(ring, tp1))
+    sync(torch)
+    record_launches(results, "distribution/rank programs", launch_counts(fns),
+                    main_path=False)
+    log(f"[distribution] rank programs at d = 2 and 4 (sharding.tp_rank_partial: the "
+        f"partials entry on each rank's K slice and its local subtree; "
+        f"sharding.tp_butterfly): every rank bitwise the commit GEMM at "
+        f"tp_shards 4 at all {len(cases)} shapes and M")
+    for (M, K, N), (err, differs) in worst.items():
+        log(f"[distribution] negative control ({M}, {K}) @ ({K}, {N}): un-pinned "
+            f"d = 4 (bf16, ring order) vs tp 1: max |diff| {err:.4g}, "
+            f"{'differs' if differs else 'equal'}")
+    summary["distribution"] = {"unpinned_differs": sum(d for _, d in worst.values()),
+                               "cases": len(cases)}
+    timing = {}
+    for K, N in TP_SHAPES:
+        M = 8
+        x = torch.randn((M, K), generator=gen, device=DEV).to(torch.bfloat16)
+        w = (torch.randn((K, N), generator=gen, device=DEV) * K ** -0.5).to(torch.bfloat16)
+        one = time_ms(torch, lambda: gemm_batch_invariant(x, w, chunks=4))
+        four = time_ms(torch, lambda: rank_programs(torch, x, w, 4))
+        timing[f"{K}x{N}"] = {"one_launch_ms": one, "d4_rank_programs_ms": four}
+        log(f"[distribution] ({M}, {K}) @ ({K}, {N}): one four-chunk launch {one:.4f} ms; "
+            f"the d = 4 rank programs (four quarter-K launches, subtrees, butterfly) "
+            f"{four:.4f} ms (device time, CUDA events, median of 100)")
+    summary["distribution"]["timing"] = timing
+
+
+def dryrun_cases(torch, archs, shapes, budget_s, summary, key) -> None:
+    """``launch.dryrun.run_case`` on both production meshes on this host
+    (the meta device: no card memory, no kernel); no case may fail."""
+    from repro_torch.launch import dryrun
+
+    card = torch.cuda.get_device_properties(0).total_memory
+    t0 = time.perf_counter()
+    out = {}
+    for shape in shapes:
+        for arch in archs:
+            if shape != shapes[0] and time.perf_counter() - t0 > budget_s:
+                log(f"[distribution] dry run: {arch} {shape} left out (budget "
+                    f"{budget_s:.0f} s spent)")
+                continue
+            for rec in dryrun.run_case(arch, shape, (False, True)):
+                require(rec["status"] != "fail", f"dry run {arch} {shape} {rec['mesh']}: "
+                        f"{rec.get('error')}")
+                if rec["status"] == "skipped":
+                    continue
+                gib = rec["memory"]["argument_bytes"] / 2 ** 30
+                out[f"{arch}/{shape}/{rec['mesh']}"] = dict(
+                    run_s=rec["run_s"], flops=rec["flops"], argument_gib=gib)
+                log(f"[distribution] dry run {arch:24s} {shape:11s} {rec['mesh']:16s} ok "
+                    f"in {rec['run_s']:.1f} s: {rec['flops']:.3g} FLOPs, arguments "
+                    f"{gib:.2f} GiB a rank (this card holds {card / 2 ** 30:.1f} GiB)")
+    summary[key] = out
+    log(f"[distribution] dry run: {len(out)} records, no fail, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_distribution(torch, results, summary) -> None:
+    """``distribution_tp``, then the dry run's decode_32k cases of every
+    arch but ``DRYRUN_SLOW`` and its verify_32k cases as far as
+    ``DRYRUN_BUDGET_S`` reaches."""
+    from repro_torch import configs
+
+    distribution_tp(torch, results, summary)
+    inv = {v: k for k, v in configs.DASHED.items()}
+    archs = [inv[a] for a in configs.list_archs() if inv[a] not in DRYRUN_SLOW]
+    dryrun_cases(torch, archs, DRYRUN_SHAPES, DRYRUN_BUDGET_S, summary, "dryrun")
+
+
+def phase_dryrun_kimi(torch, results, summary) -> None:
+    """The dry run's decode_32k and verify_32k cases of ``DRYRUN_SLOW``."""
+    dryrun_cases(torch, list(DRYRUN_SLOW), DRYRUN_SHAPES, float("inf"), summary,
+                 "dryrun_kimi")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: cluster (replicas behind the deterministic router)
 # ---------------------------------------------------------------------------
 
 #: the cluster phase's config (the serve and train drivers' default arch),
-#: at full width and depth; each replica owns a KV pool of CLUSTER_CAPACITY
-#: positions a slot (the serve driver's 512), the weights are shared
+#: at full width; each replica owns a KV pool of CLUSTER_CAPACITY positions
+#: a slot (the serve driver's 512), the weights are shared
 CLUSTER_ARCH, CLUSTER_CAPACITY = "tinyllama-1.1b", 512
+#: its depth, 11 of 22 layers since the distribution phase came: at 22 the
+#: default run did not fit 1200 s on a slow host (PERF.md section 4); the
+#: H100 clock still prices the full config's passes, so the modeled traffic
+#: and the diverts are those of 22 layers
+CLUSTER_DEPTH = 11
 
 #: the cluster phase's traffic: CLUSTER_REQUESTS prompts of a shared 2-block
 #: prefix (32 tokens) and an 8-token tail, CLUSTER_MAX_NEW new tokens each,
@@ -3588,9 +3829,9 @@ def copy_blocks_checked(torch, moves):
     return real, checked
 
 
-def cluster_run(torch, cfg, params, n, transfer, results):
-    """One ``cluster.run_online`` of the cluster traffic on the H100 clock,
-    each replica's step wrapped to attribute kernel launches (counts reset
+def cluster_run(torch, cfg, params, n, transfer, results, cost_cfg):
+    """One ``cluster.run_online`` of the cluster traffic on the H100 clock
+    (priced at ``cost_cfg``), each replica's step wrapped to attribute kernel launches (counts reset
     just before the run) and to sample its occupancy; each replica's
     launches must equal ``expected_launches`` of its own passes, and the
     merged trace must validate with one pid a replica."""
@@ -3623,7 +3864,7 @@ def cluster_run(torch, cfg, params, n, transfer, results):
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
         t0 = time.perf_counter()
-        res = run_online(cluster, cfg, [(r, CLUSTER_GAP_S * r.rid) for r in reqs])
+        res = run_online(cluster, cost_cfg, [(r, CLUSTER_GAP_S * r.rid) for r in reqs])
         b.record()
         b.synchronize()
     finally:
@@ -3637,6 +3878,7 @@ def cluster_run(torch, cfg, params, n, transfer, results):
         want = expected_launches(cfg, rep.engine, True)
         require(per[rep.idx] == want, f"{run}: replica {rep.idx} launched "
                  f"{per[rep.idx]}, its passes imply {want}")
+        del rep.engine.step  # the wrapper holds its engine: no cycle left behind
     record_launches(results, run, counts)
     trace = cluster.chrome_trace()  # validates, or raises
     require({e["pid"] for e in trace["traceEvents"]} == set(range(n)),
@@ -3699,11 +3941,12 @@ def time_copy_blocks(torch, cfg, params, summary) -> None:
 
 def phase_cluster(torch, results, summary) -> None:
     """``cluster_runs``, with the device memory allocated read before it and
-    after it, once everything it made is dropped: an engine is freed only
-    by a collection (its metrics gauges and the replicas' step wrappers
-    close over it, reference cycles), so the phase collects before it
-    reads, and the next phase starts with the weights and pools freed.  At
-    most CLUSTER_LEFT_MIB may stay."""
+    after it, once everything it made is dropped.  Engines and clusters
+    hold no reference cycles (their metrics gauges reach them through weak
+    references, and the step wrappers this phase puts on the replicas are
+    removed after each run), so a dropped engine frees its pool at once;
+    the phase still collects before it reads, as a guard, not as the fix.
+    At most CLUSTER_LEFT_MIB may stay."""
     gc.collect()
     held = torch.cuda.memory_allocated()
     log(f"[cluster] device memory allocated before the phase: {held / 2 ** 30:.3f} GiB")
@@ -3720,10 +3963,11 @@ def phase_cluster(torch, results, summary) -> None:
 
 
 def cluster_runs(torch, results, summary) -> None:
-    """Replicas 1, 2 and 3 of one tinyllama engine (22 layers, full width,
-    random weights from seed 0) on one card, sharing the weights, each with
-    its own paged pool, behind the deterministic router on the
-    ``costmodel.H100`` clock (``imbalance=1``, so prefix hits divert): each
+    """Replicas 1, 2 and 3 of one tinyllama engine (CLUSTER_DEPTH of 22
+    layers, full width, random weights from seed 0) on one card, sharing
+    the weights, each with its own paged pool, behind the deterministic
+    router on the ``costmodel.H100`` clock at the full config
+    (``imbalance=1``, so prefix hits divert): each
     deterministic request commits its solo stream at every replica count
     and under ``copy`` and ``recompute``; a second identical 3-replica run
     repeats the assignment, the modeled latencies and TTFTs and every
@@ -3735,8 +3979,10 @@ def cluster_runs(torch, results, summary) -> None:
     from repro_torch.models.base import init_params
     from repro_torch.serving.engine import Engine
 
-    cfg = configs.get_config(CLUSTER_ARCH)
-    log(f"[cluster] {CLUSTER_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+    full = configs.get_config(CLUSTER_ARCH)
+    cfg = dataclasses.replace(full, num_layers=CLUSTER_DEPTH)
+    log(f"[cluster] {CLUSTER_ARCH}: {cfg.num_layers} of {full.num_layers} layers (priced "
+        f"at {full.num_layers}), d_model {cfg.d_model}, "
         f"heads {cfg.num_heads}/{cfg.num_kv_heads}, vocab {cfg.vocab_size}; "
         f"{CLUSTER_REQUESTS} requests of a 32-token shared prefix + 8 x "
         f"{CLUSTER_MAX_NEW} new tokens, {CLUSTER_GAP_S * 1e3:.0f} ms apart (modeled), "
@@ -3753,7 +3999,7 @@ def cluster_runs(torch, results, summary) -> None:
     runs = {}
     for n, transfer in CLUSTER_RUNS + (CLUSTER_RUNS[-1],):
         gc.collect()
-        info = cluster_run(torch, cfg, params, n, transfer, results)
+        info = cluster_run(torch, cfg, params, n, transfer, results, full)
         key = (n, transfer)
         if key in runs:  # the repeat
             first = runs[key]
@@ -3779,7 +4025,7 @@ def cluster_runs(torch, results, summary) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 13: training (forward_train, the GEMMs' backward, AdamW, checkpoints)
+# phase 14: training (forward_train, the GEMMs' backward, AdamW, checkpoints)
 # ---------------------------------------------------------------------------
 
 #: the training phase: tinyllama at full width and depth, TRAIN_STEPS
@@ -3820,15 +4066,17 @@ MICRO_ULPS = 4
 
 
 def train_gemm_launches(cfg, remat):
-    """Commit-GEMM launches of one training step of a dense config (one
-    microbatch): every forward GEMM (``forward_gemms``: 7 a layer and the
-    unembedding, 4 chunks each), the layers' 7 again in the recompute when
-    ``remat`` (the unembedding is not rematerialized), and two backward
-    products (one chunk each) for every forward GEMM, since every GEMM's
-    input and weight need a gradient."""
-    assert cfg.family == "dense" and not cfg.first_k_dense
+    """Commit-GEMM launches of one training step (one microbatch) of a
+    config without head layers or an encoder: every forward GEMM
+    (``forward_gemms``: a dense layer's 7, a hybrid block's attention and
+    mamba layers' 4 and their FFNs' (3, or a MoE layer's router and 3 a
+    expert), and the unembedding), the block layers' again in the
+    recompute when ``remat`` (the unembedding is not rematerialized), and
+    two backward products (one chunk each) for every forward GEMM, since
+    every GEMM's input and weight need a gradient."""
+    assert cfg.family in ("dense", "hybrid") and not cfg.first_k_dense
     fwd = sum(forward_gemms(cfg))
-    return fwd + (7 * cfg.num_layers if remat else 0) + 2 * fwd
+    return fwd + (fwd - 1 if remat else 0) + 2 * fwd
 
 
 def commit_only(n):
@@ -4022,6 +4270,187 @@ def train_step_parts(torch, cfg, params, batch, opt_cfg, results, summary) -> No
                                              e.count) for e in kernels[:15]])
 
 
+#: the hybrid family's training at jamba-smoke (the published period does not
+#: fit one card; one mamba layer at the published widths does): steps of
+#: B x S tokens from seed 0
+HYBRID_TRAIN_B, HYBRID_TRAIN_S, HYBRID_TRAIN_STEPS = 4, 64, 4
+
+
+def train_hybrid(torch, results, summary) -> None:
+    """jamba-smoke (4 layers: attention and mamba in a block period of 2,
+    MoE on every other layer; f32; random weights from seed 0):
+    HYBRID_TRAIN_STEPS AdamW steps at HYBRID_TRAIN_B x HYBRID_TRAIN_S with
+    remat, each step's launches held to ``train_gemm_launches``; a second
+    run and a run with remat off bitwise equal in parameters, optimizer
+    state and metrics; the loss finite; step time (CUDA events) and peak
+    memory."""
+    from repro_torch import configs
+    from repro_torch.core.determinism import deterministic_torch
+    from repro_torch.launch.train_launch import batch_on
+    from repro_torch.models.base import init_params
+    from repro_torch.training.data import SyntheticTextStream
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state, tree_leaves
+    from repro_torch.training.train import make_train_step, train_params
+
+    cfg = configs.get_smoke_config(HYBRID_ARCH)
+    B, S, steps = HYBRID_TRAIN_B, HYBRID_TRAIN_S, HYBRID_TRAIN_STEPS
+    params0 = train_params(cfg, init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(0), DEV))
+    stream = iter(SyntheticTextStream(cfg.vocab_size, S, B, seed=0))
+    batches = [batch_on(cfg, next(stream), i, torch.device(DEV)) for i in range(steps)]
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=steps)
+
+    def run(remat, label):
+        step_fn = make_train_step(cfg, opt_cfg, remat=remat)
+        want = commit_only(train_gemm_launches(cfg, remat))
+        params, opt_state = params0, init_opt_state(params0)
+        sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+        hist, times = [], []
+        total = dict.fromkeys(KERNELS, 0)
+        for i in range(steps):
+            fns = reset_launches()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            params, opt_state, m = step_fn(params, opt_state, batches[i])
+            b.record()
+            b.synchronize()
+            counts = launch_counts(fns)
+            require(counts == want, f"training {cfg.name} {label} step {i + 1}: "
+                    f"launches {counts}, the step implies {want}")
+            for k, c in counts.items():
+                total[k] += c
+            times.append(a.elapsed_time(b))
+            hist.append({k: v.clone() for k, v in m.items()})
+            log(f"[training] {cfg.name} {label} step {i + 1}: loss "
+                f"{float(m['loss']):.6f} gnorm {float(m['grad_norm']):.6f}; "
+                f"{times[-1]:.1f} ms (CUDA events); launches {counts} (= the step's)")
+        record_launches(results, f"training/{cfg.name} {label}", total)
+        leaves = tree_leaves(params) + tree_leaves(opt_state.mu) + tree_leaves(opt_state.nu)
+        return leaves, hist, times, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    with deterministic_torch():
+        la, ha, ta, peak = run(True, "run 1")
+        lb, hb, _, _ = run(True, "run 2")
+        lc, hc, tc, _ = run(False, "remat off")
+    for other, hist, label in ((lb, hb, "a second run"), (lc, hc, "remat off")):
+        require(all(torch.equal(a, b) for a, b in zip(la, other)),
+                f"training {cfg.name}: {label}'s parameters or optimizer state differ")
+        require(all(torch.equal(ma[k], mb[k]) for ma, mb in zip(ha, hist) for k in ma),
+                f"training {cfg.name}: {label}'s metrics differ")
+    require(all(math.isfinite(float(m["loss"])) for m in ha),
+            f"training {cfg.name}: a non-finite loss")
+    median = sorted(ta)[len(ta) // 2]
+    log(f"[training] {cfg.name}: run 2 and remat off bitwise run 1 (parameters, "
+        f"optimizer state, metrics); step time median {median:.1f} ms with remat, "
+        f"{sorted(tc)[len(tc) // 2]:.1f} ms without (CUDA events) -> "
+        f"{B * S / median * 1e3:.0f} tok/s; peak device memory {peak:.3f} GiB")
+    summary["training"]["hybrid"] = dict(
+        arch=cfg.name, step_ms=ta, step_ms_no_remat=tc, peak_mem_gib=peak,
+        loss=[float(m["loss"]) for m in ha],
+        launches_per_step=train_gemm_launches(cfg, True))
+
+
+def train_mamba_full_width(torch, results, summary) -> None:
+    """One mamba layer at jamba-1.5-large's published widths (d_model 8192,
+    d_inner 16384, d_state 16, d_conv 4, dt_rank 512; bf16; weights from
+    seed 0) trained as ``forward_train`` trains it: ``x + mamba_layer(
+    rms_norm(x))`` from the zero state under VERIFY_SCHEDULE, the loss an
+    f32 sum against a fixed cotangent, autograd through the per-position
+    loop (``GemmGrad``'s commit GEMMs), then the port's AdamW update of the
+    layer's leaves; HYBRID_TRAIN_STEPS steps at HYBRID_TRAIN_B x
+    HYBRID_TRAIN_S, with remat (``torch.utils.checkpoint``, not reentrant,
+    as ``forward_train``'s) and without.  A repeat and the run without remat
+    are bitwise the first in parameters, optimizer state and losses; every
+    step's launches are its GEMMs' (4 forward, 4 again under remat, 8
+    backward products); step time (CUDA events) and peak memory printed.
+    The depth cut: one layer of the published 72 (the whole period does not
+    fit one card)."""
+    from repro_torch import configs
+    from repro_torch.core.determinism import VERIFY_SCHEDULE, deterministic_torch
+    from repro_torch.models import mamba
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.training.optimizer import (
+        AdamWConfig, apply_updates, init_opt_state, tree_leaves, tree_map,
+    )
+    from torch.utils.checkpoint import checkpoint
+
+    cfg = configs.get_config(HYBRID_ARCH)
+    B, S, steps = HYBRID_TRAIN_B, HYBRID_TRAIN_S, HYBRID_TRAIN_STEPS
+    dt = getattr(torch, cfg.dtype)
+    params0 = {"norm0": torch.ones(cfg.d_model, dtype=dt, device=DEV),
+               "mamba": mamba_weights(torch, cfg)}
+    g = torch.Generator(device=DEV).manual_seed(3)
+    xs = [torch.randn((B, S, cfg.d_model), generator=g, device=DEV).to(dt)
+          for _ in range(steps)]
+    cts = [torch.randn((B, S, cfg.d_model), generator=g, device=DEV) for _ in range(steps)]
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=steps)
+
+    def layer(p, x):
+        h = rms_norm(x, p["norm0"], cfg.norm_eps, VERIFY_SCHEDULE)
+        return x + mamba.mamba_layer(p["mamba"], cfg, h, None, VERIFY_SCHEDULE)[0]
+
+    def run(remat, label):
+        want = commit_only(16 if remat else 12)
+        params, opt_state = params0, init_opt_state(params0)
+        sync(torch)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        total = dict.fromkeys(KERNELS, 0)
+        for i in range(steps):
+            fns = reset_launches()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            leaves = tree_map(lambda v: v.detach().requires_grad_(True), params)
+            y = (checkpoint(layer, leaves, xs[i], use_reentrant=False) if remat
+                 else layer(leaves, xs[i]))
+            loss = (y.float() * cts[i]).sum()
+            it = iter(torch.autograd.grad(loss, tree_leaves(leaves)))
+            grads = tree_map(lambda _: next(it), leaves)
+            params, opt_state, _ = apply_updates(
+                opt_cfg, tree_map(lambda v: v.detach(), leaves), grads, opt_state)
+            b.record()
+            b.synchronize()
+            counts = launch_counts(fns)
+            require(counts == want, f"training {cfg.name} mamba layer {label} step "
+                    f"{i + 1}: launches {counts}, the step implies {want}")
+            for k, c in counts.items():
+                total[k] += c
+            times.append(a.elapsed_time(b))
+            losses.append(loss.detach())
+        record_launches(results, f"training/{cfg.name} mamba layer {label}", total,
+                        main_path=False)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        leaves = tree_leaves(params) + tree_leaves(opt_state.mu) + tree_leaves(opt_state.nu)
+        return leaves, losses, times, peak
+
+    with deterministic_torch():
+        la, ha, ta, peak = run(True, "run 1")
+        lb, hb, _, _ = run(True, "run 2")
+        lc, hc, tc, peak_c = run(False, "remat off")
+    for other, hist, label in ((lb, hb, "a second run"), (lc, hc, "remat off")):
+        require(all(torch.equal(a, b) for a, b in zip(la, other)),
+                f"training {cfg.name} mamba layer: {label}'s parameters or optimizer "
+                "state differ")
+        require(all(torch.equal(a, b) for a, b in zip(ha, hist)),
+                f"training {cfg.name} mamba layer: {label}'s losses differ")
+    require(all(math.isfinite(float(v)) for v in ha) and all(
+        bool(torch.isfinite(t.float()).all()) for t in la),
+        f"training {cfg.name} mamba layer: non-finite values")
+    med, med_c = sorted(ta)[len(ta) // 2], sorted(tc)[len(tc) // 2]
+    log(f"[training] {cfg.name} mamba layer at the published widths (d_model "
+        f"{cfg.d_model}, d_inner {cfg.d_inner}, d_state {cfg.d_state}, dt_rank "
+        f"{max(cfg.d_model // 16, 1)}, {cfg.dtype}; 1 of {cfg.num_layers} layers), "
+        f"{steps} AdamW steps of {B} x {S}: run 2 and remat off bitwise run 1 "
+        f"(parameters, optimizer state, losses); step time median {med:.1f} ms with "
+        f"remat, {med_c:.1f} ms without (CUDA events); peak device memory above the "
+        f"phase's {peak:.3f} GiB with remat, {peak_c:.3f} GiB without")
+    summary["training"]["mamba_full_width"] = dict(
+        step_ms=ta, step_ms_no_remat=tc, peak_mem_gib=peak, peak_mem_gib_no_remat=peak_c,
+        loss=[float(v) for v in ha])
+
+
 def phase_training(torch, results, summary) -> None:
     """``training.train`` on the card: the backward products
     (``check_backward_products``), then TRAIN_STEPS AdamW steps of
@@ -4032,8 +4461,9 @@ def phase_training(torch, results, summary) -> None:
     loss finite and lower on the first batch after the steps; remat=False
     gradients bitwise equal to remat's; two microbatches within MICRO_ULPS;
     saved after TRAIN_SAVE_AT steps and resumed, bitwise the uninterrupted
-    run; then ``train_step_parts``.  Every step under ``deterministic_torch``;
-    every pass's measured launches go into the kernels line."""
+    run; then ``train_step_parts``; then the hybrid family's
+    ``train_hybrid`` and ``train_mamba_full_width``.  Every step under ``deterministic_torch``; every
+    pass's measured launches go into the kernels line."""
     from repro_torch import configs
     from repro_torch.core.determinism import deterministic_torch
     from repro_torch.launch.train_launch import batch_on
@@ -4183,10 +4613,12 @@ def phase_training(torch, results, summary) -> None:
     del params0
     gc.collect()
     torch.cuda.empty_cache()
+    train_hybrid(torch, results, summary)
+    train_mamba_full_width(torch, results, summary)
 
 
 # ---------------------------------------------------------------------------
-# phase 14: timings
+# phase 15: timings
 # ---------------------------------------------------------------------------
 
 
@@ -4541,10 +4973,10 @@ def time_rmsnorm(torch, cfg, results, flush) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {PHASES}")
+                    help=f"comma-separated subset of {PHASES + OPTIONAL_PHASES}")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
-    unknown = set(phases) - set(PHASES)
+    unknown = set(phases) - set(PHASES + OPTIONAL_PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -4609,6 +5041,10 @@ def main() -> int:
         timed("modalities", phase_modalities, torch, results, summary)
     if "hybrid" in phases:
         timed("hybrid", phase_hybrid, torch, results, summary)
+    if "distribution" in phases:
+        timed("distribution", phase_distribution, torch, results, summary)
+    if "dryrun_kimi" in phases:
+        timed("dryrun_kimi", phase_dryrun_kimi, torch, results, summary)
     if "cluster" in phases:
         timed("cluster", phase_cluster, torch, results, summary)
     if "training" in phases:

@@ -40,6 +40,7 @@ off the same cost model the single-engine runner uses.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -47,7 +48,7 @@ from repro_torch.cluster.replica import Replica, transfer_prefix
 from repro_torch.models.base import ModelConfig
 from repro_torch.obs import MetricsRegistry, validate_chrome_trace
 from repro_torch.serving import costmodel
-from repro_torch.serving.engine import Engine
+from repro_torch.serving.engine import Engine, weak_pull
 from repro_torch.serving.request import Request
 
 
@@ -166,30 +167,32 @@ class Cluster:
 
     def _register_metrics(self) -> None:
         m = self.metrics
-        m.gauge_fn("cluster.replicas", lambda: len(self.replicas),
+        # through a weak reference: the registry is the cluster's own
+        pull = functools.partial(weak_pull, self)
+        m.gauge_fn("cluster.replicas", pull(lambda c: len(c.replicas)),
                    unit="replicas", help="engine replicas behind the router")
         m.gauge_fn("cluster.router.assignments",
-                   lambda: self.router.assignments,
+                   pull(lambda c: c.router.assignments),
                    unit="requests", help="routing decisions made")
         m.gauge_fn("cluster.router.affinity_hits",
-                   lambda: self.router.affinity_hits,
+                   pull(lambda c: c.router.affinity_hits),
                    unit="requests",
                    help="requests routed to the replica holding their prefix")
         m.gauge_fn("cluster.router.affinity_misses",
-                   lambda: self.router.affinity_misses,
+                   pull(lambda c: c.router.affinity_misses),
                    unit="requests", help="requests with no cached prefix")
         m.gauge_fn("cluster.router.affinity_hit_rate",
-                   lambda: self.router.affinity_hit_rate,
+                   pull(lambda c: c.router.affinity_hit_rate),
                    unit="fraction", help="affinity hits over assignments")
         m.gauge_fn("cluster.router.diverted",
-                   lambda: self.router.diverted,
+                   pull(lambda c: c.router.diverted),
                    unit="requests",
                    help="prefix hits diverted by the load guard")
         m.gauge_fn("cluster.router.transfers",
-                   lambda: self.router.transfers,
+                   pull(lambda c: c.router.transfers),
                    unit="transfers", help="cross-replica block transfers")
         m.gauge_fn("cluster.router.transferred_tokens",
-                   lambda: self.router.transferred_tokens,
+                   pull(lambda c: c.router.transferred_tokens),
                    unit="tokens", help="KV tokens moved between replicas")
         for rep in self.replicas:
             # close over the loop variable via default arg

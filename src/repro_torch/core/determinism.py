@@ -20,7 +20,12 @@ package's; the arithmetic lives in ``repro_torch.kernels``:
 A schedule with ``tp_shards > 1`` cuts K into that many chunks above its
 split schedule: pinned (the commit path), the chunk partials combine by the
 balanced f32 tree; un-pinned (the fast path at ``Engine(tp=N)``), in chunk
-order through ``combine_dtype``, as a width-N ring all-reduce would.
+order through ``combine_dtype``, as a width-N ring all-reduce would.  The
+pinned tree is realizable bitwise across ranks: on a ``model`` axis of
+width d, a power of two dividing ``tp_shards``, each rank sums its local
+subtree and a recursive-doubling butterfly completes the top log2(d)
+levels in the same association (``distributed.sharding.tp_matmul``, over
+``torch.distributed``), so the product equals this module's ``matmul``.
 """
 
 from __future__ import annotations

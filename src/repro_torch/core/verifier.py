@@ -7,6 +7,11 @@ tokens in ONE forward pass of a fixed (G, W) shape under
 shape-consistent => the replay is bitwise reproducible, which makes it the
 deterministic reference execution.  On the card every GEMM of the pass runs
 in the batch-invariant kernel (``kernels/csrc/gemm_batch_invariant.cu``).
+Its K reduction is the canonical TP decomposition (``tp_shards`` f32
+partials, balanced-tree f32 combine), which a width-d ``model`` mesh
+realizes bitwise for every power-of-two d dividing ``tp_shards``
+(``distributed.sharding.tp_matmul``): the fast path may run at any TP
+width, the replay's partial-sum tree never follows it.
 
 Per row:
   inputs  = [conditioning_token, cand_0, …, cand_{W-2}]    (padded to W)

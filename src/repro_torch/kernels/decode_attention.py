@@ -5,8 +5,10 @@ token per row over a dense ``(B, S, KV, D)`` cache, keys masked unless
 ``s < lengths[b]``, ``kv_splits`` chunks merged in split order through
 ``combine_dtype``, q scaled by ``scale`` in f32 (default ``D**-0.5``, the
 TPU kernel's).  A CPU tensor runs the plain version
-(``ref.decode_attention``); a CUDA tensor launches the kernel or raises.
-``decode_attention.launches`` counts kernel launches.
+(``ref.decode_attention``); a CUDA tensor launches the kernel or raises; a
+meta tensor runs the card path's checks and returns a meta output
+(``meta_attention``).  ``decode_attention.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -20,6 +22,17 @@ from repro_torch.kernels import build, ref
 _DTYPES = (torch.bfloat16, torch.float32)
 #: query heads per KV head, a warp each (csrc GMAX)
 MAX_GROUP = 8
+
+
+def meta_attention(q: torch.Tensor, S: int, KV: int) -> torch.Tensor:
+    """The attention wrappers' meta output: (B, H, D) f32 through the two
+    contractions of one query a row over S keys, on meta tensors (nothing
+    allocated or computed; ``FlopCounterMode`` sees 4*B*H*S*D FLOPs)."""
+    B, H, D = q.shape
+    qg = q.to(torch.float32).reshape(B, KV, H // KV, D)
+    keys = torch.empty((B, S, KV, D), dtype=torch.float32, device=q.device)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, keys)
+    return torch.einsum("bkgs,bskd->bkgd", s, keys).reshape(B, H, D)
 
 
 def decode_attention(
@@ -36,8 +49,8 @@ def decode_attention(
     if q.device.type == "cpu":
         return ref.decode_attention(q, k, v, lengths, kv_splits, combine_dtype, scale)
     tensors = (q, k, v, lengths)
-    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
-        raise ValueError("decode_attention: every tensor must be on one CUDA device")
+    if q.device.type not in ("cuda", "meta") or any(t.device != q.device for t in tensors):
+        raise ValueError("decode_attention: every tensor must be on one CUDA or meta device")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"decode_attention: q/k/v dtypes {q.dtype}, {k.dtype}, {v.dtype}")
     if lengths.dtype != torch.int32:
@@ -58,6 +71,8 @@ def decode_attention(
         raise ValueError(f"decode_attention: kv_splits={kv_splits} (1..S={S})")
     if combine_dtype not in build.DTYPE_CODES:
         raise ValueError(f"decode_attention: combine_dtype {combine_dtype!r}")
+    if q.device.type == "meta":
+        return meta_attention(q, S, KV).to(q.dtype)
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     if B == 0:
         return out

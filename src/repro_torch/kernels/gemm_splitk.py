@@ -3,7 +3,8 @@
 Replaces ``repro/kernels/gemm_splitk.py::gemm_splitk`` and the
 tensor-parallel fold of ``repro.core.determinism.matmul``.  A CPU tensor
 runs the plain version (``ref.gemm_splitk``); a CUDA tensor launches the
-kernel or raises.  ``gemm_splitk.launches`` counts kernel launches.
+kernel or raises; a meta tensor runs the card path's checks and returns a
+meta output (``meta_product``).  ``gemm_splitk.launches`` counts kernel launches.
 """
 
 # det: fastpath
@@ -12,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.gemm_batch_invariant import check_operands
+from repro_torch.kernels.gemm_batch_invariant import check_operands, meta_product
 
 #: the widest TP fold the kernel takes (``MAX_TP`` in ``csrc/gemm_splitk.cu``)
 MAX_TP = 16
@@ -32,7 +33,7 @@ def gemm_splitk(x: torch.Tensor, w: torch.Tensor, *, splits: int,
         return ref.gemm_splitk(x, w, splits, combine_dtype,
                                tp_shards=tp_shards, tp_pinned=tp_pinned)
     check_operands("gemm_splitk", x, w)
-    if x.device.type != "cuda" or w.device != x.device:
+    if x.device.type not in ("cuda", "meta") or w.device != x.device:
         raise ValueError(f"gemm_splitk: x on {x.device}, w on {w.device}")
     if combine_dtype not in build.DTYPE_CODES:
         raise ValueError(f"gemm_splitk: combine_dtype {combine_dtype!r}")
@@ -41,6 +42,8 @@ def gemm_splitk(x: torch.Tensor, w: torch.Tensor, *, splits: int,
     if splits < 1 or not 1 <= tp_shards <= min(K, MAX_TP):
         raise ValueError(f"gemm_splitk: splits={splits}, tp_shards={tp_shards} "
                          f"(1..{min(K, MAX_TP)})")
+    if x.device.type == "meta":
+        return meta_product(x, w)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out

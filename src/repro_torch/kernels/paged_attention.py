@@ -4,8 +4,9 @@ Replaces ``repro/kernels/paged_attention.py``: ``paged_attention`` (commit
 path, one softmax per row over the table reach) and ``paged_attention_fast``
 (``# det: fastpath``, kv-split flash-decode with the TPU kernel's rounding
 points).  A CPU tensor runs the plain version (``ref``); a CUDA tensor
-launches the kernel or raises.  Each function's ``launches`` attribute
-counts kernel launches.
+launches the kernel or raises; a meta tensor runs the card path's checks
+and returns a meta output (``decode_attention.meta_attention``).  Each
+function's ``launches`` attribute counts kernel launches.
 """
 
 from __future__ import annotations
@@ -15,15 +16,17 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.decode_attention import meta_attention
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _check(q, k_pool, v_pool, pos_pool, tables, q_pos, null_bid, name):
-    """Validate a CUDA launch; returns (B, H, KV, D, bs, nblk, dtype code)."""
+    """Validate a CUDA (or meta) launch; returns (B, H, KV, D, bs, nblk,
+    dtype code)."""
     tensors = (q, k_pool, v_pool, pos_pool, tables, q_pos)
-    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
-        raise ValueError(f"{name}: every tensor must be on one CUDA device")
+    if q.device.type not in ("cuda", "meta") or any(t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: every tensor must be on one CUDA or meta device")
     if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise TypeError(f"{name}: q/k/v dtypes {q.dtype}, {k_pool.dtype}, "
                         f"{v_pool.dtype}")
@@ -61,6 +64,8 @@ def paged_attention(
             q, k_pool, v_pool, pos_pool, tables, q_pos, null_bid=null_bid)
     B, H, KV, D, bs, nblk, dt = _check(
         q, k_pool, v_pool, pos_pool, tables, q_pos, null_bid, "paged_attention")
+    if q.device.type == "meta":
+        return meta_attention(q, nblk * bs, KV)
     out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
     lib = build.load("paged_attention")
     rc = lib.repro_paged_attention(
@@ -99,6 +104,8 @@ def paged_attention_fast(
         raise ValueError(f"kv_splits={kv_splits} must divide table reach {nblk}")
     if combine_dtype not in build.DTYPE_CODES:
         raise ValueError(f"paged_attention_fast: combine_dtype {combine_dtype!r}")
+    if q.device.type == "meta":
+        return meta_attention(q, nblk * bs, KV)
     G = H // KV
     dev = q.device
     m_part = torch.empty((B, KV, kv_splits, G), dtype=torch.float32, device=dev)

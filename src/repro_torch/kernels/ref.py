@@ -29,14 +29,16 @@ def gemm_batch_invariant(x: torch.Tensor, w: torch.Tensor, *,
     balanced f32 tree (``tree_combine``).  ``chunks=1`` is
     ``repro.kernels.gemm_batch_invariant``; ``chunks=4`` the commit path
     under ``VERIFY_SCHEDULE``."""
-    parts = [
-        xc.to(F32) @ wc.to(F32)
-        for xc, wc in zip(
-            torch.split(x, _split_sizes(x.shape[-1], chunks), dim=-1),
-            torch.split(w, _split_sizes(x.shape[-1], chunks), dim=0),
-        )
-    ]
-    return tree_combine(parts).to(x.dtype)
+    return tree_combine(gemm_partials(x, w, chunks=chunks)).to(x.dtype)
+
+
+def gemm_partials(x: torch.Tensor, w: torch.Tensor, *, chunks: int) -> list:
+    """The commit GEMM's f32 chunk partials before its tree: ``chunks``
+    (M, N) tensors, chunk c ``x[:, kc] @ w[kc]`` in one f32 pass over the
+    c-th ``_split_sizes`` slice ``kc`` of K."""
+    sizes = _split_sizes(x.shape[-1], chunks)
+    return [xc.to(F32) @ wc.to(F32) for xc, wc in zip(
+        torch.split(x, sizes, dim=-1), torch.split(w, sizes, dim=0))]
 
 
 def _reduce_k_f32(x: torch.Tensor, w: torch.Tensor, splits: int,

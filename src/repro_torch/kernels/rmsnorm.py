@@ -5,9 +5,10 @@ Replaces ``repro/kernels/rmsnorm.py::rmsnorm``.  Its contract is
 round), not the model's ``models.layers.rms_norm``, so, as in the JAX
 package, it is reached through ``kernels.ops.rmsnorm`` and not from the
 model.  A CPU tensor runs the plain version; a CUDA tensor launches the
-kernel or raises.  The kernel reads ``scale`` in its own dtype (bf16 or
-f32), so a call is one launch.  ``rmsnorm.launches`` counts kernel
-launches.
+kernel or raises; a meta tensor runs the card path's checks and returns an
+empty meta output (FLOP counters count only contractions).  The kernel
+reads ``scale`` in its own dtype (bf16 or f32), so a call is one launch.
+``rmsnorm.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     if x.device.type == "cpu":
         return ref.rmsnorm(x, scale, eps, residual)
     tensors = (x, scale) + ((residual,) if residual is not None else ())
-    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
-        raise ValueError("rmsnorm: every tensor must be on one CUDA device")
+    if x.device.type not in ("cuda", "meta") or any(t.device != x.device for t in tensors):
+        raise ValueError("rmsnorm: every tensor must be on one CUDA or meta device")
     if x.dtype not in _DTYPES or scale.dtype not in _DTYPES or (
             residual is not None and residual.dtype != x.dtype):
         raise TypeError(f"rmsnorm: dtypes x {x.dtype}, scale {scale.dtype}, "
@@ -48,7 +49,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     if D > MAX_D[x.dtype]:
         raise ValueError(f"rmsnorm: D={D} > {MAX_D[x.dtype]} for {x.dtype}")
     out = torch.empty_like(x)
-    if M == 0:
+    if M == 0 or x.device.type == "meta":
         return out
     lib = build.load("rmsnorm")
     rc = lib.repro_rmsnorm(

@@ -359,6 +359,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return finish_unembedding(cfg, params)
 
 
+def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """The serving tree of ``cfg`` as meta tensors (shapes and dtypes,
+    nothing allocated), for the dry run (``launch.dryrun``): the
+    counterpart of the reference's ShapeDtypeStruct tree, with the port's
+    ``finish_unembedding`` applied (a tied config's ``unembed`` copy, a
+    padded vocabulary); ``training.train.train_params`` turns it into the
+    reference's tree."""
+    dtype = getattr(torch, cfg.dtype)
+    params: Dict[str, Any] = {}
+    for path, spec in iter_specs(param_specs(cfg)):
+        node = params
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = torch.empty(spec.shape, dtype=dtype, device="meta")
+    return finish_unembedding(cfg, params)
+
+
 #: the stored unembedding's column count is a multiple of this: a bf16 row
 #: of w is then a multiple of 16 bytes, as TMA reads it (and a multiple of
 #: 4 f32 columns, the f32 tile's vector loads)

@@ -21,6 +21,19 @@ cuBLAS GEMM whose kernel follows the batch.  So the commit schedule
 (``core.determinism._pairwise_sum``), whose rows do not follow B, and a
 split schedule (the fast path) keeps the library reductions, as
 ``models.rwkv6.time_mix`` does.
+
+Training (``models.transformer.forward_train``) runs ``mamba_layer`` from
+the zero state and differentiates it by autograd through the position
+loop, so the backward keeps the forward's fixed sums: a halving tree's
+backward only broadcasts, and every projection's gradient runs in the
+commit GEMM (``kernels.ops.GemmGrad``).  Autograd adds library reductions
+of its own, the sums of broadcast products (``sum_to_size``) whose order on
+the card can follow the tensor's shape: the gradients of ``conv_w``,
+``conv_b``, ``dt_proj_b``, ``A_log`` and ``D`` (sums over the batch and
+the positions), of ``Bm`` and ``Cm`` (sums over ``d_inner``) and of ``dt``
+(a sum over ``d_state``).  They are kept: a training step at one shape
+repeats bit for bit, which is what training asks; no training row is
+compared across batch sizes.
 """
 
 from __future__ import annotations

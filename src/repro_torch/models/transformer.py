@@ -19,8 +19,9 @@ verifier-grade numerics.  A hybrid config's (jamba) layers come in blocks
 of ``models.base.stack_period`` layers, each block position stacked under
 its own ``blocks/{p}`` key in the params, the cache and the per-position
 trees; attention layers are paged or gathered as above, mamba layers keep
-``conv`` and ``ssm`` state per row (``models.mamba``).  Training the hybrid
-family is not ported: ``forward_train`` refuses it.
+``conv`` and ``ssm`` state per row (``models.mamba``); ``forward_train``
+walks the block positions in layer order, a mamba layer from the zero
+state.
 
 Cache and per-position trees lead with a layer axis everywhere: the JAX
 tree's ``head_layers/{i}`` leaves, unstacked there (slot axis 0), and the
@@ -240,7 +241,8 @@ def forward(
     fkd = cfg.first_k_dense
     period = stack_period(cfg)
     heads = cache.get("head_layers", {})
-    if paged is None and cfg.attn_kind != "sliding":
+    if paged is None and cfg.attn_kind != "sliding" and x.device.type != "meta":
+        # skipped on meta (launch.dryrun): start_pos holds no values to read
         for leaves in list(cache["blocks"].values()) + list(heads.values()):
             if "k" in leaves:
                 C = leaves["k"].shape[2]
@@ -283,7 +285,7 @@ def _train_layer(cfg: ModelConfig, i: int, lp: Dict, x: torch.Tensor,
     """Decoder layer ``i`` over the whole sequence without a cache (the
     reference's ``_apply_layer`` with ``lc=None``); returns ``(x, aux)``,
     aux holding the MoE layer's ``aux_loss`` and ``dropped_frac`` (zeros
-    for a dense FFN).  An rwkv layer starts from the zero state."""
+    for a dense FFN).  An rwkv or mamba layer starts from the zero state."""
     zero = torch.zeros((), dtype=F32, device=x.device)
     aux = dict.fromkeys(_NO_AUX, zero)
     if cfg.layer_kind(i) == "rwkv":
@@ -295,7 +297,10 @@ def _train_layer(cfg: ModelConfig, i: int, lp: Dict, x: torch.Tensor,
         return x + rwkv6.channel_mix(lp["rwkv"], cfg, h, st["cm_shift"], schedule)[0], aux
     window = cfg.window if cfg.attn_kind == "sliding" else 0
     h = rms_norm(x, lp["norm0"], cfg.norm_eps, schedule)
-    x = x + attention_train(lp["attn"], cfg, h, schedule, window)
+    if cfg.layer_kind(i) == "mamba":
+        x = x + mamba.mamba_layer(lp["mamba"], cfg, h, None, schedule)[0]
+    else:
+        x = x + attention_train(lp["attn"], cfg, h, schedule, window)
     norm_idx = 1
     if cross_kv is not None:
         h = rms_norm(x, lp["norm1"], cfg.norm_eps, schedule)
@@ -309,6 +314,19 @@ def _train_layer(cfg: ModelConfig, i: int, lp: Dict, x: torch.Tensor,
     else:
         out = swiglu_ffn(lp["ffn"], h, schedule)
     return x + out, aux
+
+
+def _train_block(cfg: ModelConfig, first: int, period: int, bp: Dict[str, Dict],
+                 x: torch.Tensor, cross_kv: Optional[Dict[str, torch.Tensor]],
+                 schedule: Schedule) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One block of ``period`` layers from layer ``first`` (the reference's
+    ``block_body``): ``(x, aux)``, aux the layers' terms summed from zero
+    in layer order."""
+    aux = dict.fromkeys(_NO_AUX, torch.zeros((), dtype=F32, device=x.device))
+    for p in range(period):
+        x, a = _train_layer(cfg, first + p, bp[str(p)], x, cross_kv, schedule)
+        aux = {k: aux[k] + a[k] for k in _NO_AUX}
+    return x, aux
 
 
 def _train_unembed(params: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -336,22 +354,22 @@ def forward_train(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full causal forward for training: ``(logits (B, S, V) f32, aux)``,
     the reference's ``forward_train``.  The ``first_k_dense`` head layers
-    run first, then the block layers; ``aux`` sums every MoE layer's
-    ``aux_loss`` and ``dropped_frac`` (the block layers' sum added to the
-    head layers' as one ``torch.sum``, as the reference sums its scan's
-    stacked outputs).  An encoder-decoder config runs ``encode`` and every
-    layer's ``encode_cross_kv`` first, under an all-true cross mask; its
-    sequence must be longer than one token (a single-token cross pass runs
-    the forward-only ``decode_attention`` kernel).  ``remat`` recomputes
-    each block layer in the backward pass (``torch.utils.checkpoint``, not
-    reentrant), as ``jax.checkpoint`` does.  The reference's ``unroll`` has
-    no meaning for a Python loop and is dropped.  ``params`` is the JAX
-    tree (``training.train.train_params``) or a serving tree with the
-    derived ``unembed``."""
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: training the hybrid family is not ported (its mamba "
-            "layers' scan has no backward pass here yet)")
+    run first, then the blocks: block b runs its ``period`` positions
+    ``blocks/0 .. blocks/{period-1}`` in layer order (a hybrid config's
+    attention and mamba layers, the latter from the zero state), as the
+    reference's ``block_body`` does.  ``aux`` sums every MoE layer's
+    ``aux_loss`` and ``dropped_frac``: each block's layers from zero in
+    order, then the blocks' sums as one ``torch.sum`` added to the head
+    layers', as the reference sums its scan's stacked outputs.  An
+    encoder-decoder config runs ``encode`` and every layer's
+    ``encode_cross_kv`` first, under an all-true cross mask; its sequence
+    must be longer than one token (a single-token cross pass runs the
+    forward-only ``decode_attention`` kernel).  ``remat`` recomputes each
+    block in the backward pass (``torch.utils.checkpoint``, not
+    reentrant), as ``jax.checkpoint`` of the block body does.  The
+    reference's ``unroll`` has no meaning for a Python loop and is dropped.
+    ``params`` is the JAX tree (``training.train.train_params``) or a
+    serving tree with the derived ``unembed``."""
     x = _embed(params, cfg, tokens, inputs_embeds)
     fkd = cfg.first_k_dense
     cross_kv = None
@@ -364,19 +382,19 @@ def forward_train(
     for i in range(fkd):
         x, aux = _train_layer(cfg, i, params["head_layers"][str(i)], x, None, schedule)
         aux_acc = {k: aux_acc[k] + aux[k] for k in _NO_AUX}
-    blocks = params["blocks"]["0"]
+    period = stack_period(cfg)
     auxs = []
-    for i in range(cfg.num_layers - fkd):
-        lp = _index(blocks, i)
-        if cfg.family == "encdec":
-            k, v = encode_cross_kv(lp["cross_attn"], cfg, enc_out, schedule)
+    for b in range((cfg.num_layers - fkd) // period):
+        bp = {str(p): _index(params["blocks"][str(p)], b) for p in range(period)}
+        if cfg.family == "encdec":  # period 1
+            k, v = encode_cross_kv(bp["0"]["cross_attn"], cfg, enc_out, schedule)
             cross_kv = {"k": k, "v": v, "mask": cross_mask}
-        layer = functools.partial(_train_layer, cfg, fkd + i)
+        block = functools.partial(_train_block, cfg, fkd + b * period, period)
         if remat:
             x, aux = torch.utils.checkpoint.checkpoint(
-                layer, lp, x, cross_kv, schedule, use_reentrant=False)
+                block, bp, x, cross_kv, schedule, use_reentrant=False)
         else:
-            x, aux = layer(lp, x, cross_kv, schedule)
+            x, aux = block(bp, x, cross_kv, schedule)
         auxs.append(aux)
     if auxs:
         aux_acc = {k: aux_acc[k] + torch.stack([a[k] for a in auxs]).sum()

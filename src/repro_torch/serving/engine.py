@@ -76,8 +76,10 @@ every ``tp`` dividing ``CANONICAL_TP_SHARDS``; other widths are refused.
 
 from __future__ import annotations
 
+import functools
 import time
-from typing import Any, Dict, List, Optional, Set
+import weakref
+from typing import Any, Callable, Dict, List, Optional, Set
 
 import torch
 
@@ -110,6 +112,19 @@ def _bucket(n: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def weak_pull(owner: Any, read: Callable[[Any], float]) -> Callable[[], float]:
+    """A pull gauge's callback returning ``read(owner)``, holding ``owner``
+    by a weak reference, so that a registry the owner holds keeps no
+    reference cycle through it; it reads 0 once the owner is gone."""
+    ref = weakref.ref(owner)
+
+    def fn() -> float:
+        obj = ref()
+        return 0 if obj is None else read(obj)
+
+    return fn
 
 
 class Engine:
@@ -247,11 +262,13 @@ class Engine:
         hw = hw or self.hw
         self.hw = hw
 
+        tp = self.tp  # read now: the engine holds this runtime, which must not hold it
+
         def cost_fn(ev: Dict[str, Any]) -> float:
             if invariant:
                 ev = dict(ev, invariant=True)
-            if self.tp > 1 and "tp" not in ev:
-                ev = dict(ev, tp=self.tp)
+            if tp > 1 and "tp" not in ev:
+                ev = dict(ev, tp=tp)
             return costmodel.step_time(cost_cfg, ev, hw)
 
         self.runtime = streams.DualClockRuntime(
@@ -266,10 +283,14 @@ class Engine:
 
     def _register_metrics(self) -> None:
         """Register every engine series with the metrics registry.  Pull
-        gauges close over ``self`` attribute lookups, never over the
+        gauges read attributes of the engine at snapshot time, never the
         objects themselves (``bind_cost_model`` replaces ``self.runtime``
-        wholesale)."""
+        wholesale), and reach it through a weak reference
+        (``weak_pull``): a closure over ``self`` kept in the
+        engine's own registry would hold the engine and its pool in a
+        reference cycle, freed only by the next collection."""
         m = self.obs.metrics
+        pull = functools.partial(weak_pull, self)
         self._c_iters = m.counter(
             "engine.iterations", unit="iterations",
             help="scheduler iterations stepped")
@@ -283,13 +304,13 @@ class Engine:
             "engine.fused_steps", unit="launches",
             help="iterations whose whole device side ran as one fused "
                  "mixed-batch step")
-        m.gauge_fn("engine.running", lambda: len(self.running),
+        m.gauge_fn("engine.running", pull(lambda e: len(e.running)),
                    unit="requests", help="requests in the running set")
-        m.gauge_fn("engine.queued", lambda: len(self.queue),
+        m.gauge_fn("engine.queued", pull(lambda e: len(e.queue)),
                    unit="requests", help="requests awaiting admission")
-        m.gauge_fn("engine.preempted", lambda: len(self.preempted),
+        m.gauge_fn("engine.preempted", pull(lambda e: len(e.preempted)),
                    unit="requests", help="requests evicted, restore pending")
-        m.gauge_fn("engine.peak_running", lambda: self.peak_running,
+        m.gauge_fn("engine.peak_running", pull(lambda e: e.peak_running),
                    unit="requests", help="peak concurrent running requests")
         self._c_committed = m.counter(
             "tokens.committed", unit="tokens",
@@ -317,48 +338,48 @@ class Engine:
             "verify.acceptance_ema", unit="fraction",
             help="per-request acceptance EMA at retirement (det requests)")
         m.gauge_fn("verify.inflight",
-                   lambda: sum(len(r.pipeline) for r in self.running),
+                   pull(lambda e: sum(len(r.pipeline) for r in e.running)),
                    unit="windows", help="verify windows currently in flight")
-        m.gauge_fn("streams.main_busy", lambda: self.runtime.main.busy,
+        m.gauge_fn("streams.main_busy", pull(lambda e: e.runtime.main.busy),
                    unit="s", help="main-stream busy time (costed clock)")
-        m.gauge_fn("streams.verify_busy", lambda: self.runtime.verify.busy,
+        m.gauge_fn("streams.verify_busy", pull(lambda e: e.runtime.verify.busy),
                    unit="s", help="verify-stream busy time (costed clock)")
-        m.gauge_fn("streams.makespan", lambda: self.runtime.makespan,
+        m.gauge_fn("streams.makespan", pull(lambda e: e.runtime.makespan),
                    unit="s", help="completion time of all scheduled work")
         m.gauge_fn("streams.verify_backlog",
-                   lambda: self.runtime.verify_backlog,
+                   pull(lambda e: e.runtime.verify_backlog),
                    unit="s", help="verify-stream work scheduled past now")
         m.gauge_fn("streams.outstanding_verdicts",
-                   lambda: self.runtime.outstanding_verdicts,
+                   pull(lambda e: e.runtime.outstanding_verdicts),
                    unit="verdicts", help="verdicts launched but not yet due")
         m.gauge_fn("streams.peak_outstanding",
-                   lambda: self.runtime.peak_outstanding,
+                   pull(lambda e: e.runtime.peak_outstanding),
                    unit="verdicts", help="deepest verdict queue seen")
-        m.gauge_fn("mem.preemptions", lambda: self.num_preemptions,
+        m.gauge_fn("mem.preemptions", pull(lambda e: e.num_preemptions),
                    unit="preemptions", help="requests evicted under pressure")
-        m.gauge_fn("mem.restores", lambda: self.num_restores,
+        m.gauge_fn("mem.restores", pull(lambda e: e.num_restores),
                    unit="restores", help="preempted requests re-admitted")
-        m.gauge_fn("mem.restored_tokens", lambda: self.restored_tokens,
+        m.gauge_fn("mem.restored_tokens", pull(lambda e: e.restored_tokens),
                    unit="tokens", help="positions replayed by restores")
-        m.gauge_fn("blockpool.block_size", lambda: self.pool.block_size,
+        m.gauge_fn("blockpool.block_size", pull(lambda e: e.pool.block_size),
                    unit="tokens", help="KV positions per block")
         m.gauge_fn("blockpool.num_blocks",
-                   lambda: self.pool.alloc_blocks.num_blocks,
+                   pull(lambda e: e.pool.alloc_blocks.num_blocks),
                    unit="blocks", help="total pool blocks")
         m.gauge_fn("blockpool.blocks_in_use",
-                   lambda: self.pool.alloc_blocks.in_use(),
+                   pull(lambda e: e.pool.alloc_blocks.in_use()),
                    unit="blocks", help="blocks currently referenced")
         m.gauge_fn("blockpool.peak_blocks_in_use",
-                   lambda: self.pool.alloc_blocks.peak_in_use,
+                   pull(lambda e: e.pool.alloc_blocks.peak_in_use),
                    unit="blocks", help="peak referenced blocks")
         m.gauge_fn("blockpool.free_blocks",
-                   lambda: self.pool.alloc_blocks.num_free(),
+                   pull(lambda e: e.pool.alloc_blocks.num_free()),
                    unit="blocks", help="immediately free blocks")
-        m.gauge_fn("blockpool.paged", lambda: int(self.pool.paged),
+        m.gauge_fn("blockpool.paged", pull(lambda e: int(e.pool.paged)),
                    help="1 when full-attention KV is paged")
         if self.prefix_cache is not None:
             def _pc(key: str):
-                return lambda: self.prefix_cache.stats()[key]
+                return pull(lambda e: e.prefix_cache.stats()[key])
             m.gauge_fn("prefixcache.hits", _pc("prefix_hits"),
                        unit="lookups", help="admissions matching >= 1 block")
             m.gauge_fn("prefixcache.misses", _pc("prefix_misses"),
@@ -373,11 +394,11 @@ class Engine:
                        unit="blocks", help="blocks resident in the cache")
         if hasattr(self.scheduler, "num_demotions"):
             m.gauge_fn("scheduler.demotions",
-                       lambda: self.scheduler.num_demotions,
+                       pull(lambda e: e.scheduler.num_demotions),
                        unit="transitions",
                        help="adaptive demotions to sync verification")
             m.gauge_fn("scheduler.promotions",
-                       lambda: self.scheduler.num_promotions,
+                       pull(lambda e: e.scheduler.num_promotions),
                        unit="transitions",
                        help="adaptive promotions back to overlap")
         self._h_ttft = m.histogram(

@@ -26,6 +26,11 @@ The 32-bit hash runs in int64 with masking (PyTorch's uint32 arithmetic is
 partial), on the logits' own device: the card draws its own noise, with no
 host round trip per row.  ``log`` is the device's, so the Gumbel values may
 differ from XLA's in the last bits; the bits and uniforms are exact.
+
+``sample_window`` also takes its seeds, positions and temperatures as
+tensors, as the reference's does: then no value is read on the host (the
+dry run calls it on meta tensors), every row's seeded sample is computed
+and the greedy rows select their argmax, the same tokens as the host path.
 """
 
 from __future__ import annotations
@@ -91,35 +96,69 @@ def _gumbel_for(seeds: Sequence[int], positions: Sequence[int], vocab: int,
     ``(seeds[i], positions[i])``."""
     s = torch.tensor([int(x) & _M32 for x in seeds], dtype=torch.int64, device=device)
     p = torch.tensor([int(x) & _M32 for x in positions], dtype=torch.int64, device=device)
+    return _gumbel(s, p, vocab)
+
+
+def _gumbel(s: torch.Tensor, p: torch.Tensor, vocab: int) -> torch.Tensor:
+    """``_gumbel_for`` on int64 tensors of seeds and positions mod 2**32."""
     zero = torch.zeros_like(s)
     key = fold_in(fold_in((zero, zero), s), p)  # PRNGKey(0) is (0, 0)
     u = uniform_from_bits(random_bits(key, vocab))
     return -torch.log(-torch.log(u))
 
 
+def _seeded(logits: torch.Tensor, seeds: torch.Tensor, positions: torch.Tensor,
+            temperatures: torch.Tensor, top_ks: torch.Tensor, *,
+            top_k: bool = True) -> torch.Tensor:
+    """(N,) int32 seeded Gumbel-argmax of (N, V) logits, row ``i`` over its
+    top-``top_ks[i]`` survivors (ties at the k-th value keep every equal
+    candidate; k <= 0 keeps all).  The arguments are (N,) tensors; with
+    ``top_k=False`` no row is masked and the sort is skipped."""
+    x = logits.to(F32)
+    V = x.shape[-1]
+    if top_k:
+        ks = top_ks.to(torch.int64)
+        desc = torch.sort(x, dim=-1, descending=True).values
+        kth = desc.gather(1, (ks - 1).clamp(0, V - 1)[:, None])
+        x = x.masked_fill(~((ks[:, None] <= 0) | (x >= kth)), float("-inf"))
+    g = _gumbel(seeds.to(torch.int64) & _M32, positions.to(torch.int64) & _M32, V)
+    t = torch.clamp_min(temperatures.to(F32), 1e-6)
+    return (x / t[:, None] + g).argmax(dim=-1).to(torch.int32)
+
+
 def _sample_rows(logits: torch.Tensor, seeds: Sequence[int],
                  positions: Sequence[int], temperatures: Sequence[float],
                  top_ks: Sequence[int]) -> torch.Tensor:
     """(N,) int32 tokens for N rows of (N, V) logits: greedy where the
-    temperature is <= 0, seeded Gumbel-argmax over the top-k survivors
-    elsewhere (ties at the k-th value keep every equal candidate)."""
+    temperature is <= 0, ``_seeded`` elsewhere.  The rows to sample are
+    picked on the host, so an all-greedy batch draws no noise."""
     out = logits.argmax(dim=-1).to(torch.int32)
     rows = [i for i, t in enumerate(temperatures) if t > 0]
     if not rows:
         return out
     dev = logits.device
-    x = logits[rows].to(F32)
-    V = x.shape[-1]
-    if any(int(top_ks[i]) > 0 for i in rows):
-        ks = torch.tensor([int(top_ks[i]) for i in rows], dtype=torch.int64, device=dev)
-        desc = torch.sort(x, dim=-1, descending=True).values
-        kth = desc.gather(1, (ks - 1).clamp(0, V - 1)[:, None])
-        x = x.masked_fill(~((ks[:, None] <= 0) | (x >= kth)), float("-inf"))
-    g = _gumbel_for([seeds[i] for i in rows], [positions[i] for i in rows], V, dev)
-    t = torch.tensor([temperatures[i] for i in rows], dtype=F32, device=dev)
-    t = torch.clamp_min(t, 1e-6)
-    out[rows] = (x / t[:, None] + g).argmax(dim=-1).to(torch.int32)
+
+    def col(xs: Sequence, dtype: torch.dtype) -> torch.Tensor:
+        return torch.tensor([xs[i] for i in rows], dtype=dtype, device=dev)
+
+    ks = [int(k) for k in top_ks]
+    out[rows] = _seeded(
+        logits[rows], col([int(x) & _M32 for x in seeds], torch.int64),
+        col([int(x) & _M32 for x in positions], torch.int64),
+        col(temperatures, F32), col(ks, torch.int64),
+        top_k=any(ks[i] > 0 for i in rows))
     return out
+
+
+def _sample_rows_tensor(logits: torch.Tensor, seeds: torch.Tensor,
+                        positions: torch.Tensor, temperatures: torch.Tensor,
+                        top_ks: torch.Tensor) -> torch.Tensor:
+    """``_sample_rows`` with (N,) tensor arguments and no host read: every
+    row's ``_seeded`` sample, the greedy rows (t <= 0) then taking their
+    argmax."""
+    greedy = logits.argmax(dim=-1).to(torch.int32)
+    sampled = _seeded(logits, seeds, positions, temperatures, top_ks)
+    return torch.where(temperatures > 0, sampled, greedy)
 
 
 def sample_token(
@@ -168,8 +207,18 @@ def sample_window(
     top_ks: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
     """(B, W) int32 tokens; window position j of row b samples with the
-    counter ``base_positions[b] + j``."""
+    counter ``base_positions[b] + j``.  ``seeds``, ``base_positions`` and
+    ``temperatures`` are host sequences, or (B,) tensors (``top_ks`` then a
+    tensor or None), which no value leaves for the host."""
     B, W, V = logits.shape
+    if torch.is_tensor(seeds):
+        ks = (torch.zeros(B, dtype=torch.int64, device=logits.device)
+              if top_ks is None else top_ks)
+        pos = base_positions[:, None].to(torch.int64) + torch.arange(
+            W, dtype=torch.int64, device=logits.device)[None, :]
+        return _sample_rows_tensor(
+            logits.reshape(B * W, V), seeds.repeat_interleave(W), pos.reshape(-1),
+            temperatures.repeat_interleave(W), ks.repeat_interleave(W)).reshape(B, W)
     if top_ks is None:
         top_ks = [0] * B
 

@@ -235,6 +235,43 @@ class TestClusterRun:
         assert res.latencies == single.latencies and res.ttfts == single.ttfts
 
 
+@pytest.mark.parametrize("what", ["engine", "cluster"])
+def test_dropped_object_is_freed_without_a_collection(params, what):
+    """A dropped ``Engine``, or a ``Cluster`` of 2 replicas, is freed at
+    once, with the cyclic collector off: the pull gauges of its own metrics
+    registry reach it through weak references, so neither it nor its pool
+    lives in a reference cycle.  One engine runs first, outside the
+    window: torch's first ``use_deterministic_algorithms`` call imports a
+    module and leaves that call's frames alive."""
+    import gc
+    import weakref
+
+    warm = _maker(params)(0)
+    warm.submit(_req(0, SHARED[:8], max_new=3))
+    warm.run()
+    del warm
+    gc.collect()
+    gc.disable()
+    try:
+        if what == "engine":
+            obj = _maker(params)(0)
+            obj.submit(_req(1, SHARED[:8], max_new=3))
+            obj.run()
+            gauges, pulled = obj.obs.metrics, "engine.peak_running"
+        else:
+            obj = Cluster(_maker(params), 2)
+            run_online(obj, FULL, [(_req(i, SHARED[:8] + [i], max_new=3), 0.0)
+                                   for i in range(2)])
+            gauges, pulled = obj.metrics, "cluster.replicas"
+        assert gauges.snapshot()[pulled] > 0  # read through the live owner
+        ref = weakref.ref(obj)
+        del obj
+        assert ref() is None
+        assert gauges.snapshot()[pulled] == 0  # a gone owner reads as 0
+    finally:
+        gc.enable()
+
+
 @pytest.mark.parametrize("kw", [{"transfer": "teleport"}, {"imbalance": 0}])
 def test_router_rejects_bad_policy(params, kw):
     replicas = Cluster(_maker(params), 1).replicas

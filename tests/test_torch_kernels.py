@@ -206,20 +206,31 @@ def test_ops_matmul_routing():
 
 
 def test_wrappers_never_fall_back():
-    """A tensor that is neither on the CPU nor valid for the kernel is
-    refused: a wrapper runs its plain version only for CPU tensors."""
+    """A wrapper runs its plain version only for CPU tensors: meta operands
+    (the dry run) get an empty meta output of the kernel's shape, nothing
+    computed, no launch counted; operands that are not all on the CPU, one
+    card or the meta device are refused."""
     x = torch.empty((2, 8), device="meta")
     w = torch.empty((8, 8), device="meta")
-    with pytest.raises(ValueError):
-        gemm_batch_invariant(x, w)
-    with pytest.raises(ValueError):
-        gemm_splitk(x, w, splits=2)
     q = torch.empty((2, 4, 64), device="meta")
     kv = torch.empty((2, 16, 2, 64), device="meta")
+    lengths = torch.empty(2, dtype=torch.int32, device="meta")
+    before = gemm_batch_invariant.launches
+    for out, shape in ((gemm_batch_invariant(x, w), (2, 8)),
+                       (gemm_splitk(x, w, splits=2), (2, 8)),
+                       (decode_attention(q, kv, kv, lengths), (2, 4, 64)),
+                       (rmsnorm(x, torch.empty(8, device="meta")), (2, 8))):
+        assert out.device.type == "meta" and tuple(out.shape) == shape
+    assert gemm_batch_invariant.launches == before
+    w_cpu = torch.empty((8, 8))
     with pytest.raises(ValueError):
-        decode_attention(q, kv, kv, torch.empty(2, dtype=torch.int32, device="meta"))
+        gemm_batch_invariant(x, w_cpu)
     with pytest.raises(ValueError):
-        rmsnorm(x, torch.empty(8, device="meta"))
+        gemm_splitk(x, w_cpu, splits=2)
+    with pytest.raises(ValueError):
+        decode_attention(q, kv, kv, torch.empty(2, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        rmsnorm(x, torch.empty(8))
 
 
 # ---------------------------------------------------------------------------
@@ -266,9 +277,11 @@ def test_gemm_check_operands(x, w, error):
 @pytest.mark.parametrize("k,n,error", [(12, 24, "K=12"), (16, 20, "N=20"), (16, 24, "meta")])
 def test_gemm_wrappers_refuse_shapes_before_launch(k, n, error):
     """Off the CPU both wrappers check the operands first and then the
-    device: a K or N the tiles do not take raises, and so does a tensor
-    that is not on a card; neither falls back to the plain version."""
-    x, w = _bf16(3, k, device="meta"), _bf16(k, n, device="meta")
+    device: a K or N the tiles do not take raises (on meta tensors too, as
+    the dry run calls them), and so does an operand pair that is not on one
+    card or the meta device; neither falls back to the plain version."""
+    x = _bf16(3, k, device="meta")
+    w = _bf16(k, n, device="cpu" if error == "meta" else "meta")
     with pytest.raises(ValueError, match=error):
         gemm_batch_invariant(x, w, chunks=4)
     with pytest.raises(ValueError, match=error):

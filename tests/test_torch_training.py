@@ -11,9 +11,12 @@
   step 1 AdamW moves each weight by about lr * sign(g), so a gradient near
   zero whose sign differs across frameworks moves it by up to 2 lr) and
   metrics; ``forward_train`` with its ``aux_loss`` at the smoke
-  ``llama4-scout-17b-a16e`` and with ``enc_embeds`` at the smoke
-  ``seamless-m4t-medium``; ``SyntheticTextStream`` batches bitwise; an
-  archive written by each package restored by the other, bitwise.
+  ``llama4-scout-17b-a16e``, with ``enc_embeds`` at the smoke
+  ``seamless-m4t-medium``, from the zero state at the smoke ``rwkv6-3b``
+  and at the hybrid smoke ``jamba-1.5-large-398b``, whose ``lm_loss`` and
+  every gradient leaf are held against JAX's too; ``SyntheticTextStream``
+  batches bitwise; an archive written by each package restored by the
+  other, bitwise; the driver training the hybrid family.
 * The GEMMs' backward (``kernels.ops.GemmGrad``) against autograd through
   ``x.float() @ w.float()``, both products routed to the commit GEMM with
   one chunk; ``attention_train``'s q-chunked branch against the unchunked
@@ -250,10 +253,16 @@ def test_train_cli_lr_defaults(argv, lr):
     assert train_launch.parse_args(argv).lr == lr
 
 
-def test_forward_train_refuses_the_hybrid_family():
-    cfg = configs.get_smoke_config("jamba-1.5-large-398b")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        forward_train({}, cfg, torch.zeros((1, 4), dtype=torch.long))
+def test_train_cli_hybrid(monkeypatch, capsys):
+    """The driver trains the hybrid family (``jamba-smoke``) two steps."""
+    from repro_torch.launch import train_launch
+
+    monkeypatch.setattr(sys, "argv", [
+        "train_launch", "--arch", "jamba-1.5-large-398b", "--smoke", "--device", "cpu",
+        "--batch", "2", "--seq", "16", "--steps", "2", "--log-every", "1"])
+    train_launch.main()
+    out = capsys.readouterr().out
+    assert "jamba-smoke" in out and "step     2  loss" in out and "nan" not in out
 
 
 # ---------------------------------------------------------------------------
@@ -428,12 +437,13 @@ def test_train_step_matches_jax(setup, jax_step):
 
 
 @pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "seamless-m4t-medium",
-                                  "rwkv6-3b"])
+                                  "rwkv6-3b", "jamba-1.5-large-398b"])
 def test_forward_train_families_match_jax(arch):
     """MoE: the logits, ``aux_loss`` and ``dropped_frac`` summed over the
     layers; encoder-decoder: the logits with ``enc_embeds`` (the encoder and
     every layer's cross K/V under an all-true mask); rwkv: the logits from
-    the zero state."""
+    the zero state; hybrid: the block positions in layer order, mamba
+    layers from the zero state, MoE terms summed by block."""
     cfg = configs.get_smoke_config(arch)
     tree = np_params(cfg, 4)
     jax, jnp, jcfg, jp = _jax_setup(arch, tree)
@@ -452,8 +462,38 @@ def test_forward_train_families_match_jax(arch):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=FWD_TOL, rtol=0)
     for k in ("aux_loss", "dropped_frac"):
         assert float(aux[k]) == pytest.approx(float(jaux[k]), rel=1e-5, abs=1e-7), k
-    if cfg.family == "moe":
+    if cfg.num_experts:
         assert float(aux["aux_loss"]) > 0
+
+
+def test_hybrid_loss_and_every_gradient_match_jax():
+    """``lm_loss`` and every gradient leaf at the smoke ``jamba-1.5-large-398b``
+    (2 x 16 tokens; attention, mamba, dense and MoE layers) against
+    ``jax.value_and_grad`` of the JAX ``lm_loss``, within ``GRAD_REL`` of
+    each leaf's max |g|."""
+    arch = "jamba-1.5-large-398b"
+    cfg = configs.get_smoke_config(arch)
+    tree = np_params(cfg, 5)
+    jax, jnp, jcfg, jp = _jax_setup(arch, tree)
+    from repro.training.train import lm_loss as jlm_loss
+
+    nb = np_batch(cfg, seq=16, batch=2, seed=3)
+    (total, metrics), grads = jax.jit(jax.value_and_grad(
+        lambda p: jlm_loss(p, jcfg, jnp.asarray(nb["tokens"]), jnp.asarray(nb["targets"]),
+                           jnp.asarray(nb["loss_mask"])), has_aux=True))(jp)
+    p = tree_map(lambda t: t.detach().requires_grad_(True),
+                 train_params(cfg, params_from_numpy(cfg, tree, "cpu")))
+    b = torch_batch(nb)
+    got, got_m = lm_loss(p, cfg, b["tokens"], b["targets"], b["loss_mask"])
+    leaves = tree_leaves(p)
+    gs = iter(torch.autograd.grad(got, leaves))
+    got_g = tree_map(lambda t: next(gs), p)
+    assert float(got.detach()) == pytest.approx(float(total), rel=1e-5)
+    for k in ("aux_loss", "dropped_frac"):
+        assert float(got_m[k].detach()) == pytest.approx(float(metrics[k]), rel=1e-5,
+                                                        abs=1e-7), k
+    assert len(leaves) == len(_flat_np(grads))
+    _assert_tree_close(got_g, grads, rel=GRAD_REL)
 
 
 def test_stream_matches_jax():
