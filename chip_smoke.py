@@ -62,7 +62,19 @@ the main path) and the gathered lane (``paged_attention=False``):
            p50/p99 latency and TTFT on the modeled clock beside the CUDA-event
            device time and host wall time, and first the GEMM calibration of
            the ``costmodel.H100`` entry (``bi_compute_frac``, ``sat_rows``);
-7. configs tinyllama-1.1b (22 layers), phi3-mini-3.8b (32), internlm2-20b
+7. analysis the determinism-contract checker (``repro_torch.analysis``) on
+           CUDA tensors: the taint pass and the CUDA kernel lint, then the
+           engine's verify, prefill-chunk and batch-invariant decode bodies
+           recorded for all four arch classes at batches 13, 17 and 19 and
+           at TP widths 1, 2 and 4, every commit kind proved invariant,
+           both negative controls differing, the hazard pass clean modulo
+           the allowlist and no fast kernel node on a commit kind (each
+           kind's kernel nodes printed); the attention class again at
+           Llama-3-8B's full width and depth (the serve phase's weights);
+           a smoke verify recorded with TF32 on, which must be flagged;
+           the card's canonical programs beside the CPU's from this
+           process; seconds per part;
+8. configs tinyllama-1.1b (22 layers), phi3-mini-3.8b (32), internlm2-20b
            (12 of 48) and command-r-35b (8 of 40) at full width: the
            attention kernels at each config's (H, KV, D) at the headline and
            serve shapes against their plain versions with rows across B,
@@ -71,7 +83,7 @@ the main path) and the gathered lane (``paged_attention=False``):
            must be identical alone and beside 3 neighbours (launches reset
            and checked as in the serve phase), command-r's forward checked
            for a copy of its tied embedding, and peak device memory;
-8. variants llama4-scout-17b-a16e (4 of 48 layers; MoE, heads 40/8, G = 5)
+9. variants llama4-scout-17b-a16e (4 of 48 layers; MoE, heads 40/8, G = 5)
            and its chunked8k variant (2 layers, window 8192), phi3-mini-3.8b-
            sw4k (4 of 32 layers, window 4096) at full width: the attention
            kernels and the commit GEMM at Scout's shapes (as in configs),
@@ -85,7 +97,7 @@ the main path) and the gathered lane (``paged_attention=False``):
            pass; no attention kernel on a ring), then the gathered lane's
            q-chunked prefill of a 3000-token prompt at llama3-8b's width
            against the paged lane; peak device memory per config;
-9. families kimi-k2-1t-a32b (2 of 61 layers: its first_k_dense head layer
+10. families kimi-k2-1t-a32b (2 of 61 layers: its first_k_dense head layer
            and one MoE layer of 384 experts; heads 64/8 of 112) and rwkv6-3b
            (8 of 32 layers, recurrent state) at full width: the attention
            kernels at G = 8, D = 112 (rows across B) and their times at the
@@ -97,7 +109,7 @@ the main path) and the gathered lane (``paged_attention=False``):
            overlap at spec_depth 2 with a verify latency equal to the pause
            run with the state pool at depth 2 (NONDET printed; launches
            held to the passes; peak memory and device time per run);
-10. modalities seamless-m4t-medium (encoder-decoder: 12 encoder and 12
+11. modalities seamless-m4t-medium (encoder-decoder: 12 encoder and 12
            decoder layers, 1024 encoder frames) and llava-next-mistral-7b
            (2880 prefix embeddings before the prompt, 8 of 32 layers) at
            full width, stub frontend embeddings from
@@ -118,7 +130,7 @@ the main path) and the gathered lane (``paged_attention=False``):
            that cut the prefix inside a chunk committing the exclusive
            prefill's streams (launches held to the passes, peak memory per
            config);
-11. hybrid  jamba-1.5-large-398b's ``mamba_layer`` at its published widths
+12. hybrid  jamba-1.5-large-398b's ``mamba_layer`` at its published widths
            (d_model 8192, d_inner 16384, d_state 16, d_conv 4, dt_rank 512,
            bf16; one period of 8 layers does not fit one card) under the
            commit schedule: out and both per-position state leaves bitwise
@@ -130,7 +142,7 @@ the main path) and the gathered lane (``paged_attention=False``):
            overlap at spec_depth 2 equal to pause, a preempted and restored
            request equal to the unpressured run (launches held to the
            passes);
-12. distribution ``distributed.sharding.tp_matmul``'s fallback on a
+13. distribution ``distributed.sharding.tp_matmul``'s fallback on a
            DeviceMesh over an NCCL group of world size 1 (d = 1: the
            logical path, no collective; NCCL at d > 1 needs a card a rank)
            and the d = 2 and 4 rank programs run one after another through
@@ -148,7 +160,7 @@ the main path) and the gathered lane (``paged_attention=False``):
            case's argument GiB a rank printed beside the card's memory
            (kimi-k2's cases: the optional ``dryrun_kimi`` phase, named in
            ``--phases`` only);
-13. cluster replicas 1, 2 and 3 of one tinyllama-1.1b engine (11 of 22
+14. cluster replicas 1, 2 and 3 of one tinyllama-1.1b engine (11 of 22
            layers, full width, priced by the H100 clock at 22) on one card,
            sharing the weights, each with its own paged pool, behind the deterministic router (``cluster/``) on
            the ``costmodel.H100`` clock: 12 requests of a shared 2-block
@@ -163,7 +175,7 @@ the main path) and the gathered lane (``paged_attention=False``):
            occupancy per replica; ``copy_blocks`` timed beside its bytes
            bound; the device memory allocated before the phase and after
            it, with everything it made dropped (at most 64 MiB more);
-14. training the GEMMs' backward (``kernels.ops.GemmGrad``: dX = dY W^T
+15. training the GEMMs' backward (``kernels.ops.GemmGrad``: dX = dY W^T
            and dW = X^T dY in the commit GEMM) against the plain version's
            autograd at tinyllama's projection shapes and LM head, at M =
            2048 and 1003, dX's rows bitwise across M, each product timed
@@ -183,7 +195,7 @@ the main path) and the gathered lane (``paged_attention=False``):
            step's GEMMs, step time and peak memory; the same for one mamba
            layer at jamba-1.5-large's published widths (bf16, autograd
            through its per-position loop, AdamW on its leaves);
-15. timings each kernel against its plain version and one PyTorch call,
+16. timings each kernel against its plain version and one PyTorch call,
            beside the least time the card could take (100 launches a
            reading); both GEMMs beside ``torch.matmul`` at every projection
            shape and serve-run M, their device time per forward, and the
@@ -219,6 +231,7 @@ is visible or when it runs outside a checkout of the repository.
     python3 chip_smoke.py --phases build,cluster,training
     python3 chip_smoke.py --phases build,distribution,training
     python3 chip_smoke.py --phases build,dryrun_kimi
+    python3 chip_smoke.py --phases build,analysis
 """
 
 from __future__ import annotations
@@ -239,9 +252,9 @@ from pathlib import Path
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "serve", "determinism", "profile", "online", "configs",
-          "variants", "families", "modalities", "hybrid", "distribution", "cluster",
-          "training", "timings")
+PHASES = ("build", "kernels", "serve", "determinism", "profile", "online", "analysis",
+          "configs", "variants", "families", "modalities", "hybrid", "distribution",
+          "cluster", "training", "timings")
 #: phases outside the default run, only by name in ``--phases``
 OPTIONAL_PHASES = ("dryrun_kimi",)
 
@@ -1317,14 +1330,14 @@ def expected_launches(cfg, eng, paged):
     single-token forwards also run the dense decode kernel once a layer
     (cross-attention, on both lanes), and each encoder build
     (``eng.num_cross_builds``) ``encoder_gemms`` commit GEMMs."""
-    from repro_torch.core.determinism import Schedule
+    from repro_torch.core.determinism import VERIFY_SCHEDULE, Schedule
 
     gemms, experts = forward_gemms(cfg)
     n_attn = 0 if cfg.attn_kind == "sliding" else sum(
         cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
     n_cross = cfg.num_layers if cfg.family == "encdec" else 0
     nblk = eng.pool.layout.blocks_per_table
-    commit = eng._commit_schedule()
+    commit = VERIFY_SCHEDULE  # every mode's prefill (INVARIANT_SCHEDULE is the same)
     want = dict.fromkeys(KERNELS, 0)
     if n_cross:
         want["gemm_batch_invariant"] += eng.num_cross_builds * encoder_gemms(cfg)
@@ -1875,6 +1888,140 @@ def phase_online(torch, cfg, params, capacity, results, summary) -> None:
         del solo
     log(f"[online] deterministic rids {det}: committed streams online equal the "
         f"same requests served alone")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: analysis (the determinism-contract checker on the card)
+# ---------------------------------------------------------------------------
+
+#: kernel nodes that must not appear on a commit kind
+FAST_NODES = ("gemm_splitk(", "paged_attention_fast(")
+
+
+def log_certificate(tag, name, cert) -> None:
+    """One line a kind: its verdict and kernel nodes; then the control."""
+    for kind, kc in cert["kinds"].items():
+        keys = kc.get("batches", kc.get("tps"))
+        log(f"[analysis] {tag} {name} {kind}: invariant={kc['invariant']} at "
+            f"{'B' if 'batches' in kc else 'tp'} {keys}, {kc['canonical_lines']} "
+            f"canonical lines" + (f", kernel nodes {kc['kernels']}" if "kernels" in kc else ""))
+    ctl = cert["negative_control"]
+    log(f"[analysis] {tag} {name} control {ctl['kind']} at "
+        f"{ctl.get('batches', ctl.get('tps'))}: differs={ctl['schedules_differ']} "
+        f"{ctl['kernels']}")
+
+
+def require_certified(name, cert) -> None:
+    for kind, kc in cert["kinds"].items():
+        require(kc["invariant"], f"analysis: {name} {kind} is not invariant")
+        bad = [k for k in kc.get("kernels", {}) if k.startswith(FAST_NODES)
+               or (k.startswith("decode_attention(") and "kv_splits=1" not in
+                   k.replace(")", ",").split(" "))]
+        require(not bad, f"analysis: fast kernel nodes {bad} on {name} {kind}")
+    require(cert["negative_control"]["schedules_differ"],
+            f"analysis: {name}'s negative control did not differ")
+
+
+def phase_analysis(torch, cfg, params, summary) -> None:
+    """``repro_torch.analysis`` on CUDA tensors: the source passes, the four
+    arch classes at batches 13, 17 and 19 and the mesh pass at TP 1, 2 and
+    4 (every commit kind invariant, both controls differing, no
+    unexplained finding, no fast kernel node on a commit kind); the
+    attention class at Llama-3-8B's full width and depth on the serve
+    phase's weights; a smoke verify recorded with TF32 on, which must be
+    flagged; the card's canonical programs beside the CPU's."""
+    from repro_torch.analysis import hazards, invariance, kernel_lint, taint
+    from repro_torch.analysis.report import Report, load_allowlist
+    from repro_torch.analysis.trace_utils import compare_canonical
+
+    times = {}
+    allow = load_allowlist(ROOT / "src/repro_torch/analysis/allowlist.toml")
+    report = Report(allowlist=allow)
+
+    t0 = time.perf_counter()
+    report.extend(taint.run_pass(ROOT))
+    report.extend(kernel_lint.run_pass(ROOT))
+    times["source passes"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    findings, certs, traces = invariance.run_pass(device=DEV)
+    report.extend(findings)
+    report.extend(hazards.run_pass(traces))
+    sync(torch)
+    times["four arch classes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh_findings, mesh_certs = invariance.run_mesh_pass(device=DEV)
+    report.extend(mesh_findings)
+    certs.update(mesh_certs)
+    sync(torch)
+    times["mesh pass"] = time.perf_counter() - t0
+    report.finish()
+    for name, cert in sorted(certs.items()):
+        log_certificate("card", name, cert)
+    for f in report.suppressed:
+        log(f"[analysis] allowlisted {f.pass_name}/{f.rule} at {f.where}")
+    require(report.ok, "analysis: unexplained findings:\n" + report.format())
+    for name, cert in certs.items():
+        require_certified(name, cert)
+    log(f"[analysis] card: {len(certs)} certificates, 0 unexplained findings, "
+        f"{len(report.suppressed)} allowlisted")
+
+    t0 = time.perf_counter()
+    full_findings, full_certs, full_traces = invariance.run_pass(
+        arches=("attention",), device=DEV, cfg=cfg, params=params)
+    full_report = Report(allowlist=allow)
+    full_report.extend(full_findings)
+    full_report.extend(hazards.run_pass(full_traces))
+    sync(torch)
+    times["attention at full width"] = time.perf_counter() - t0
+    log_certificate(f"{cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model})",
+                    "attention", full_certs["attention"])
+    require(full_report.ok, "analysis at full width:\n" + full_report.format())
+    require_certified(f"{cfg.name} attention", full_certs["attention"])
+    del full_traces
+
+    t0 = time.perf_counter()
+    flag = torch.backends.cuda.matmul.allow_tf32
+    smoke = traces[0]
+    engine = invariance.build_engine(smoke.cfg, invariance.smoke_params(smoke.cfg, DEV))
+    seeded = hazards.scan_trace(invariance.trace_verify(engine, invariance.BATCHES[0], tf32=True),
+                                invariance.BATCHES[0], arch="attention", kind="verify")
+    tf32 = [f for f in seeded if f.rule == "tf32-enabled"]
+    log(f"[analysis] seeded TF32 verify: {len(tf32)} tf32-enabled finding(s), e.g. "
+        f"{tf32[0].where if tf32 else None}")
+    require(tf32, "analysis: a verify recorded with TF32 on was not flagged")
+    require(torch.backends.cuda.matmul.allow_tf32 == flag, "analysis: TF32 flag not restored")
+    times["seeded TF32"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # tiny ops: one thread is the fastest on the host
+    try:
+        _, _, cpu_traces = invariance.run_pass(device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    same = {}
+    for card_tr, cpu_tr in zip(traces, cpu_traces):
+        for kind in invariance.INVARIANT_KINDS:
+            diffs = [(b, compare_canonical(cpu_tr.canon[kind][b], card_tr.canon[kind][b], b, b))
+                     for b in invariance.BATCHES
+                     if cpu_tr.canon[kind][b] != card_tr.canon[kind][b]]
+            same[f"{card_tr.arch}/{kind}"] = not diffs
+            first = ""
+            if diffs:
+                b, (line, a, c) = diffs[0]
+                first = f"; first at B={b} line {line}: CPU {a!r} card {c!r}"
+            log(f"[analysis] CPU vs card {card_tr.arch} {kind}: canonical text equal "
+                f"at {len(invariance.BATCHES) - len(diffs)} of {len(invariance.BATCHES)} "
+                f"batches{first}")
+    times["CPU traces"] = time.perf_counter() - t0
+
+    log("[analysis] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
+    summary["analysis"] = {
+        "certificates": len(certs), "allowlisted": len(report.suppressed),
+        "full_width_invariant": True, "tf32_flagged": len(tf32),
+        "cpu_equals_card": same, "seconds": {k: round(v, 1) for k, v in times.items()},
+    }
 
 
 #: the configs phase: each new dense config at full width.  Depth is full
@@ -4783,6 +4930,13 @@ def time_gemm_table(torch, cfg, flush) -> None:
     }))
 
 
+#: ``time_gemm_host``'s reading before the kernel wrappers read
+#: ``kernels.recording.active`` (a full run on an NVIDIA H100 80GB HBM3 at
+#: 700.00 W; PERF.md §6), printed beside each new reading
+BEFORE_HOOK_GEMM_HOST_US = {"gemm_batch_invariant": 34.40, "gemm_splitk": 33.24,
+                            "torch.matmul": 62.37}
+
+
 def time_gemm_host(torch, cfg, passes=6) -> None:
     """Host time per GEMM call as a forward issues them: one call on each of
     a forward's 225 distinct weights ((4096, 1024) bf16, the narrowest
@@ -4817,7 +4971,8 @@ def time_gemm_host(torch, cfg, passes=6) -> None:
     host_us = {name: sorted(r[1:])[(len(r) - 1) // 2] for name, r in readings.items()}
     log(f"[timings] host time per GEMM call ({n} weights of ({D},1024) bf16, M=8, "
         f"median of {passes - 1} passes): " + ", ".join(
-            f"{name} {us:.2f} us" for name, us in host_us.items()))
+            f"{name} {us:.2f} us (before the hook: {BEFORE_HOOK_GEMM_HOST_US[name]:.2f})"
+            for name, us in host_us.items()))
     log("[timings] gemm_host_us " + json.dumps(host_us))
 
 
@@ -5010,7 +5165,7 @@ def main() -> int:
         timed("build", phase_build)
     if "kernels" in phases:
         timed("kernels", phase_kernels, torch, cfg, results)
-    if {"serve", "determinism", "profile", "online"} & set(phases):
+    if {"serve", "determinism", "profile", "online", "analysis"} & set(phases):
         from repro_torch.models.base import init_params
 
         t0 = time.perf_counter()
@@ -5028,6 +5183,8 @@ def main() -> int:
             timed("profile", phase_profile, torch, cfg, params, CAPACITY, summary)
         if "online" in phases:
             timed("online", phase_online, torch, cfg, params, CAPACITY, results, summary)
+        if "analysis" in phases:
+            timed("analysis", phase_analysis, torch, cfg, params, summary)
         del params
         gc.collect()
         torch.cuda.empty_cache()

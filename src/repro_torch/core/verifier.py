@@ -80,6 +80,7 @@ def _match_and_commit(v_tokens: torch.Tensor, cand: torch.Tensor,
     return n_match, commit_tok
 
 
+# det: commit-path
 def make_verify_body(
     cfg: ModelConfig, G: int, W: int, layout: Layout, paged: bool = True
 ):

@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, recording, ref
 
 _DTYPES = (torch.bfloat16, torch.float32)
 #: query heads per KV head, a warp each (csrc GMAX)
@@ -46,6 +46,10 @@ def decode_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Flash-decode attention -> (B, H, D) in q.dtype."""
+    if recording.active is not None:
+        return recording.active.kernel(
+            decode_attention, (q, k, v, lengths), kv_splits=kv_splits,
+            combine_dtype=combine_dtype, scale=scale)
     if q.device.type == "cpu":
         return ref.decode_attention(q, k, v, lengths, kv_splits, combine_dtype, scale)
     tensors = (q, k, v, lengths)

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, recording, ref
 
 #: canonical chunk trees the kernel's combine pass supports
 MAX_CHUNKS = 8
@@ -77,6 +77,8 @@ def gemm_batch_invariant(x: torch.Tensor, w: torch.Tensor, *,
                          chunks: int = 1) -> torch.Tensor:
     """x (M, K) @ w (K, N) -> (M, N) in x.dtype: ``chunks`` contiguous K
     chunks, each one f32 pass, combined by the balanced f32 tree."""
+    if recording.active is not None:
+        return recording.active.kernel(gemm_batch_invariant, (x, w), chunks=chunks)
     if x.device.type == "cpu":
         return ref.gemm_batch_invariant(x, w, chunks=chunks)
     _check_launch("gemm_batch_invariant", x, w, chunks)
@@ -104,6 +106,9 @@ def gemm_batch_invariant_partials(x: torch.Tensor, w: torch.Tensor, *,
     output nobody reads).  ``x`` may be a column slice: the card path copies
     it, the plain version reads it in place, as the logical GEMM reads its
     chunks."""
+    if recording.active is not None:
+        return recording.active.kernel(gemm_batch_invariant_partials, (x, w),
+                                       chunks=chunks)
     if x.device.type == "cpu":
         return torch.stack(ref.gemm_partials(x, w, chunks=chunks))
     x = x.contiguous()

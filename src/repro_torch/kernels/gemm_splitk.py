@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, recording, ref
 from repro_torch.kernels.gemm_batch_invariant import check_operands, meta_product
 
 #: the widest TP fold the kernel takes (``MAX_TP`` in ``csrc/gemm_splitk.cu``)
@@ -29,6 +29,10 @@ def gemm_splitk(x: torch.Tensor, w: torch.Tensor, *, splits: int,
     ``splits``).  The chunks fold in order through ``combine_dtype``, or by
     the balanced f32 tree when ``tp_pinned``.  ``tp_shards=1`` is the plain
     split-K GEMM."""
+    if recording.active is not None:
+        return recording.active.kernel(
+            gemm_splitk, (x, w), splits=splits, combine_dtype=combine_dtype,
+            tp_shards=tp_shards, tp_pinned=tp_pinned)
     if x.device.type == "cpu":
         return ref.gemm_splitk(x, w, splits, combine_dtype,
                                tp_shards=tp_shards, tp_pinned=tp_pinned)

@@ -15,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, recording, ref
 from repro_torch.kernels.decode_attention import meta_attention
 
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -59,6 +59,10 @@ def paged_attention(
     null_bid: Optional[int] = None,
 ) -> torch.Tensor:
     """Commit-path paged attention -> (B, H, D) f32."""
+    if recording.active is not None:
+        return recording.active.kernel(
+            paged_attention, (q, k_pool, v_pool, pos_pool, tables, q_pos),
+            null_bid=null_bid)
     if q.device.type == "cpu":
         return ref.paged_attention(
             q, k_pool, v_pool, pos_pool, tables, q_pos, null_bid=null_bid)
@@ -93,6 +97,10 @@ def paged_attention_fast(
     null_bid: Optional[int] = None,
 ) -> torch.Tensor:
     """Fast-path kv-split paged attention -> (B, H, D) f32."""
+    if recording.active is not None:
+        return recording.active.kernel(
+            paged_attention_fast, (q, k_pool, v_pool, pos_pool, tables, q_pos),
+            kv_splits=kv_splits, combine_dtype=combine_dtype, null_bid=null_bid)
     if q.device.type == "cpu":
         return ref.paged_attention_fast(
             q, k_pool, v_pool, pos_pool, tables, q_pos, kv_splits=kv_splits,

@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, recording, ref
 
 _DTYPES = (torch.bfloat16, torch.float32)
 #: the widest row the kernel holds: a cluster of 8 CTAs of 4 warps, 8
@@ -29,6 +29,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             residual: Optional[torch.Tensor] = None, *,
             eps: float = 1e-5) -> torch.Tensor:
     """x (M, D), scale (D,), residual (M, D) or None -> (M, D) in x.dtype."""
+    if recording.active is not None:
+        return recording.active.kernel(rmsnorm, (x, scale, residual), eps=eps)
     if x.device.type == "cpu":
         return ref.rmsnorm(x, scale, eps, residual)
     tensors = (x, scale) + ((residual,) if residual is not None else ())

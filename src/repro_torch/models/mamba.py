@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.determinism import Schedule, _pairwise_sum, fixed_order, matmul
+from repro_torch.kernels import recording
 
 F32 = torch.float32
 
@@ -109,7 +110,7 @@ def mamba_layer(
     h = state["ssm"].to(F32) if state is not None else torch.zeros(
         (B, di, ds), dtype=F32, device=x.device)
     ys, hs = [], []
-    for t in range(W):
+    for t in recording.steps(W):
         h = decay[:, t] * h + drive[:, t]  # (B, di, ds)
         c_t = Cm[:, t, None, :]  # (B, 1, ds)
         ys.append(_pairwise_sum(h * c_t, axis=-1) if fixed

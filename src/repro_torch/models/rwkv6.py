@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.determinism import Schedule, _pairwise_sum, fixed_order, matmul
+from repro_torch.kernels import recording
 
 F32 = torch.float32
 
@@ -93,7 +94,7 @@ def time_mix(
     r, k, v, w = (a.to(F32) for a in (r, k, v, w))
     s = wkv0  # (B, H, hd, hd) indexed [k_dim, v_dim]
     outs, states = [], []
-    for t in range(W):
+    for t in recording.steps(W):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]  # (B, H, hd, hd)
         a = s + u * kv
         if fixed:

@@ -429,21 +429,24 @@ class Engine:
             and isinstance(v, (int, float, str, bool, list, tuple))
         }
 
-    def _commit_schedule(self) -> Schedule:
-        """The verify-grade schedule prefill runs under in every mode."""
-        return INVARIANT_SCHEDULE if self.mode == Mode.BATCH_INVARIANT else VERIFY_SCHEDULE
-
     def _note_t0(self, req: Request, margin: Optional[float] = None) -> None:
-        """Metrics + audit for the T0 token a prefill pass just committed."""
+        """Metrics + audit for the T0 token a prefill pass just committed
+        (sampled under the verify-grade schedule in every mode)."""
         self._c_committed.inc()
         if req.first_token_clock < 0:
             req.first_token_clock = self.runtime.now
         au = self.obs.audit
         if au.enabled:
+            # bound inline, as in every prefill builder, so that the
+            # determinism checker's taint pass resolves it
+            schedule = (
+                INVARIANT_SCHEDULE if self.mode == Mode.BATCH_INVARIANT
+                else VERIFY_SCHEDULE
+            )
             au.record(TokenProvenance(
                 rid=req.rid, index=len(req.committed) - 1,
                 token=req.committed[-1], origin="prefill",
-                schedule=self._commit_schedule(), margin=margin,
+                schedule=schedule, margin=margin,
             ))
 
     def _note_splice(self, req: Request, outcome: pipeline.SpliceOutcome) -> None:
@@ -532,21 +535,30 @@ class Engine:
         softmax over the same view, reading through the table.  ``last``:
         the prompt's last position (a recurrent config's state is kept
         there)."""
+        schedule = (
+            INVARIANT_SCHEDULE if self.mode == Mode.BATCH_INVARIANT
+            else VERIFY_SCHEDULE
+        )
         logits, self.pool.data = self._forward(
             self.params, self.pool.data, [slot], table[None], self._ints([0]),
-            self._commit_schedule(), state_at=self._state_at(last), **inputs)
+            schedule=schedule, state_at=self._state_at(last), **inputs)
         return logits
 
+    # det: commit-path
     def _prefill_chunk_body(self, C: int):
         """Fixed-shape C-token prefill chunk, verify-grade schedule.  A
         recurrent config keeps the state after ``last``, the chunk's final
         real position, so final-chunk pads never advance it: the chunk
         schedule stays size-invariant."""
-        schedule = self._commit_schedule()
+        schedule = (
+            INVARIANT_SCHEDULE if self.mode == Mode.BATCH_INVARIANT
+            else VERIFY_SCHEDULE
+        )
 
         def chunk(params, pool, slot, table, embeds, start, last):
             logits, pool = self._forward(params, pool, [slot], table[None],
-                                         start[None], schedule, inputs_embeds=embeds,
+                                         start[None], schedule=schedule,
+                                         inputs_embeds=embeds,
                                          state_at=self._state_at(last))
             return pool, logits
 
