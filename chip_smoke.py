@@ -24,7 +24,10 @@ the main path) and the gathered lane (``paged_attention=False``):
            repeatability of the commit kernels, split and combine
            sensitivity of the fast kernels, the split-K kernel's TP fold
            (tp 2 and 4 x splits 1, 4 and 8 x combine bf16 and f32, pinned,
-           uneven nested chunks; tp 1 and tp 4 differ), which GEMM partial tile each
+           uneven nested chunks; tp 1 and tp 4 differ) and its partials
+           entry (each TP chunk's value against its plain version, their
+           pinned tree bitwise the fold, a rank's K slice at d = 2 and 4
+           bitwise its chunks of the whole call), which GEMM partial tile each
            operand dtype runs (bf16: tensor cores, f32: CUDA cores) and that
            an ``rmsnorm`` call is one launch (by kernel name in a profiler
            trace);
@@ -144,7 +147,8 @@ the main path) and the gathered lane (``paged_attention=False``):
            passes);
 13. distribution ``distributed.sharding.tp_matmul``'s fallback on a
            DeviceMesh over an NCCL group of world size 1 (d = 1: the
-           logical path, no collective; NCCL at d > 1 needs a card a rank)
+           logical path, no collective; NCCL at d > 1 takes a card a rank:
+           the optional ``distribution4`` phase below)
            and the d = 2 and 4 rank programs run one after another through
            tp_matmul's own parts (``tp_rank_partial``: the commit GEMM's
            partials entry on the rank's K slice and its local subtree;
@@ -160,6 +164,26 @@ the main path) and the gathered lane (``paged_attention=False``):
            case's argument GiB a rank printed beside the card's memory
            (kimi-k2's cases: the optional ``dryrun_kimi`` phase, named in
            ``--phases`` only);
+    distribution4 (optional, named in ``--phases`` only; needs four cards
+           and fails on fewer) ``tp_matmul`` over NCCL with one card a
+           rank: the parent builds the kernels, then starts 4 ranks
+           (``torch.multiprocessing.spawn``), each bound to its card, which
+           build DeviceMeshes (4, 1), (2, 2) and (1, 4) (d = 1, 2, 4); at the
+           distribution phase's shapes and M every rank's result is bitwise
+           the four-chunk commit GEMM on its own card and every rank holds
+           the same bits; the split schedules (splits 2 and 8 x combine
+           bf16 and f32, pinned) bitwise the logical split-K GEMM at every
+           d; the un-pinned schedule (bf16 all-reduce) differs between
+           d = 4 and d = 1 (whether two d = 4 runs agree printed); one
+           partials launch per call; device times (CUDA events, the
+           maximum over ranks: a local launch the median of 100, a
+           collective the median of 5 rounds of 20 calls back to back) of
+           the one-card commit GEMM, a rank's local partial, each butterfly
+           level's exchange, the whole
+           ``tp_matmul`` at d = 2 and 4 and the un-pinned all-reduce at
+           M = 8, and a bf16 (tokens, 4096) all-reduce at tokens 8, 128 and
+           2048 over 2 and 4 cards with its rate by the cost model's
+           formula (bytes x 2(tp - 1)/tp over the time);
 14. cluster replicas 1, 2 and 3 of one tinyllama-1.1b engine (11 of 22
            layers, full width, priced by the H100 clock at 22) on one card,
            sharing the weights, each with its own paged pool, behind the deterministic router (``cluster/``) on
@@ -199,7 +223,9 @@ the main path) and the gathered lane (``paged_attention=False``):
            beside the least time the card could take (100 launches a
            reading); both GEMMs beside ``torch.matmul`` at every projection
            shape and serve-run M, their device time per forward, and the
-           host time per GEMM call; the timer's floor; the paged pair at
+           host time per GEMM call; the split-K library's partials entry at
+           a d = 4 rank's share of the decode FFN GEMM; the timer's floor;
+           the paged pair at
            each of ``paged_shapes``, B = 64 and a long context;
            ``decode_attention`` at each of ``decode_shapes`` beside
            ``scaled_dot_product_attention``; ``rmsnorm`` at 32, 256 and
@@ -211,7 +237,7 @@ The line before the last is a JSON object describing every kernel
 cluster runs and every training pass, each as its counters measured it;
 ``launches_by_mode`` splits them by lane, mode and run and adds the online
 run's, each config's and each variants, families and modalities run's, and
-the backward products' check and the distribution phase's runs, which are
+the backward products' check and the distribution phases' runs, which are
 comparisons with the logical commit GEMM and so stay out of
 ``launches``; ``max_abs_err_by_config`` holds the configs, variants,
 families and modalities phases' errors, and the commit GEMM's ``backward``
@@ -231,6 +257,7 @@ is visible or when it runs outside a checkout of the repository.
     python3 chip_smoke.py --phases build,cluster,training
     python3 chip_smoke.py --phases build,distribution,training
     python3 chip_smoke.py --phases build,dryrun_kimi
+    python3 chip_smoke.py --phases build,distribution4   # four cards
     python3 chip_smoke.py --phases build,analysis
 """
 
@@ -256,7 +283,7 @@ PHASES = ("build", "kernels", "serve", "determinism", "profile", "online", "anal
           "configs", "variants", "families", "modalities", "hybrid", "distribution",
           "cluster", "training", "timings")
 #: phases outside the default run, only by name in ``--phases``
-OPTIONAL_PHASES = ("dryrun_kimi",)
+OPTIONAL_PHASES = ("dryrun_kimi", "distribution4")
 
 #: per-request KV reach of the serve phase (128 blocks of 16).  The paged
 #: kernels' cost no longer follows the reach (the timings phase times them
@@ -737,6 +764,7 @@ def check_tp_fold(torch, cfg, results, rnd, bf16_tol) -> None:
     xf, wf = rnd(5, F).float(), rnd(F, 1000, scale=F ** -0.5).float()
     case(xf, wf, 4, 8, "bfloat16", False)
     case(xf, wf, 4, 1, "float32", True)
+    pworst = check_splitk_partials(torch, x, w)
     tp1 = gemm_splitk(x, w, splits=4, combine_dtype="bfloat16", tp_shards=1)
     tp4 = gemm_splitk(x, w, splits=4, combine_dtype="bfloat16", tp_shards=4)
     require(not torch.equal(tp1, tp4), "gemm_splitk: tp 1 and tp 4 agree bitwise")
@@ -744,7 +772,60 @@ def check_tp_fold(torch, cfg, results, rnd, bf16_tol) -> None:
         f"shape and uneven nested chunks at K in {TP_FOLD_UNEVEN_K} within 4 bf16 ulps "
         f"(worst {worst:.3e}); tp 1 vs tp 4 (splits 4, bf16 combine) differ at "
         f"{int((tp1 != tp4).sum())} of {tp1.numel()} outputs")
-    results["gemm_splitk"]["tp_fold"] = {"max_abs_err": worst}
+    results["gemm_splitk"]["tp_fold"] = {"max_abs_err": worst,
+                                         "partials_max_abs_err": pworst}
+
+
+#: the partials entry's cases: (tp_shards, splits, combine); the rank
+#: slices of each are cut at d = 2 and 4
+PARTIALS_CASES = ((4, 8, "bfloat16"), (4, 2, "float32"), (4, 1, "bfloat16"))
+
+
+def check_splitk_partials(torch, x, w) -> float:
+    """The split-K library's partials entry (``gemm_splitk_partials``, the
+    TP chunk values before the cross-chunk fold) at ``PARTIALS_CASES`` on
+    x (M, K) @ w (K, N): each chunk within 4 bf16 ulps of max|chunk| of
+    its plain version (f32 sums of bf16 partials: 1e-4 with the f32
+    combine); the pinned tree of the chunks bitwise the split-K kernel's
+    pinned fold; and a rank's K slice (``tp_rank_partial``'s operands at
+    d = 2 and 4) gives that rank's chunks of the whole call bit for bit.
+    Returns the worst error."""
+    from repro_torch.core.determinism import tree_combine
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gemm_splitk import gemm_splitk, gemm_splitk_partials
+
+    worst = 0.0
+    K = x.shape[1]
+    for tp, splits, cd in PARTIALS_CASES:
+        vals = gemm_splitk_partials(x, w, splits=splits, combine_dtype=cd, tp_shards=tp)
+        want = ref.gemm_splitk_partials(x, w, splits, cd, tp_shards=tp)
+        for got, exp in zip(vals.unbind(0), want):
+            err = float((got - exp).abs().max())
+            tol = (float(exp.abs().max()) * 2.0 ** -8 * 4 if cd == "bfloat16" and splits > 1
+                   else 1e-4)
+            require(err <= tol, f"gemm_splitk_partials tp={tp} splits={splits} {cd}: "
+                    f"{err:.3e} > {tol:.3e}")
+            worst = max(worst, err)
+        fold = gemm_splitk(x, w, splits=splits, combine_dtype=cd, tp_shards=tp,
+                           tp_pinned=True)
+        require(torch.equal(tree_combine(list(vals.unbind(0))).to(x.dtype), fold),
+                f"gemm_splitk_partials tp={tp} splits={splits} {cd}: the pinned tree "
+                "of the chunks is not the kernel's pinned fold")
+        for d in (2, 4):
+            span = K // d
+            for r in range(d):
+                part = gemm_splitk_partials(
+                    x[:, r * span:(r + 1) * span], w[r * span:(r + 1) * span],
+                    splits=splits, combine_dtype=cd, tp_shards=tp // d)
+                require(torch.equal(part, vals[r * (tp // d):(r + 1) * (tp // d)]),
+                        f"gemm_splitk_partials: rank {r} of d={d}'s K slice differs "
+                        f"from its chunks of the whole call (splits={splits} {cd})")
+    sync(torch)
+    log(f"[kernels] gemm_splitk_partials {tuple(x.shape)}@{tuple(w.shape)} at "
+        f"(tp, splits, combine) in {PARTIALS_CASES}: chunks within tolerance of the "
+        f"plain version (worst {worst:.3e}), their pinned tree bitwise the kernel's "
+        f"pinned fold, every rank's K slice at d = 2 and 4 bitwise its chunks")
+    return worst
 
 
 #: rows of the 8 at which the commit paged kernel's rows must keep their
@@ -3763,10 +3844,10 @@ def rank_programs(torch, x, w, d, pinned=True):
     in x's dtype.  ``pinned=False`` combines the ranks' values in bf16 in
     ring order instead (the un-pinned schedule's all-reduce, the negative
     control)."""
-    from repro_torch.core.determinism import CANONICAL_TP_SHARDS
+    from repro_torch.core.determinism import VERIFY_SCHEDULE
     from repro_torch.distributed.sharding import tp_butterfly, tp_rank_partial
 
-    accs = [tp_rank_partial(x, w, r, d, CANONICAL_TP_SHARDS) for r in range(d)]
+    accs = [tp_rank_partial(x, w, r, d, VERIFY_SCHEDULE) for r in range(d)]
     if not pinned:
         acc = accs[0].to(torch.bfloat16)
         for a in accs[1:]:
@@ -3816,8 +3897,8 @@ def distribution_tp(torch, results, summary) -> None:
     log(f"[distribution] tp_matmul's fallback on a DeviceMesh over an NCCL group of "
         f"world size 1 (d = 1: the logical matmul, no collective call): equal to "
         f"ops.matmul(VERIFY_SCHEDULE) at {len(cases)} shapes (K, N) in {TP_SHAPES} x M "
-        f"in {TP_MS}, bf16; NCCL at d > 1 needs one card a rank, so it waits for a "
-        "call with four cards")
+        f"in {TP_MS}, bf16; NCCL at d > 1 takes one card a rank: the distribution4 "
+        "phase (four cards, --phases build,distribution4)")
     fns = reset_launches()
     worst = {}
     for M, K, N, x, w in cases:
@@ -3903,6 +3984,341 @@ def phase_dryrun_kimi(torch, results, summary) -> None:
     """The dry run's decode_32k and verify_32k cases of ``DRYRUN_SLOW``."""
     dryrun_cases(torch, list(DRYRUN_SLOW), DRYRUN_SHAPES, float("inf"), summary,
                  "dryrun_kimi")
+
+
+# ---------------------------------------------------------------------------
+# optional phase: distribution4 (tp_matmul over NCCL, one card a rank)
+# ---------------------------------------------------------------------------
+
+#: ranks of the four-card phase, one card each
+D4_RANKS = 4
+#: model-axis widths: meshes (4, 1), (2, 2) and (1, 4)
+D4_WIDTHS = (1, 2, 4)
+#: the split schedules held across widths: (splits, combine_dtype), pinned,
+#: tp_shards 4 (the reference's tp_matmul is bitwise across d at each)
+D4_SPLITS = ((2, "bfloat16"), (2, "float32"), (8, "bfloat16"), (8, "float32"))
+#: rows of the bf16 (tokens, 4096) activation all-reduce whose rate prices
+#: the cost model's TP term: a decode pass of the serve driver's batch (8),
+#: a prefill chunk (128), a long prefill (2048)
+D4_TOKENS = (8, 128, 2048)
+#: NCCL's timeout in each rank: a rank that stops answering fails the phase
+D4_TIMEOUT_S = 120
+#: the batch rows of the phase's timings (the serve driver's decode batch)
+D4_TIME_M = 8
+
+
+#: rounds of back-to-back calls a collective's reading takes the median of
+D4_ROUNDS = 5
+#: device clock cycles a collective's round holds the card asleep while the
+#: host enqueues the round's calls (about 50 ms at 1.98 GHz: 20 calls of
+#: up to 1.2 ms of host time each, PERF.md §6)
+D4_HOLD_CYCLES = 100_000_000
+
+
+def rank_time_ms(torch, dev, fn, reps, barrier=None):
+    """``fn``'s time on this rank in ms (on the CPU the host clock).
+
+    A local launch (``barrier`` None): the median over ``reps`` of CUDA
+    events around one call after the timer's sleep (as ``time_ms``);
+    returns that time.
+
+    A collective (``barrier`` given): ``D4_ROUNDS`` rounds.  Each starts
+    with ``barrier`` (the ranks meet), puts the card to sleep for
+    ``D4_HOLD_CYCLES``, and enqueues one call (it absorbs the ranks'
+    skew) and then ``reps // D4_ROUNDS`` calls between two events, so the
+    card runs them back to back at its own pace, as a captured program
+    would.  Returns (device ms a call, host ms a call to enqueue, held):
+    the median rounds, and whether the card was still asleep when the last
+    call was enqueued in every round (else the reading holds host time).
+    Timed one call at a time, or back to back without the hold, a
+    collective holds the host's time and jitter (PERF.md §6)."""
+    def clock():
+        if dev.type == "cuda":
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+        return time.perf_counter()
+
+    def elapsed(a, b):
+        if dev.type == "cuda":
+            b.synchronize()
+            return a.elapsed_time(b)
+        return (b - a) * 1e3
+
+    for _ in range(3):
+        fn()
+    if barrier is None:
+        times = []
+        for _ in range(reps):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+                torch.cuda._sleep(SLEEP_CYCLES)
+            a = clock()
+            fn()
+            times.append(elapsed(a, clock()))
+        return sorted(times)[reps // 2]
+    calls = max(reps // D4_ROUNDS, 1)
+    dev_ms, host_ms, held = [], [], True
+    for _ in range(D4_ROUNDS):
+        barrier()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda._sleep(D4_HOLD_CYCLES)
+            woke = clock()
+        fn()
+        a = clock()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host_ms.append((time.perf_counter() - t0) * 1e3 / calls)
+        if dev.type == "cuda":
+            held &= not woke.query()
+        dev_ms.append(elapsed(a, clock()) / calls)
+    mid = D4_ROUNDS // 2
+    return sorted(dev_ms)[mid], sorted(host_ms)[mid], held
+
+
+def distribution4_rank(r, world, port, out_dir, device, shapes, ms, tokens, reps):
+    """One rank of the ``distribution4`` phase (``torch.multiprocessing.spawn``
+    target): bound to card r (``device == "cuda"``: NCCL) or the CPU (gloo,
+    the plain kernel versions), it runs the phase's checks and timings at
+    ``shapes`` (K, N) x ``ms`` and writes ``rank{r}.json`` to ``out_dir``:
+    its timings, launch counts and, on rank 0, the checks' verdicts.  A
+    failed check raises, which fails the spawn."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.determinism import VERIFY_SCHEDULE, Schedule
+    from repro_torch.distributed.sharding import (
+        p2p_exchange, tp_butterfly, tp_matmul, tp_rank_partial,
+    )
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
+    from repro_torch.launch.mesh import make_host_mesh
+
+    if device == "cuda":
+        # the kernels launch on the current device: bind it before any CUDA
+        # call, and load (never build) the libraries the parent built
+        torch.cuda.set_device(r)
+        dev = torch.device("cuda", r)
+        missing = [s for s in ("gemm_batch_invariant", "gemm_splitk")
+                   if not build.lib_path(s).exists()]
+        require(not missing, f"distribution4 rank {r}: {missing} not built (the parent "
+                "builds before spawning)")
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        dev = torch.device("cpu")
+        torch.set_num_threads(1)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=r, timeout=datetime.timedelta(seconds=D4_TIMEOUT_S))
+    out = {"rank": r, "device": str(dev)}
+    try:
+        bf = torch.bfloat16
+        gen = torch.Generator(device=dev).manual_seed(12)
+        cases = []
+        for K, N in shapes:
+            w = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(bf)
+            for M in ms:
+                x = torch.randn((M, K), generator=gen, device=dev).to(bf)
+                cases.append((M, K, N, x, w))
+        for _, _, _, x, w in cases:  # every rank multiplies rank 0's operands
+            for t in (x, w):
+                dist.broadcast(t, src=0)
+        meshes = {d: make_host_mesh(model=d, device=device) for d in D4_WIDTHS}
+        fns = reset_launches()
+        launches = dict.fromkeys(fns, 0)  # the tp_matmul calls' own
+
+        def run(d, schedule, want=None):
+            """tp_matmul over every case at width d; one launch a call, of
+            the schedule's partials entry (the fallback at d = 1: its logical
+            kernel); each result bitwise ``want``'s where given."""
+            kernel = ("gemm_batch_invariant" if schedule.tp_pinned and schedule.splits <= 1
+                      else "gemm_splitk")
+            got = []
+            for i, (M, K, N, x, w) in enumerate(cases):
+                before = launch_counts(fns)
+                y = tp_matmul(x, w, meshes[d], schedule=schedule)
+                after = launch_counts(fns)
+                diff = {k: after[k] - before[k] for k in after}
+                require(diff == {k: int(k == kernel) for k in diff},
+                        f"distribution4 rank {r} d={d} {schedule}: launches {diff}")
+                launches[kernel] += 1
+                if want is not None:
+                    require(torch.equal(y, want[i]), f"distribution4 rank {r}: d={d} "
+                            f"({M}, {K}) @ ({K}, {N}) {schedule} differs from the "
+                            "one-card GEMM")
+                got.append(y)
+            return got
+
+        def same_on_every_rank(got, what):
+            flat = torch.cat([g.flatten() for g in got])
+            every = [torch.empty_like(flat) for _ in range(world)]
+            dist.all_gather(every, flat)
+            if r == 0:
+                require(all(torch.equal(e, flat) for e in every),
+                        f"distribution4: ranks hold other bits ({what})")
+
+        verdicts = {}
+        commit = [ops.matmul(x, w, VERIFY_SCHEDULE) for _, _, _, x, w in cases]
+        for d in D4_WIDTHS:
+            same_on_every_rank(run(d, VERIFY_SCHEDULE, commit), f"VERIFY_SCHEDULE d={d}")
+        verdicts["pinned"] = len(cases) * len(D4_WIDTHS)
+        for splits, cd in D4_SPLITS:
+            sched = Schedule(splits=splits, combine_dtype=cd, tp_shards=4, tp_pinned=True)
+            logical = [ops.matmul(x, w, sched) for _, _, _, x, w in cases]
+            for d in D4_WIDTHS:
+                same_on_every_rank(run(d, sched, logical), f"{sched} d={d}")
+        verdicts["splits"] = len(cases) * len(D4_WIDTHS) * len(D4_SPLITS)
+        fast = Schedule(splits=1, combine_dtype="bfloat16", tp_shards=4, tp_pinned=False)
+        d1, d4, again = run(1, fast), run(4, fast), run(4, fast)
+        same_on_every_rank(d4, "un-pinned d=4")
+        differ = [not torch.equal(a, b) for a, b in zip(d1, d4)]
+        verdicts.update(unpinned_differs=sum(differ),
+                        unpinned_repeat_equal=all(torch.equal(a, b) for a, b in zip(d4, again)),
+                        unpinned_max_diff=max(float((a.float() - b.float()).abs().max())
+                                              for a, b in zip(d1, d4)))
+        require(any(differ), "distribution4: the un-pinned d = 4 all-reduce equals d = 1 "
+                "at every case (negative control)")
+        out["launches"] = launches
+        out["verdicts"] = verdicts
+
+        world_group = dist.group.WORLD
+        token = torch.zeros(1, device=dev)
+
+        def barrier():
+            dist.all_reduce(token, group=world_group)
+
+        timing, host, held = {}, {}, True
+
+        def collective(name, row, fn):
+            nonlocal held
+            dev_ms, host_ms, ok = rank_time_ms(torch, dev, fn, reps, barrier)
+            row[name] = dev_ms
+            host.setdefault(name, []).append(host_ms)
+            held &= ok
+
+        for K, N in shapes:
+            x = torch.randn((D4_TIME_M, K), generator=gen, device=dev).to(bf)
+            w = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(bf)
+            row = {"commit_ms": rank_time_ms(torch, dev, lambda: gemm_batch_invariant(
+                x, w, chunks=4), reps)}
+            row["partial_ms"] = rank_time_ms(torch, dev, lambda: tp_rank_partial(
+                x, w, meshes[4].get_local_rank("model"), 4, VERIFY_SCHEDULE), reps)
+            acc = torch.zeros((D4_TIME_M, N), device=dev)
+            for d in (2, 4):
+                group = meshes[d].get_group("model")
+                coord = meshes[d].get_local_rank("model")
+                step = 1
+                while step < d:
+                    collective(f"exchange_d{d}_step{step}_ms", row,
+                               lambda: p2p_exchange(acc, group, coord ^ step))
+                    step *= 2
+                collective(f"tp_matmul_d{d}_ms", row, lambda: tp_matmul(x, w, meshes[d]))
+                part = torch.zeros((D4_TIME_M, N), dtype=bf, device=dev)
+                collective(f"allreduce_d{d}_ms", row,
+                           lambda: dist.all_reduce(part, group=group))
+            timing[f"{K}x{N}"] = row
+        rates = {}
+        for d in (2, 4):
+            group = meshes[d].get_group("model")
+            for n in tokens:
+                act = torch.zeros((n, 4096), dtype=bf, device=dev)
+                row = {}
+                collective(f"allreduce_d{d}_tokens{n}_ms", row,
+                           lambda: dist.all_reduce(act, group=group))
+                rates[f"tp{d}_tokens{n}"] = {"ms": row[f"allreduce_d{d}_tokens{n}_ms"],
+                                             "bytes": act.numel() * 2}
+        out["host_ms"] = {k: sorted(v)[len(v) // 2] for k, v in host.items()}
+        out["held"] = held
+        out["timing"], out["allreduce"] = timing, rates
+        barrier()  # no rank leaves while another still exchanges
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    finally:
+        dist.destroy_process_group()
+    Path(out_dir, f"rank{r}.json").write_text(json.dumps(out))
+
+
+def phase_distribution4(torch, results, summary) -> None:
+    """``distributed.sharding.tp_matmul`` over NCCL with one card a rank: the
+    kernels built here, then ``D4_RANKS`` spawned ranks (``distribution4_rank``)
+    at the distribution phase's shapes; the ranks' timings merged (the
+    maximum over ranks), the effective all-reduce rate computed as the cost
+    model prices it (``serving/costmodel.py``: bytes x 2(tp - 1)/tp over the
+    time), every reading printed beside the cards' names and power limits."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.kernels import build
+
+    n = torch.cuda.device_count()
+    require(n >= D4_RANKS, f"distribution4: {n} card(s) visible, the phase needs "
+            f"{D4_RANKS} (one a rank)")
+    build.build_all()  # a no-op after the build phase; the ranks only load
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()
+    card = cards[0]
+    for i, line in enumerate(cards):
+        log(f"[distribution4] card {i}: {line}")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out_dir:
+        t0 = time.perf_counter()
+        mp.spawn(distribution4_rank, nprocs=D4_RANKS, join=True, args=(
+            D4_RANKS, free_port(), out_dir, "cuda", TP_SHAPES, TP_MS, D4_TOKENS, 100))
+        ranks = [json.loads(Path(out_dir, f"rank{r}.json").read_text())
+                 for r in range(D4_RANKS)]
+    log(f"[distribution4] {D4_RANKS} ranks (one card each, NCCL) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    report_distribution4(ranks, card, results, summary)
+
+
+def report_distribution4(ranks, card, results, summary) -> None:
+    """Log and record the ranks' verdicts, launches and timings."""
+    v = ranks[0]["verdicts"]
+    log(f"[distribution4] VERIFY_SCHEDULE: every rank bitwise the four-chunk commit "
+        f"GEMM on its own card and all ranks equal at d in {D4_WIDTHS}: {v['pinned']} "
+        f"cases (K, N) in {TP_SHAPES} x M in {TP_MS} x d")
+    log(f"[distribution4] split schedules (splits, combine) in {D4_SPLITS}, pinned: "
+        f"every rank bitwise the logical split-K GEMM at every d: {v['splits']} cases")
+    log(f"[distribution4] negative control, un-pinned bf16 all-reduce (tp_shards 4): "
+        f"d = 4 differs from d = 1 at {v['unpinned_differs']} of "
+        f"{v['pinned'] // len(D4_WIDTHS)} cases (max |diff| {v['unpinned_max_diff']:.4g}); "
+        f"two d = 4 runs {'agree' if v['unpinned_repeat_equal'] else 'DISAGREE'} bit "
+        f"for bit (printed, not asserted)")
+    counts = {k: sum(rk["launches"][k] for rk in ranks) for k in ranks[0]["launches"]}
+    record_launches(results, "distribution4/tp_matmul (4 ranks)", counts, main_path=False)
+    log(f"[distribution4] launches over the 4 ranks, one a tp_matmul call: {counts}")
+    timing = {}
+    for key in ranks[0]["timing"]:
+        row = {k: max(rk["timing"][key][k] for rk in ranks) for k in ranks[0]["timing"][key]}
+        timing[key] = row
+        parts = ", ".join(f"{k[:-3]} {t:.4f}" for k, t in row.items())
+        K, N = key.split("x")
+        log(f"[distribution4] ({D4_TIME_M}, {K}) @ ({K}, {N}) ms, max over ranks: "
+            f"{parts} [{card}]")
+    rates = {}
+    for key in ranks[0]["allreduce"]:
+        ms_ = max(rk["allreduce"][key]["ms"] for rk in ranks)
+        nbytes = ranks[0]["allreduce"][key]["bytes"]
+        tp = int(key[2:key.index("_")])
+        rate = nbytes * 2 * (tp - 1) / tp / (ms_ * 1e-3)
+        rates[key] = {"ms": ms_, "bytes": nbytes, "rate_bytes_per_s": rate}
+        log(f"[distribution4] all_reduce bf16 ({key.split('tokens')[1]}, 4096) over "
+            f"{tp} cards: {ms_:.4f} ms, {rate / 1e9:.2f} GB/s by the cost model's formula "
+            f"(bytes x 2(tp-1)/tp / time) [{card}]")
+    host = {k: max(rk["host_ms"][k] for rk in ranks) for k in ranks[0]["host_ms"]}
+    held = all(rk["held"] for rk in ranks)
+    log(f"[distribution4] collectives: device time a call back to back with the card "
+        f"held while the host enqueues ({'held in every round' if held else 'NOT HELD in some round: those readings hold host time'}); "
+        f"host ms a call to enqueue, median over the shapes, max over ranks: "
+        + ", ".join(f"{k[:-3]} {t:.4f}" for k, t in host.items()))
+    summary["distribution4"] = {"verdicts": v, "launches": counts, "timing": timing,
+                                "allreduce": rates, "host_ms": host, "held": held,
+                                "card": card}
 
 
 # ---------------------------------------------------------------------------
@@ -4798,7 +5214,7 @@ def time_ms(torch, fn, reps=100, flush=None):
 def phase_timings(torch, cfg, results) -> None:
     from repro_torch.kernels import ref
     from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
-    from repro_torch.kernels.gemm_splitk import gemm_splitk
+    from repro_torch.kernels.gemm_splitk import gemm_splitk, gemm_splitk_partials
 
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=DEV).manual_seed(2)
@@ -4844,6 +5260,13 @@ def phase_timings(torch, cfg, results) -> None:
              lambda x, w: ref.gemm_splitk(x, w, 4, "bfloat16", tp_shards=4),
              "tp=4 splits=4 bf16 combine",
              into=results["gemm_splitk"].setdefault("tp_fold", {}))
+    # the partials entry at a rank's share of that GEMM in tp_matmul at d = 4
+    # under a split schedule: one K chunk (d_ff / 4) at splits 8, f32 out
+    gemm_row("gemm_splitk_partials", 8, F // 4, D,
+             lambda x, w: gemm_splitk_partials(x, w, splits=8, combine_dtype="bfloat16"),
+             lambda x, w: torch.stack(ref.gemm_splitk_partials(x, w, 8, "bfloat16")),
+             "one chunk, splits=8 bf16 combine (a d = 4 rank's share)",
+             into=results["gemm_splitk"]["tp_fold"].setdefault("partials", {}))
     time_gemm_table(torch, cfg, flush)
     time_gemm_host(torch, cfg)
     tiny = torch.zeros(1, device=DEV)
@@ -5202,6 +5625,8 @@ def main() -> int:
         timed("distribution", phase_distribution, torch, results, summary)
     if "dryrun_kimi" in phases:
         timed("dryrun_kimi", phase_dryrun_kimi, torch, results, summary)
+    if "distribution4" in phases:
+        timed("distribution4", phase_distribution4, torch, results, summary)
     if "cluster" in phases:
         timed("cluster", phase_cluster, torch, results, summary)
     if "training" in phases:

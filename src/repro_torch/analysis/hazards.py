@@ -30,7 +30,8 @@ fixed-schedule combine contract:
   ``baddbmm`` or ``matmul`` (and the other contractions) on inexact dtypes:
   cuBLAS picks its kernel by shape, so its rows can follow the batch.
 * ``fast-kernel-on-commit-path`` — a ``gemm_splitk``,
-  ``paged_attention_fast`` or ``decode_attention(kv_splits > 1)`` node.
+  ``gemm_splitk_partials``, ``paged_attention_fast`` or
+  ``decode_attention(kv_splits > 1)`` node.
 * ``data-dependent-while``   — a host read of a tensor value
   (``aten._local_scalar_dense``, or ``nonzero``, whose output shape is
   one) inside the step: what follows can depend on the data, so the
@@ -56,7 +57,7 @@ _SCATTER_ADD = frozenset({"index_add", "index_add_", "scatter_add", "scatter_add
 _INDEX_PUT = frozenset({"index_put", "index_put_", "_index_put_impl", "_index_put_impl_"})
 _SCATTER_SET = frozenset({"scatter", "scatter_", "index_copy", "index_copy_"})
 _HOST_READS = frozenset({"_local_scalar_dense", "nonzero"})
-_FAST_KERNELS = frozenset({"gemm_splitk", "paged_attention_fast"})
+_FAST_KERNELS = frozenset({"gemm_splitk", "gemm_splitk_partials", "paged_attention_fast"})
 
 
 def _is_float(dt: torch.dtype) -> bool:

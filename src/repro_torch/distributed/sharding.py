@@ -22,8 +22,9 @@ meshes, which no program here spans (``launch.mesh.Mesh``), as for a
 ``local_shape`` gives one rank's shard.
 
 ``tp_matmul`` realizes the commit path's pinned K tree across the ranks of
-a ``model`` axis over ``torch.distributed`` (gloo on the CPU, NCCL on
-cards), bitwise equal to the logical ``core.determinism.matmul``.
+a ``model`` axis over ``torch.distributed`` (gloo on the CPU, NCCL with one
+card a rank), bitwise equal to the logical ``core.determinism.matmul`` at
+every split schedule; un-pinned, it all-reduces in ``combine_dtype``.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from repro_torch.core.determinism import (
     Schedule, VERIFY_SCHEDULE, matmul as sched_matmul, torch_dtype, tree_combine,
 )
 from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant_partials
+from repro_torch.kernels.gemm_splitk import gemm_splitk_partials
 from repro_torch.launch.mesh import Mesh, _axis_sizes
 from repro_torch.models.base import ModelConfig, param_specs
 from repro_torch.models.transformer import cache_spec
@@ -47,18 +49,29 @@ Plan = Tuple[Any, ...]
 
 
 def tp_rank_partial(x2: torch.Tensor, w: torch.Tensor, r: int, d: int,
-                    tp_shards: int) -> torch.Tensor:
-    """Rank r's f32 local subtree of the pinned K tree, of x2 (M, K) @ w
-    (K, N) cut into ``tp_shards`` canonical chunks over d ranks: the K slice
-    of its ``tp_shards / d`` chunks, each chunk's f32 partial in one pass
-    from the commit GEMM's partials entry (``gemm_batch_invariant_partials``:
-    on the card the tensor-core tile with f32 accumulation, on the CPU
-    ``x_c.f32 @ w_c.f32`` on the views the logical path reads), summed by
-    ``tree_combine``."""
+                    schedule: Schedule) -> torch.Tensor:
+    """Rank r's f32 local subtree of x2 (M, K) @ w (K, N) cut into
+    ``schedule.tp_shards`` canonical chunks over d ranks: the K slice of its
+    ``tp_shards / d`` chunks, each chunk's f32 value in one launch, summed by
+    ``tree_combine``.  A chunk's value is the reference's per-device
+    ``matmul`` under ``schedule._replace(tp_shards=1, tp_pinned=False)``:
+    one f32 pass, or the chunk's ``splits`` f32 partials rounded through
+    ``combine_dtype`` and folded in split order.  The launch is the partials
+    entry of the library the logical GEMM runs (``kernels.ops``): the
+    commit GEMM's (``gemm_batch_invariant_partials``) for the pinned
+    schedule without splits, the split-K GEMM's (``gemm_splitk_partials``)
+    for every other.  On the card both run the operands' own tile; on the
+    CPU they are the plain versions on the views the logical path reads."""
     span = x2.shape[-1] // d
     lo, hi = r * span, (r + 1) * span
-    return tree_combine(list(gemm_batch_invariant_partials(
-        x2[:, lo:hi], w[lo:hi], chunks=tp_shards // d).unbind(0)))
+    chunks = schedule.tp_shards // d
+    if schedule.tp_pinned and schedule.splits <= 1:
+        parts = gemm_batch_invariant_partials(x2[:, lo:hi], w[lo:hi], chunks=chunks)
+    else:
+        parts = gemm_splitk_partials(x2[:, lo:hi], w[lo:hi], splits=schedule.splits,
+                                     combine_dtype=schedule.combine_dtype,
+                                     tp_shards=chunks)
+    return tree_combine(list(parts.unbind(0)))
 
 
 def tp_butterfly(acc: torch.Tensor, r: int, d: int, exchange) -> torch.Tensor:
@@ -74,6 +87,20 @@ def tp_butterfly(acc: torch.Tensor, r: int, d: int, exchange) -> torch.Tensor:
     return acc
 
 
+def p2p_exchange(mine: torch.Tensor, group: Any, coord: int) -> torch.Tensor:
+    """Send ``mine`` to the rank at ``coord`` of ``group`` and return what it
+    sends back: one ``batch_isend_irecv`` pair, a butterfly level's
+    exchange."""
+    import torch.distributed as dist
+
+    peer = dist.get_global_rank(group, coord)
+    got = torch.empty_like(mine)
+    for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, mine, peer, group),
+                                       dist.P2POp(dist.irecv, got, peer, group)]):
+        req.wait()
+    return got
+
+
 def tp_matmul(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -87,9 +114,10 @@ def tp_matmul(
     gets the full (..., N) product in x.dtype.
 
     The rank at coordinate r of the ``axis`` mesh dim (width d) takes its
-    local subtree (``tp_rank_partial``).  Pinned, a recursive-doubling
+    local subtree (``tp_rank_partial``: its chunks under the schedule's
+    ``splits`` and ``combine_dtype``).  Pinned, a recursive-doubling
     butterfly over the axis's process group (``tp_butterfly``, the partner's
-    value by ``batch_isend_irecv``) completes the tree in the reference's
+    value by ``p2p_exchange``) completes the tree in the reference's
     association, so the result equals ``matmul(x, w, schedule)`` bitwise
     for every power-of-two d dividing ``tp_shards``.  Un-pinned, the
     partials meet in an ``all_reduce`` in ``combine_dtype``: the fast-path
@@ -98,10 +126,9 @@ def tp_matmul(
     Falls back to the logical ``matmul`` when the axis is absent or 1 wide,
     ``tp_shards <= 1`` or ``> K``, d does not divide ``tp_shards``,
     ``tp_shards`` does not divide K, or d is not a power of two.  A ``Mesh``
-    description spans no ranks, so past the fallback it is refused, as is a
-    schedule with ``splits > 1``: the split-K kernel returns no per-chunk
-    f32 partials, and casting the operands to f32, as the reference does,
-    would take the card's f32 tile path and lose the bitwise equality."""
+    description spans no ranks, so past the fallback it is refused.  On a
+    card, x must lie on the current device (``torch.cuda.set_device``, one
+    card a rank): the kernels launch on the current device."""
     K = x.shape[-1]
     d = _axis_sizes(mesh).get(axis, 1)
     tp = schedule.tp_shards
@@ -111,26 +138,17 @@ def tp_matmul(
     if isinstance(mesh, Mesh):
         raise TypeError("tp_matmul: a Mesh description spans no ranks; pass a "
                         "DeviceMesh (launch.mesh.make_host_mesh)")
-    if schedule.splits > 1:
-        raise NotImplementedError(
-            f"tp_matmul: splits={schedule.splits}; a rank's chunk partials come "
-            "from the commit GEMM, which has one pass a chunk")
+    if x.is_cuda and x.device.index != torch.cuda.current_device():
+        raise ValueError(f"tp_matmul: x on {x.device}, current device "
+                         f"cuda:{torch.cuda.current_device()}")
     import torch.distributed as dist
 
     group = mesh.get_group(axis)
     r = mesh.get_local_rank(axis)
-    acc = tp_rank_partial(x.reshape(-1, K).contiguous(), w, r, d, tp)
+    acc = tp_rank_partial(x.reshape(-1, K).contiguous(), w, r, d, schedule)
     if schedule.tp_pinned:
-        def exchange(mine: torch.Tensor, coord: int, _step: int) -> torch.Tensor:
-            peer = dist.get_global_rank(group, coord)
-            got = torch.empty_like(mine)
-            for req in dist.batch_isend_irecv([
-                    dist.P2POp(dist.isend, mine, peer, group),
-                    dist.P2POp(dist.irecv, got, peer, group)]):
-                req.wait()
-            return got
-
-        acc = tp_butterfly(acc, r, d, exchange)
+        acc = tp_butterfly(acc, r, d, lambda mine, coord, _step: p2p_exchange(
+            mine, group, coord))
     else:
         acc = acc.to(torch_dtype(schedule.combine_dtype))
         dist.all_reduce(acc, group=group)

@@ -34,6 +34,8 @@ ENTRY_POINTS = {
     "gemm_splitk": {
         # x, w, part, out, M, N, K, tp, splits, pinned, combine, dtype, stream
         "repro_gemm_splitk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        # x, w, part, vals, M, N, K, tp, splits, combine, dtype, stream
+        "repro_gemm_splitk_partials": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "paged_attention": {
         # q, k, v, pos, tab, qpos, out, B, H, KV, D, bs, nblk, scale, dtype, stream

@@ -21,7 +21,16 @@
 // GEMM's tiles (tensor cores fed by TMA for bf16, CUDA cores for f32): one
 // design to maintain.  Pass 2 (below): one thread per output element folds
 // the splits within each TP chunk, then the TP chunks, with the
-// reference's rounding points.  No atomics: the reduction tree is the split
+// reference's rounding points.
+//
+// The partials entry (repro_gemm_splitk_partials) runs pass 1 and then
+// only the first level of pass 2: one f32 value per TP chunk, after that
+// chunk's split fold and before the cross-chunk fold.  It is a rank's share
+// of repro/distributed/sharding.py::tp_matmul (each device reduces its
+// canonical K chunks under the schedule's splits and combine_dtype, the
+// cross-chunk combine happening across ranks), on the operands' own dtype:
+// the chunk values are the ones pass 2 folds in the logical GEMM, bit for
+// bit.  No atomics: the reduction tree is the split
 // count and the TP width and nothing else, which is exactly the
 // batch- and mesh-dependent schedule the fast path is licensed to vary.
 //
@@ -35,6 +44,27 @@ namespace {
 
 constexpr int MAX_TP = 16;  // TP chunks a pinned fold keeps in registers
 
+// TP chunk t's value at element i under the local split schedule
+// (_reduce_k_f32): its splits' partials rounded through combine_dtype and
+// folded in split order, the running sum re-rounded after every fold; one
+// f32 pass when the chunk is narrower than `splits`
+__device__ __forceinline__ float chunk_value(const float* __restrict__ part,
+                                             long long mn, long long i, int K,
+                                             int tp, int splits, int t,
+                                             int combine) {
+  int ob, oe;
+  gemm_tile::chunk_bounds(K, tp, t, &ob, &oe);
+  const int local = splits <= oe - ob ? splits : 1;
+  const float* p = part + (long long)t * splits * mn + i;
+  float v = p[0];
+  if (local > 1) {
+    v = round_to(v, combine);
+    for (int s = 1; s < local; ++s)
+      v = round_to(v + round_to(p[(long long)s * mn], combine), combine);
+  }
+  return v;
+}
+
 template <typename T>
 __global__ void tp_fold_kernel(const float* __restrict__ part,
                                T* __restrict__ out, long long mn, int K,
@@ -44,18 +74,7 @@ __global__ void tp_fold_kernel(const float* __restrict__ part,
   float tree[MAX_TP];
   float acc = 0.f;
   for (int t = 0; t < tp; ++t) {
-    // the TP chunk's value under the local split schedule (_reduce_k_f32):
-    // one f32 pass when the chunk is narrower than `splits`
-    int ob, oe;
-    gemm_tile::chunk_bounds(K, tp, t, &ob, &oe);
-    const int local = splits <= oe - ob ? splits : 1;
-    const float* p = part + (long long)t * splits * mn + i;
-    float v = p[0];
-    if (local > 1) {
-      v = round_to(v, combine);
-      for (int s = 1; s < local; ++s)
-        v = round_to(v + round_to(p[(long long)s * mn], combine), combine);
-    }
+    const float v = chunk_value(part, mn, i, K, tp, splits, t, combine);
     if (tp == 1) {
       acc = v;
     } else if (pinned) {
@@ -79,6 +98,17 @@ __global__ void tp_fold_kernel(const float* __restrict__ part,
   store_as(out + i, acc);
 }
 
+// the partials entry's pass 2: vals[t] = chunk t's value, (tp, M, N) f32
+__global__ void chunk_values_kernel(const float* __restrict__ part,
+                                    float* __restrict__ vals, long long mn,
+                                    int K, int tp, int splits, int combine) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= mn) return;
+  for (int t = 0; t < tp; ++t)
+    vals[(long long)t * mn + i] =
+        chunk_value(part, mn, i, K, tp, splits, t, combine);
+}
+
 template <typename T>
 cudaError_t run(const void* x, const void* w, float* part, void* out, int M,
                 int N, int K, int tp, int splits, int pinned, int combine,
@@ -91,6 +121,20 @@ cudaError_t run(const void* x, const void* w, float* part, void* out, int M,
   tp_fold_kernel<T><<<(unsigned)((mn + threads - 1) / threads), threads, 0,
                       stream>>>(part, static_cast<T*>(out), mn, K, tp, splits,
                                 pinned, combine);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run_partials(const void* x, const void* w, float* part,
+                         float* vals, int M, int N, int K, int tp, int splits,
+                         int combine, cudaStream_t stream) {
+  cudaError_t e = gemm_tile::launch_partials<T>(x, w, part, M, N, K, tp,
+                                                splits, stream);
+  if (e != cudaSuccess) return e;
+  const long long mn = (long long)M * N;
+  const int threads = 256;
+  chunk_values_kernel<<<(unsigned)((mn + threads - 1) / threads), threads, 0,
+                        stream>>>(part, vals, mn, K, tp, splits, combine);
   return cudaGetLastError();
 }
 
@@ -109,6 +153,23 @@ extern "C" int repro_gemm_splitk(const void* x, const void* w, void* part,
           ? run<__nv_bfloat16>(x, w, p, out, M, N, K, tp, splits, pinned,
                                combine, s)
           : run<float>(x, w, p, out, M, N, K, tp, splits, pinned, combine, s);
+  return (int)e;
+}
+
+extern "C" int repro_gemm_splitk_partials(const void* x, const void* w,
+                                          void* part, void* vals, int M,
+                                          int N, int K, int tp, int splits,
+                                          int combine, int dtype,
+                                          void* stream) {
+  if (tp < 1 || tp > K || splits < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
+  float* v = static_cast<float*>(vals);
+  cudaError_t e =
+      dtype == DT_BF16
+          ? run_partials<__nv_bfloat16>(x, w, p, v, M, N, K, tp, splits,
+                                        combine, s)
+          : run_partials<float>(x, w, p, v, M, N, K, tp, splits, combine, s);
   return (int)e;
 }
 

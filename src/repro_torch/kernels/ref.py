@@ -59,6 +59,18 @@ def _reduce_k_f32(x: torch.Tensor, w: torch.Tensor, splits: int,
     return acc.to(F32)
 
 
+def gemm_splitk_partials(x: torch.Tensor, w: torch.Tensor, splits: int,
+                         combine_dtype: str = "float32", *,
+                         tp_shards: int = 1) -> list:
+    """The split-K GEMM's TP chunk values before its cross-chunk fold:
+    ``tp_shards`` (M, N) f32 tensors, chunk t ``_reduce_k_f32`` of the t-th
+    ``_split_sizes`` slice of K under ``splits`` and ``combine_dtype``."""
+    cd = torch_dtype(combine_dtype)
+    sizes = _split_sizes(x.shape[-1], tp_shards)
+    return [_reduce_k_f32(xc, wc, splits, cd) for xc, wc in zip(
+        torch.split(x, sizes, dim=-1), torch.split(w, sizes, dim=0))]
+
+
 def gemm_splitk(x: torch.Tensor, w: torch.Tensor, splits: int,
                 combine_dtype: str = "float32", *, tp_shards: int = 1,
                 tp_pinned: bool = False) -> torch.Tensor:
@@ -72,9 +84,7 @@ def gemm_splitk(x: torch.Tensor, w: torch.Tensor, splits: int,
     by ``tree_combine`` in f32 (the TP branch of
     ``repro.core.determinism.matmul``)."""
     cd = torch_dtype(combine_dtype)
-    sizes = _split_sizes(x.shape[-1], tp_shards)
-    parts = [_reduce_k_f32(xc, wc, splits, cd) for xc, wc in zip(
-        torch.split(x, sizes, dim=-1), torch.split(w, sizes, dim=0))]
+    parts = gemm_splitk_partials(x, w, splits, combine_dtype, tp_shards=tp_shards)
     if tp_shards == 1:
         return parts[0].to(x.dtype)
     if tp_pinned:

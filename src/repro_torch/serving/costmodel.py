@@ -107,9 +107,15 @@ H100 = Hardware(
     peak_flops=989e12,
     # HBM3 bandwidth, the same data sheet (PERF.md's bytes bound)
     hbm_bw=3.35e12,
-    # not measured: every run so far had one card.  NVLink 4's data-sheet
-    # rate, 450 GB/s each way (900 GB/s total), for events with "tp"
-    ici_bw=450e9,
+    # the effective rate of the activation all-reduce an event with "tp"
+    # pays, at the serve driver's decode batch: a bf16 (8, 4096) all_reduce
+    # over 4 cards (one a rank, NCCL) took 0.011578 ms on the card (back to
+    # back, the card held while the host enqueued), 65536 bytes x 2(4-1)/4
+    # over it = 8.49 GB/s (over 2 cards 0.007858 ms, 8.34 GB/s); NVIDIA H100
+    # 80GB HBM3 at 700 W, chip_smoke.py's distribution4 phase (PERF.md §6,
+    # "tp_matmul over NCCL").  Latency, not NVLink's 450 GB/s a way, sets
+    # it at 8 rows: the same call reads 262 GB/s at 2048 rows
+    ici_bw=8.49e9,
     # the split-K GEMM's time over the commit GEMM's at the serve run's
     # decode batch, M = 8, at the FFN's (4096, 14336): 0.0586 / 0.0581 ms =
     # 1.0083 on an H100 80GB HBM3 at 700 W (chip_smoke.py's online phase;

@@ -26,7 +26,10 @@ The GEMMs' host side and sources, which the CPU can check: the operand
 rules of the tiles (bf16 through TMA: K and N multiples of 8, 16-byte
 aligned bases; f32: N a multiple of 4) and that both wrappers apply them
 before the device check; every ``build.ENTRY_POINTS`` argtype list against
-its ``extern "C"`` signature; and a lint of the commit GEMM's sources (no
+its ``extern "C"`` signature (the split-K library's partials entry,
+``repro_gemm_splitk_partials``, included, with its plain version's chunk
+values folded back into ``ref.gemm_splitk`` bit for bit and held against
+JAX's ``_tp_partials``); and a lint of the commit GEMM's sources (no
 atomics; tile, K-step, ring and wgmma shapes as constexpr literals).
 
 The commit paged kernel the same way: a lint of its source (no atomics; its
@@ -76,7 +79,7 @@ from repro_torch.core.determinism import (
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
-from repro_torch.kernels.gemm_splitk import gemm_splitk
+from repro_torch.kernels.gemm_splitk import gemm_splitk, gemm_splitk_partials
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_fast
 from repro_torch.kernels.rmsnorm import rmsnorm
 
@@ -205,6 +208,42 @@ def test_ops_matmul_routing():
                        ref.gemm_splitk(x, w, 1, tp_shards=2))
 
 
+@pytest.mark.parametrize("k,tp,splits,cd", [
+    (512, 4, 8, "bfloat16"), (512, 4, 2, "float32"), (1000, 3, 8, "bfloat16"),
+    (1000, 4, 300, "float32"), (512, 1, 4, "bfloat16")],
+    ids=["tp4-s8-bf16", "tp4-s2-f32", "uneven-tp3-s8", "narrow-chunk", "tp1"])
+def test_gemm_splitk_partials_are_the_chunk_values(k, tp, splits, cd):
+    """The split-K library's partials entry returns the TP chunk values that
+    its fold consumes: its plain version (the CPU wrapper's stack of
+    ``ref.gemm_splitk_partials``) folded by the pinned tree, or in order
+    through ``combine_dtype``, is ``ref.gemm_splitk`` bit for bit, uneven
+    cuts and chunks narrower than ``splits`` included; each chunk is within
+    1e-4 (f32 combine) or 2 bf16 ulps of JAX's per-chunk value
+    (``repro.core.determinism._tp_partials``)."""
+    from repro_torch.core.determinism import torch_dtype, tree_combine
+
+    x, w = (torch.from_numpy(a) for a in _xw(4, k, 64, seed=11))
+    vals = gemm_splitk_partials(x, w, splits=splits, combine_dtype=cd, tp_shards=tp)
+    assert vals.shape == (tp, 4, 64) and vals.dtype == torch.float32
+    parts = list(vals.unbind(0))
+    assert torch.equal(tree_combine(parts), ref.gemm_splitk(
+        x, w, splits, cd, tp_shards=tp, tp_pinned=True))
+    acc = parts[0].to(torch_dtype(cd))
+    for p in parts[1:]:
+        acc = acc + p.to(torch_dtype(cd))
+    want = ref.gemm_splitk(x, w, splits, cd, tp_shards=tp)
+    assert torch.equal(acc.float() if tp > 1 else parts[0], want)
+    jax = pytest.importorskip("jax")
+    from repro.core import determinism as jdet
+
+    jparts = jdet._tp_partials(jax.numpy.asarray(x.numpy()), jax.numpy.asarray(w.numpy()),
+                               jdet.Schedule(splits=splits, combine_dtype=cd, tp_shards=tp))
+    for got, jp in zip(parts, jparts):
+        jp = np.asarray(jp)
+        tol = 1e-4 if cd == "float32" else 2 * 2.0 ** -8 * np.abs(jp).max()
+        np.testing.assert_allclose(got.numpy(), jp, atol=tol, rtol=0)
+
+
 def test_wrappers_never_fall_back():
     """A wrapper runs its plain version only for CPU tensors: meta operands
     (the dry run) get an empty meta output of the kernel's shape, nothing
@@ -218,6 +257,7 @@ def test_wrappers_never_fall_back():
     before = gemm_batch_invariant.launches
     for out, shape in ((gemm_batch_invariant(x, w), (2, 8)),
                        (gemm_splitk(x, w, splits=2), (2, 8)),
+                       (gemm_splitk_partials(x, w, splits=2, tp_shards=2), (2, 2, 8)),
                        (decode_attention(q, kv, kv, lengths), (2, 4, 64)),
                        (rmsnorm(x, torch.empty(8, device="meta")), (2, 8))):
         assert out.device.type == "meta" and tuple(out.shape) == shape
@@ -227,6 +267,8 @@ def test_wrappers_never_fall_back():
         gemm_batch_invariant(x, w_cpu)
     with pytest.raises(ValueError):
         gemm_splitk(x, w_cpu, splits=2)
+    with pytest.raises(ValueError):
+        gemm_splitk_partials(x, w_cpu, splits=2)
     with pytest.raises(ValueError):
         decode_attention(q, kv, kv, torch.empty(2, dtype=torch.int32))
     with pytest.raises(ValueError):
@@ -286,6 +328,8 @@ def test_gemm_wrappers_refuse_shapes_before_launch(k, n, error):
         gemm_batch_invariant(x, w, chunks=4)
     with pytest.raises(ValueError, match=error):
         gemm_splitk(x, w, splits=4)
+    with pytest.raises(ValueError, match=error):
+        gemm_splitk_partials(x, w, splits=4, tp_shards=2)
 
 
 CSRC = PORT / "kernels" / "csrc"

@@ -146,9 +146,11 @@ def test_cost_model_equals_jax(event_log, arch):
 
 def test_h100_entry_is_the_cards():
     """The port's default clock is the H100 entry: the data-sheet peaks,
-    and no field left at the v5e value except those marked unmeasured."""
+    the measured all-reduce rate, and no field left at the v5e value
+    except those marked unmeasured."""
     hw = costmodel.H100
     assert (hw.peak_flops, hw.hbm_bw) == (989e12, 3.35e12)
+    assert hw.ici_bw == 8.49e9  # the card's all-reduce at 8 rows over 4 cards
     assert hw.launch_overhead_s == pytest.approx(5.41e-6, rel=1e-3)
     assert hw.bi_compute_frac != costmodel.V5E.bi_compute_frac
     assert Engine.__init__.__kwdefaults__["hw"] is costmodel.H100

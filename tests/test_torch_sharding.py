@@ -16,11 +16,18 @@
   (4, 64) @ (64, 32) and (8, 512) @ (512, 256) in bf16 and f32, and within
   the cross-framework tolerance of the reference's logical ``matmul`` on the
   same numpy inputs; the un-pinned schedule differs between d = 1 and
-  d = 4; a schedule with ``splits > 1`` is refused past the fallback;
-  ``param_shardings``' DTensor placements of a smoke config round
+  d = 4; ``param_shardings``' DTensor placements of a smoke config round
   trip (``distribute_tensor`` ... ``full_tensor``) with ``local_shape``
   shards, and a dim over ``("pod", "data")`` holds the shard JAX puts on
   each rank (``pod`` major).
+* The split schedules (splits 1, 2 and 8 x combine bf16 and f32, pinned
+  and un-pinned, ``tp_shards`` 4) on the same gloo ranks, against the
+  reference's own ``tp_matmul`` under ``shard_map`` on 8 host devices at
+  d = 1, 2 and 4 (a subprocess, as ``tests/test_sharding.py`` runs it):
+  within ``_tolerance`` at every rank, width and schedule.  The reference
+  is bitwise across widths at every pinned schedule, and so is the port
+  (bitwise its own logical ``matmul`` too); un-pinned, both follow the
+  width.
 """
 
 from __future__ import annotations
@@ -51,6 +58,29 @@ SERVE_SHAPES = [s for s, m in INPUT_SHAPES.items() if m["kind"] != "train"]
 #: cross-framework tolerance of tp_matmul against the reference's matmul:
 #: 2 bf16 ulps of max |ref| for bf16 outputs, this fraction of it for f32
 F32_REL = 1e-6
+#: the split schedules held against the reference's tp_matmul: (splits,
+#: combine_dtype, tp_pinned), tp_shards 4
+SPLIT_SCHEDULES = tuple((s, cd, p) for s in (1, 2, 8) for cd in ("bfloat16", "float32")
+                        for p in (True, False))
+#: bf16 ulps of max |ref| a split schedule with a bf16 rounding point inside
+#: its sums (a bf16 combine) may differ by between two frameworks: their f32
+#: partials differ in the last bits, so a partial or a running sum may round
+#: to the neighbouring bf16 value, at up to splits x tp_shards points
+SPLIT_BF16_ULPS = 4
+
+
+def _tolerance(dt: str, cd: str, scale: float) -> float:
+    """Cross-framework bound of a schedule's output against the
+    reference's: a bf16 combine ``SPLIT_BF16_ULPS`` bf16 ulps of max |ref|,
+    else as ``VERIFY_SCHEDULE``'s (2 bf16 ulps for bf16 outputs,
+    ``F32_REL`` of max |ref| for f32)."""
+    if cd == "bfloat16":
+        return SPLIT_BF16_ULPS * scale * 2.0 ** -8
+    return 2 * scale * 2.0 ** -8 if dt == "bfloat16" else F32_REL * scale
+
+
+def _sched_key(splits: int, cd: str, pinned: bool) -> str:
+    return f"s{splits}_{cd}_{'pinned' if pinned else 'unpinned'}"
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -231,6 +261,8 @@ RANKS = textwrap.dedent('''
     import torch.multiprocessing as mp
 
     SHAPES = ((4, 64, 32), (8, 512, 256))
+    SCHEDULES = tuple((s, cd, p) for s in (1, 2, 8) for cd in ("bfloat16", "float32")
+                      for p in (True, False))
 
 
     def inputs(m, k, n):
@@ -263,11 +295,13 @@ RANKS = textwrap.dedent('''
                 res["bitwise_" + key] = np.array(torch.equal(
                     got, matmul(x, w, VERIFY_SCHEDULE)))
                 res["fast_" + key] = tp_matmul(x, w, mesh, schedule=fast).float().numpy()
-        try:  # past the fallback, a split schedule is refused
-            tp_matmul(x, w, mesh, schedule=VERIFY_SCHEDULE._replace(splits=2))
-            res["splits_refused"] = np.array(False)
-        except NotImplementedError:
-            res["splits_refused"] = np.array(True)
+                for splits, cd, pinned in SCHEDULES:
+                    s = Schedule(splits=splits, combine_dtype=cd, tp_shards=4,
+                                 tp_pinned=pinned)
+                    got = tp_matmul(x, w, mesh, schedule=s)
+                    skey = f"s{splits}_{cd}_{'pinned' if pinned else 'unpinned'}_{key}"
+                    res["sched_" + skey] = got.float().numpy()
+                    res["logical_" + skey] = np.array(torch.equal(got, matmul(x, w, s)))
         if d == 4:
             from torch.distributed.device_mesh import init_device_mesh
             from torch.distributed.tensor import distribute_tensor
@@ -335,11 +369,118 @@ def test_tp_matmul_gloo_bitwise_at_every_width(rank_results):
             assert np.array_equal(res["pinned_" + key], rank_results["d1_r0"]["pinned_" + key])
 
 
-def test_tp_matmul_refuses_splits_past_the_fallback(rank_results):
-    """``splits > 1`` raises on every rank at d = 2 and 4 and takes the
-    logical path at d = 1."""
-    for name, res in rank_results.items():
-        assert bool(res["splits_refused"]) == (name != "d1_r0"), name
+REFERENCE_TP = textwrap.dedent('''
+    import sys
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.core.determinism import Schedule
+    from repro.distributed.sharding import tp_matmul
+    from repro.launch.mesh import make_host_mesh
+
+    SHAPES = ((4, 64, 32), (8, 512, 256))
+    SCHEDULES = tuple((s, cd, p) for s in (1, 2, 8) for cd in ("bfloat16", "float32")
+                      for p in (True, False))
+    CASES = [(dt, s) for dt in ("bfloat16", "float32") for s in SCHEDULES]
+    res = {}
+    for m, k, n in SHAPES:
+        rng = np.random.default_rng(m * 1000 + k)
+        xn = rng.standard_normal((m, k)).astype(np.float32)
+        wn = rng.standard_normal((k, n)).astype(np.float32)
+        for d in (1, 2, 4):
+            mesh = make_host_mesh(model=d)
+
+            def every_case(x32, w32):
+                return [tp_matmul(x32.astype(dt), w32.astype(dt), mesh, schedule=Schedule(
+                    splits=splits, combine_dtype=cd, tp_shards=4, tp_pinned=pinned))
+                    .astype(jnp.float32) for dt, (splits, cd, pinned) in CASES]
+
+            outs = jax.jit(every_case)(jnp.asarray(xn), jnp.asarray(wn))
+            for (dt, (splits, cd, pinned)), got in zip(CASES, outs):
+                key = f"s{splits}_{cd}_{'pinned' if pinned else 'unpinned'}"
+                res[f"d{d}_{key}_{m}x{k}x{n}_{dt}"] = np.asarray(got)
+    np.savez(sys.argv[1], **res)
+    print("REFERENCE-OK")
+''')
+
+
+@pytest.fixture(scope="module")
+def reference_tp(tmp_path_factory):
+    """The reference's ``tp_matmul`` at ``SPLIT_SCHEDULES`` x d = 1, 2, 4 on
+    the rank script's inputs: ``shard_map`` on 8 host devices, in a
+    subprocess (the device count is fixed before jax initializes).  Every
+    case of a (shape, d) runs in one ``jax.jit`` (about 10 s in all, against
+    minutes op by op) with ``--xla_allow_excess_precision=false``, so that
+    XLA keeps each bf16 rounding of the combine; so run, the results equal
+    the op-by-op ones bit for bit (checked at splits 8, both combines and
+    operand dtypes, d = 1, 2 and 4)."""
+    pytest.importorskip("jax")
+    out = tmp_path_factory.mktemp("reference") / "tp.npz"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu"}
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
+                        " --xla_allow_excess_precision=false").strip()
+    proc = subprocess.run([sys.executable, "-c", REFERENCE_TP, str(out)],
+                          capture_output=True, text=True, env=env, timeout=300)
+    assert proc.returncode == 0 and "REFERENCE-OK" in proc.stdout, proc.stderr[-3000:]
+    return dict(np.load(out))
+
+
+def _split_cases():
+    for m, k, n in ((4, 64, 32), (8, 512, 256)):
+        for dt in ("bfloat16", "float32"):
+            for splits, cd, pinned in SPLIT_SCHEDULES:
+                yield f"{_sched_key(splits, cd, pinned)}_{m}x{k}x{n}_{dt}", dt, cd, pinned
+
+
+def test_tp_matmul_refuses_splits_past_the_fallback(rank_results, reference_tp):
+    """Past the fallback no split schedule is refused: every rank at d = 1,
+    2 and 4 computes each of ``SPLIT_SCHEDULES`` as the reference's
+    ``tp_matmul`` does at the same width (each rank's chunks under the
+    schedule's splits and combine dtype, its local subtree, then the
+    butterfly or the all-reduce in ``combine_dtype``), within
+    ``_tolerance``."""
+    worst = 0.0
+    for key, dt, cd, _ in _split_cases():
+        for name, res in rank_results.items():
+            want = reference_tp[f"{name.split('_')[0]}_{key}"]
+            tol = _tolerance(dt, cd, float(np.abs(want).max()))
+            err = float(np.abs(res["sched_" + key] - want).max())
+            assert err <= tol, (name, key, err, tol)
+            worst = max(worst, err / tol)
+    print(f"worst |port - reference| / tolerance: {worst:.3g}")
+
+
+def test_tp_matmul_split_schedules_bitwise_where_the_reference_is(rank_results,
+                                                                   reference_tp):
+    """The reference's tp_matmul is bitwise across d = 1, 2 and 4 at every
+    pinned schedule: so is the port's, on every rank, and each equals the
+    port's logical ``matmul`` under the schedule.  Un-pinned (the all-reduce
+    in ``combine_dtype``), the bf16 combine gives other bits at d = 4 than
+    at d = 1, in the reference and in the port.  The un-pinned f32 combine
+    of f32 operands is where the two part: the reference's d = 4 equals its
+    d = 1 bit for bit, because XLA's host all-reduce adds the ranks in rank
+    order, which is the logical fold's order at one chunk a rank; gloo's and
+    NCCL's all-reduce add in their own order, so the port's d = 4 may differ
+    in the last f32 bits (within ``_tolerance``, held above).  The
+    reference's contract gives an un-pinned schedule no equality across
+    widths (its ``Schedule.tp_pinned``), so the port keeps the all-reduce."""
+    for key, dt, cd, pinned in _split_cases():
+        refs = [reference_tp[f"d{d}_{key}"] for d in (1, 2, 4)]
+        if pinned:
+            assert all(np.array_equal(refs[0], r) for r in refs), key
+            for name, res in rank_results.items():
+                assert bool(res["logical_" + key]), (name, key)
+                assert np.array_equal(res["sched_" + key],
+                                      rank_results["d1_r0"]["sched_" + key]), (name, key)
+        elif cd == "bfloat16":
+            assert not np.array_equal(refs[0], refs[2]), key
+            assert not np.array_equal(rank_results["d1_r0"]["sched_" + key],
+                                      rank_results["d4_r0"]["sched_" + key]), key
+        elif dt == "float32":
+            assert np.array_equal(refs[0], refs[2]), key  # rank-order psum
+        for r in range(4):  # every rank of d = 4 holds the same value
+            assert np.array_equal(rank_results[f"d4_r{r}"]["sched_" + key],
+                                  rank_results["d4_r0"]["sched_" + key]), (r, key)
 
 
 def test_tp_matmul_gloo_matches_reference_matmul(rank_results):
