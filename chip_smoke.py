@@ -38,8 +38,20 @@ the main path) and the gathered lane (``paged_attention=False``):
            imply, and each run must reach exactly its kernels; ``rmsnorm``
            is on no serve path (its contract is not the model's norm), so
            its own path is its entry point ``kernels.ops.rmsnorm``, driven
-           with counts reset the same way; then a 2-layer cut's logits on
-           the card against the CPU, on each lane;
+           with counts reset the same way; every run's engine holds exactly
+           the programs its events name, each captured once after one
+           warm-up run (``check_programs``; the variants, families,
+           modalities and hybrid runs hold it too); then a 2-layer cut's
+           logits on the card against the CPU, on each lane;
+3a. programs every serving step as a replay of a program captured once per
+           shape class (``serving/programs.py``) against ``eager()`` (each
+           body called directly), at 16 of Llama-3-8B's 32 layers, both
+           lanes, all three modes, chunked prefill and two verify windows
+           in flight: streams bitwise equal, launches per kernel equal,
+           the programs exactly the events' keys; traffic B after traffic
+           A on one engine equal to ``eager()``'s and to a fresh engine's
+           deterministic streams; host wall, captures and their seconds,
+           peak and reserved memory of both;
 4. determinism  the divergence demo's experiment on each lane (16 of the
            serve model's 32 layers), with greedy and seeded deterministic
            requests: LLM42 and
@@ -50,10 +62,12 @@ the main path) and the gathered lane (``paged_attention=False``):
            (``Engine(tp=N)``), alone and beside 3 neighbours, must commit
            the tp 1 streams, launches held to the passes (NONDET at tp 1
            against tp 4 printed);
-5. profile ``torch.profiler`` over a window of 4 iterations of the paged
-           LLM42 run: device time by kernel, the GEMMs' and the paged
-           kernels' share, and the device's busy share; then a short run of
-           every lane and mode,
+5. profile ``torch.profiler`` over a window of 4 iterations of a paged
+           LLM42 run's second traffic, on programs and under ``eager()``:
+           device time by kernel, the GEMMs' and the paged kernels' share,
+           the device's busy share, host wall per iteration, the host's
+           graph and kernel launch calls, the programs' captures and
+           capture seconds; then a short run of every lane and mode,
            whose GEMMs must all run the tensor-core tile (by kernel name);
 6. online  the online runner (``serving.online.run_online``) on the H100
            cost model's clock at the serve phase's width and capacity: 16
@@ -248,6 +262,7 @@ is visible or when it runs outside a checkout of the repository.
 
     python3 chip_smoke.py                 # everything, one card
     python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py --phases build,programs,profile
     python3 chip_smoke.py --phases build,timings
     python3 chip_smoke.py --phases build,online,configs
     python3 chip_smoke.py --phases build,variants
@@ -279,7 +294,8 @@ from pathlib import Path
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "serve", "determinism", "profile", "online", "analysis",
+PHASES = ("build", "kernels", "serve", "programs", "determinism", "profile", "online",
+          "analysis",
           "configs", "variants", "families", "modalities", "hybrid", "distribution",
           "cluster", "training", "timings")
 #: phases outside the default run, only by name in ``--phases``
@@ -1285,6 +1301,7 @@ def phase_serve(torch, cfg, params, capacity, results, summary) -> None:
             res = serve(eng, reqs)
             counts = {name: fn.launches for name, fn in fns.items()}
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            progs = check_programs(eng, run)
             want = expected_launches(cfg, eng, paged)
             log(f"[serve] {run}: kernel launches {counts}; from the engine's "
                 f"passes {want}")
@@ -1305,11 +1322,14 @@ def phase_serve(torch, cfg, params, capacity, results, summary) -> None:
                 committed=res["committed"], rollbacks=res["rollbacks"],
                 recomputed=res["recomputed"], iterations=res["iterations"],
                 device_s=res["device_s"], committed_tok_per_s=tps,
-                peak_mem_gib=peak, launches=counts)
+                peak_mem_gib=peak, launches=counts, programs=progs)
             log(f"[serve] {run}: {res['committed']} tokens committed in "
                 f"{res['iterations']} iterations, rollbacks {res['rollbacks']}, "
                 f"recomputed {res['recomputed']}, device time {res['device_s']} s "
-                f"-> {tps} committed tok/s; peak device memory {peak:.3f} GiB")
+                f"-> {tps} committed tok/s; peak device memory {peak:.3f} GiB; "
+                f"{progs['programs']} programs, each captured once after one "
+                f"warm-up run, {progs['replays']} replays, capture "
+                f"{progs['capture_s']:.3f} s")
             del eng
     run_rmsnorm_entry_point(torch, cfg, params, results)
     for name, r in results.items():
@@ -1446,6 +1466,208 @@ def expected_launches(cfg, eng, paged):
             fast = s.kv_splits > 1 and nblk % s.kv_splits == 0
             want["paged_attention_fast" if fast else "paged_attention"] += n_attn
     return want
+
+
+# ---------------------------------------------------------------------------
+# programs: one captured program per shape class (serving/programs.py)
+# ---------------------------------------------------------------------------
+
+
+def _norm_key(key):
+    """A program key with its schedule as a plain tuple."""
+    return tuple(tuple(x) if isinstance(x, tuple) else x for x in key)
+
+
+def program_keys(eng):
+    """The program keys an engine's events name, as the reference keys its
+    ``_fns`` (``serving/programs.py``): an iteration whose sub-passes carry
+    ``fused`` ran ``("fused", C, B, schedule, n_groups)``, every other pass
+    its own lane's program (a ``prefill`` event with ``cached`` is a tail
+    run of ``prefill_chunk`` passes), plus ``("cross", Se)`` when an encoder
+    ran."""
+    from repro_torch.core.determinism import Schedule
+    from repro_torch.serving.engine import _bucket
+
+    chunk = "prefill_chunk_rec" if eng.has_recurrent_state else "prefill_chunk"
+    keys = set()
+    if eng.num_cross_builds:
+        keys.add(("cross", eng.cfg.encoder_seq_len))
+
+    def single(ev):
+        if ev["kind"] == "prefill" and "cached" in ev:
+            keys.add((chunk, eng._ring_pass_cap(_bucket(max(ev["tokens"], 1)))))
+        elif ev["kind"] == "prefill":
+            keys.add(("prefill", ev["padded"] - eng.cfg.num_prefix_embeds))
+        elif ev["kind"] == "prefill_chunk":
+            keys.add((chunk, ev["padded"]))
+        elif ev["kind"] == "decode":
+            keys.add(("decode", ev["batch"], Schedule(*ev["schedule"])))
+        elif ev["kind"] == "verify":
+            keys.add(("verify", eng.group, ev["window"]))
+
+    for ev in eng.events:
+        if ev["kind"] != "overlap":
+            single(ev)
+            continue
+        parts = [ev[k] for k in ("prefill", "decode", "verify") if k in ev]
+        parts += ev.get("verifies", [])
+        if not any(p.get("fused") for p in parts):
+            for p in parts:
+                single(p)
+            continue
+        B = ev["decode"]["batch"] if "decode" in ev else 0
+        keys.add(("fused", ev["prefill"]["padded"] if "prefill" in ev else None, B,
+                  eng._decode_schedule(B), sum(p["kind"] == "verify" for p in parts)))
+    return keys
+
+
+def check_programs(eng, run):
+    """On the card: the engine holds exactly the programs its events name,
+    each captured once after one warm-up run of its body (its key's first
+    step) and replayed after that, so no body ran outside a capture once
+    its key was captured.  Returns the counts."""
+    got = {_norm_key(k) for k in eng._programs}
+    want = {_norm_key(k) for k in program_keys(eng)}
+    require(got == want, f"{run}: programs {sorted(map(str, got))} are not the keys "
+            f"the events name {sorted(map(str, want))}")
+    for key, p in eng._programs.items():
+        require(p.captures == 1 and p.runs == 1,
+                f"{run}: program {key} captured {p.captures} times, its body run "
+                f"{p.runs} times outside a capture")
+    progs = list(eng._programs.values())
+    return dict(programs=len(progs), captures=sum(p.captures for p in progs),
+                replays=sum(p.replays for p in progs),
+                capture_s=sum(p.capture_s for p in progs))
+
+
+#: the programs phase's depth: the serve phase's first 16 of llama3-8b's 32
+#: layers at full width (its weights, as views)
+PROGRAMS_DEPTH = 16
+#: its engines: chunked prefill and two verify windows in flight, so that
+#: the runs take every key kind the LLM42 engine has (exclusive prefill of
+#: the shorter prompts, prefill chunks, decode, verify, fused iterations)
+PROGRAMS_CHUNK = 64
+
+
+def programs_traffic(cfg, seed):
+    """8 requests of 40 to 180 prompt tokens and 16 new tokens, half
+    deterministic, odd rids seeded at temperature 0.8 with top-k 50."""
+    import numpy as np
+
+    from repro_torch.serving.request import Request, SamplingParams
+
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(8):
+        kw = dict(seed=100 * seed + i)
+        if i % 2:
+            kw.update(temperature=0.8, top_k=50)
+        reqs.append(Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab_size, int(rng.integers(40, 181))).tolist(),
+            sampling=SamplingParams(max_new_tokens=16, is_deterministic=i % 4 < 2, **kw)))
+    return reqs
+
+
+def phase_programs(torch, cfg, params, results, summary) -> None:
+    """Every engine step as a replay of a program captured once per shape
+    class, against the same run under ``programs.eager()`` (each body
+    called directly), at PROGRAMS_DEPTH layers of Llama-3-8B's full width,
+    on both lanes in all three modes: committed streams bitwise equal (the
+    same kernels at the same shapes, NONDET included), launches per kernel
+    equal and equal to the passes, the programs exactly the keys the
+    events name, each captured once; then an engine that serves traffic A
+    and then traffic B commits for B what the same engine commits under
+    ``eager()`` (no stale input or output buffer) and a fresh engine's
+    deterministic streams of B (its non-deterministic ones follow the
+    batches, which an engine's history may change: printed).  Prints host
+    wall, captures, capture seconds and peak device memory of both."""
+    import contextlib
+
+    from repro_torch.core.determinism import Mode
+    from repro_torch.serving import programs
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import OverlapPolicy
+
+    full = cfg.num_layers
+    cfg, params = cut_layers(cfg, params, PROGRAMS_DEPTH)
+    log(f"[programs] {cfg.name}: {cfg.num_layers} of {full} layers (the serve "
+        f"phase's weights), capacity {CAPACITY}, prefill chunk {PROGRAMS_CHUNK}, "
+        f"spec_depth 2, overlap; 8 requests x 16 new tokens")
+
+    def engine(mode, paged):
+        return Engine(cfg, params, mode=mode, capacity=CAPACITY, paged_attention=paged,
+                      prefill_chunk=PROGRAMS_CHUNK, spec_depth=2, scheduler=OverlapPolicy())
+
+    def run(eng, reqs):
+        gc.collect()
+        sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+        fns = reset_launches()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        done = eng.run()
+        sync(torch)
+        wall = time.perf_counter() - t0
+        return ({r.rid: list(r.committed) for r in done}, launch_counts(fns), wall,
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    seen = {}
+    for lane, paged in LANES.items():
+        for mode in (Mode.LLM42, Mode.BATCH_INVARIANT, Mode.NONDET):
+            name = f"programs/{lane}/{mode.value}"
+            eng = engine(mode, paged)
+            got, counts, wall, peak = run(eng, programs_traffic(cfg, 0))
+            progs = check_programs(eng, name)
+            want = expected_launches(cfg, eng, paged)
+            del eng
+            with programs.eager():
+                eng = engine(mode, paged)
+                ref, ref_counts, ref_wall, ref_peak = run(eng, programs_traffic(cfg, 0))
+                direct = sum(p.runs for p in eng._programs.values())
+                del eng
+            require(got == ref, f"{name}: streams differ from eager()'s")
+            require(counts == ref_counts == want,
+                    f"{name}: launches {counts}, under eager() {ref_counts}, passes {want}")
+            record_launches(results, name, counts)
+            seen[f"{lane}/{mode.value}"] = dict(
+                **progs, wall_s=wall, eager_wall_s=ref_wall, peak_gib=peak,
+                eager_peak_gib=ref_peak, eager_body_calls=direct)
+            reserved = torch.cuda.memory_reserved() / 2 ** 30
+            seen[f"{lane}/{mode.value}"]["reserved_gib"] = reserved
+            log(f"[programs] {lane}/{mode.value}: streams bitwise eager()'s "
+                f"({sum(map(len, got.values()))} tokens), launches equal {counts}; "
+                f"{progs['programs']} programs ({progs['captures']} captures in "
+                f"{progs['capture_s']:.3f} s, {progs['replays']} replays) vs "
+                f"{direct} direct body calls; host wall {wall:.3f} s vs {ref_wall:.3f} s "
+                f"eager; peak memory {peak:.3f} GiB vs {ref_peak:.3f} GiB eager; "
+                f"{reserved:.3f} GiB reserved after both")
+    for lane, paged in LANES.items():
+        b_after_a = {}
+        for ctx in (contextlib.nullcontext, programs.eager):
+            with ctx():
+                eng = engine(Mode.LLM42, paged)
+                run(eng, programs_traffic(cfg, 1))
+                before = {k: p.replays + p.runs for k, p in eng._programs.items()}
+                b_after_a[ctx], _, _, _ = run(eng, programs_traffic(cfg, 2))
+                reused = sum(eng._programs[k].replays + eng._programs[k].runs - n
+                             for k, n in before.items())
+                del eng
+            require(reused > 0, f"{lane}: traffic B called none of A's programs")
+        fresh, _, _, _ = run(engine(Mode.LLM42, paged), programs_traffic(cfg, 2))
+        det = [r.rid for r in programs_traffic(cfg, 2) if r.sampling.is_deterministic]
+        got = b_after_a[contextlib.nullcontext]
+        require(got == b_after_a[programs.eager], f"{lane}: traffic B after A differs "
+                "between programs and eager() (a stale buffer)")
+        require(all(got[r] == fresh[r] for r in det), f"{lane}: deterministic streams "
+                "of traffic B after A differ from a fresh engine's")
+        same = sorted(r for r in got if got[r] == fresh[r])
+        seen[f"{lane}/a_then_b"] = dict(calls_of_a=reused, equal_to_fresh=same)
+        log(f"[programs] {lane} llm42: traffic B after traffic A on one engine ({reused} "
+            f"calls of programs A made) commits the streams it commits under "
+            f"eager(), and a fresh engine's deterministic streams of B (rids {det}); "
+            f"rids equal to the fresh engine's, all streams: {same}")
+    summary["programs"] = seen
 
 
 def phase_reference(torch, cfg, params) -> None:
@@ -1648,18 +1870,13 @@ def determinism_tp(torch, cfg, run, base, results, summary) -> None:
     summary["determinism"]["tp"] = seen
 
 
-def phase_profile(torch, cfg, params, capacity, summary, warm=4, active=4) -> None:
-    """Where an LLM42 serve run's time goes: ``torch.profiler`` over a
-    window of ``active`` iterations of the serve phase's paged LLM42 run,
-    after ``warm`` unprofiled ones (the timed run itself goes unprofiled):
-    device time by kernel and the device's busy share of the window (sum of
-    kernel times over the window's wall time).  Iterations 5..8 hold four
-    decode passes and the run's first grouped verify; summing the trace
-    costs about 5 s an iteration, which bounds the window.  Then a short
-    run of every lane and mode under a trace of the card alone, whose
-    GEMMs must all run the tensor-core tile."""
-    import re
-
+def profile_window(torch, cfg, params, capacity, warm, active):
+    """A paged LLM42 engine at ``capacity`` serves the serve phase's 8
+    requests once (on programs, every key it meets is captured then), then
+    8 more (another seed: no prefix in common); ``torch.profiler`` traces
+    ``active`` of the second traffic's iterations after ``warm`` unprofiled
+    ones.  Returns ``(engine, key_averages, window wall, first iteration,
+    captures before the window, captures in it)``."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.determinism import Mode
@@ -1667,8 +1884,13 @@ def phase_profile(torch, cfg, params, capacity, summary, warm=4, active=4) -> No
     from repro_torch.serving.engine import Engine
 
     eng = Engine(cfg, params, mode=Mode.LLM42, capacity=capacity)
-    for r in build_requests(cfg, 8, det_ratio=0.5, max_out=16, seed=0):
-        eng.submit(r)
+    for seed in (0, 1):
+        for r in build_requests(cfg, 8, det_ratio=0.5, max_out=16, seed=seed):
+            r.rid += 100 * seed
+            eng.submit(r)
+        if seed == 0:
+            eng.run()
+            captured = sum(p.captures for p in eng._programs.values())
     for _ in range(warm):
         eng.step()
     first = eng._now + 1
@@ -1679,54 +1901,103 @@ def phase_profile(torch, cfg, params, capacity, summary, warm=4, active=4) -> No
             eng.step()
         sync(torch)
         wall = time.perf_counter() - t0
+    inside = sum(p.captures for p in eng._programs.values()) - captured
     eng.run()
-    t0 = time.perf_counter()
-    averages = prof.key_averages()
-    rows = sorted((e for e in averages if e.device_time_total > 0),
-                  key=lambda e: e.device_time_total, reverse=True)
-    busy = sum(e.self_device_time_total for e in kernel_events(averages)) / 1e6
-    log(f"[profile] llm42 iterations {first}..{first + active - 1}: host wall "
-        f"{wall:.3f} s under the profiler, device busy {busy:.3f} s "
-        f"({100 * busy / wall:.1f}%); trace summed in {time.perf_counter() - t0:.1f} s")
-    # the GEMMs' device time, and proof by kernel name that bf16 GEMMs ran
-    # on the tensor-core tile only
-    gemm = {}
-    for e in averages:
-        for part in ("wgmma_partial_kernel", "fmaf_partial_kernel",
-                     "tree_combine_kernel", "ordered_fold_kernel"):
-            if part in e.key and e.self_device_time_total > 0:
-                ms, n = gemm.get(part, (0.0, 0))
-                gemm[part] = (ms + e.self_device_time_total / 1e3, n + e.count)
-    gemm_ms = sum(ms for ms, _ in gemm.values())
-    log(f"[profile] GEMM device time in the window {gemm_ms:.1f} ms of "
-        f"{busy * 1e3:.1f} ms busy: " + ", ".join(
-            f"{k} {ms:.1f} ms / {n} launches" for k, (ms, n) in gemm.items()))
-    require("wgmma_partial_kernel" in gemm and "fmaf_partial_kernel" not in gemm,
-            "the profiled window's bf16 GEMMs did not run only the tensor-core tile")
-    # the paged attention kernels' device time, by kernel name
-    paged = {}
-    for e in averages:
-        found = re.search(r"paged_(attention|split|merge)_kernel", e.key)
-        if found and e.self_device_time_total > 0:
-            ms, n = paged.get(found.group(0), (0.0, 0))
-            paged[found.group(0)] = (ms + e.self_device_time_total / 1e3, n + e.count)
-    paged_ms = sum(ms for ms, _ in paged.values())
-    log(f"[profile] paged attention device time in the window {paged_ms:.2f} ms: "
-        + ", ".join(f"{k} {ms:.2f} ms / {n} launches ({1e3 * ms / n:.1f} us each)"
-                    for k, (ms, n) in sorted(paged.items())))
-    for e in rows[:20]:
-        log(f"[profile] {e.device_time_total / 1e3:10.1f} ms device "
-            f"{e.cpu_time_total / 1e3:10.1f} ms cpu {e.count:7d}x  {e.key[:90]}")
-    top_cpu = sorted(averages, key=lambda e: e.self_cpu_time_total, reverse=True)
-    for e in top_cpu[:8]:
-        log(f"[profile] host self {e.self_cpu_time_total / 1e3:10.1f} ms "
-            f"{e.count:7d}x  {e.key[:90]}")
-    events = [ev for ev in engine_events(eng) if first <= ev["iter"] < first + active]
-    for kind in ("prefill", "decode", "verify"):
-        walls = [ev["wall"] for ev in events if ev["kind"] == kind]
-        log(f"[profile] engine {kind}: {len(walls)} passes, {sum(walls):.3f} s wall")
-    summary["profile"] = {"iterations": active, "wall_s": wall, "device_busy_s": busy,
-                          "gemm_device_ms": gemm_ms, "paged_device_ms": paged_ms}
+    return eng, prof.key_averages(), wall, first, captured, inside
+
+
+#: host runtime calls the profile phase counts in its windows
+RUNTIME_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
+                 "cudaMemcpyAsync")
+
+
+def phase_profile(torch, cfg, params, capacity, summary, warm=4, active=4) -> None:
+    """Where an LLM42 serve run's time goes, on programs and under
+    ``programs.eager()`` in turn (``profile_window``): device time by
+    kernel and the device's busy share of the window (sum of kernel times
+    over the window's wall time), host wall per iteration, the host's
+    ``cudaGraphLaunch`` and kernel-launch calls, and the programs' captures
+    and capture seconds; each window's iterations hold decode passes and a
+    grouped verify; summing a trace costs about 5 s an iteration, which
+    bounds the window.  Then a short run of every lane and mode under a
+    trace of the card alone, whose GEMMs must all run the tensor-core
+    tile."""
+    import contextlib
+    import re
+
+    from repro_torch.core.determinism import Mode
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.serving import programs
+    from repro_torch.serving.engine import Engine
+
+    summary["profile"] = {}
+    for label, ctx in (("programs", contextlib.nullcontext), ("eager", programs.eager)):
+        with ctx():
+            eng, averages, wall, first, captured, inside = profile_window(
+                torch, cfg, params, capacity, warm, active)
+        t0 = time.perf_counter()
+        rows = sorted((e for e in averages if e.device_time_total > 0),
+                      key=lambda e: e.device_time_total, reverse=True)
+        busy = sum(e.self_device_time_total for e in kernel_events(averages)) / 1e6
+        calls = {k: 0 for k in RUNTIME_CALLS}
+        for e in averages:
+            if e.key in calls:
+                calls[e.key] += e.count
+        capture_s = sum(p.capture_s for p in eng._programs.values())
+        log(f"[profile] {label}: llm42 iterations {first}..{first + active - 1} of the "
+            f"second traffic: host wall {wall:.3f} s under the profiler "
+            f"({wall / active * 1e3:.1f} ms an iteration), device busy {busy:.3f} s "
+            f"({100 * busy / wall:.1f}%); host calls {calls}; programs "
+            f"{len(eng._programs)}, {captured} captured by the first traffic in "
+            f"{capture_s:.3f} s, {inside} captured inside the window; trace "
+            f"summed in {time.perf_counter() - t0:.1f} s")
+        # the GEMMs' device time, and proof by kernel name that bf16 GEMMs ran
+        # on the tensor-core tile only
+        gemm = {}
+        for e in averages:
+            for part in ("wgmma_partial_kernel", "fmaf_partial_kernel",
+                         "tree_combine_kernel", "ordered_fold_kernel"):
+                if part in e.key and e.self_device_time_total > 0:
+                    ms, n = gemm.get(part, (0.0, 0))
+                    gemm[part] = (ms + e.self_device_time_total / 1e3, n + e.count)
+        gemm_ms = sum(ms for ms, _ in gemm.values())
+        log(f"[profile] {label}: GEMM device time in the window {gemm_ms:.1f} ms of "
+            f"{busy * 1e3:.1f} ms busy: " + ", ".join(
+                f"{k} {ms:.1f} ms / {n} launches" for k, (ms, n) in gemm.items()))
+        require("wgmma_partial_kernel" in gemm and "fmaf_partial_kernel" not in gemm,
+                f"{label}: the profiled window's bf16 GEMMs did not run only the "
+                "tensor-core tile")
+        # the paged attention kernels' device time, by kernel name
+        paged = {}
+        for e in averages:
+            found = re.search(r"paged_(attention|split|merge)_kernel", e.key)
+            if found and e.self_device_time_total > 0:
+                ms, n = paged.get(found.group(0), (0.0, 0))
+                paged[found.group(0)] = (ms + e.self_device_time_total / 1e3, n + e.count)
+        paged_ms = sum(ms for ms, _ in paged.values())
+        log(f"[profile] {label}: paged attention device time in the window "
+            f"{paged_ms:.2f} ms: " + ", ".join(
+                f"{k} {ms:.2f} ms / {n} launches ({1e3 * ms / n:.1f} us each)"
+                for k, (ms, n) in sorted(paged.items())))
+        for e in rows[:20]:
+            log(f"[profile] {label}: {e.device_time_total / 1e3:10.1f} ms device "
+                f"{e.cpu_time_total / 1e3:10.1f} ms cpu {e.count:7d}x  {e.key[:80]}")
+        top_cpu = sorted(averages, key=lambda e: e.self_cpu_time_total, reverse=True)
+        for e in top_cpu[:8]:
+            log(f"[profile] {label}: host self {e.self_cpu_time_total / 1e3:10.1f} ms "
+                f"{e.count:7d}x  {e.key[:80]}")
+        events = [ev for ev in engine_events(eng) if first <= ev["iter"] < first + active]
+        for kind in ("prefill_chunk", "prefill", "decode", "verify"):
+            walls = [ev["wall"] for ev in events if ev["kind"] == kind]
+            log(f"[profile] {label}: engine {kind}: {len(walls)} passes, "
+                f"{sum(walls):.3f} s wall")
+        summary["profile"][label] = {
+            "iterations": active, "wall_s": wall, "wall_per_iteration_s": wall / active,
+            "device_busy_s": busy, "busy_share": busy / wall, "host_calls": calls,
+            "programs": len(eng._programs), "captures_before": captured,
+            "captures_inside": inside, "capture_s": capture_s,
+            "gemm_device_ms": gemm_ms, "paged_device_ms": paged_ms}
+        del eng
     # every lane and mode: a short run's GEMMs by kernel name, all on the
     # tensor-core tile (a prefill and a decode pass each; summing a trace
     # costs seconds an iteration, so the runs are short)
@@ -2546,6 +2817,7 @@ def variant_serve(torch, cfg, label, params, results, *, lanes, modes, prompts,
                 want = expected_launches(cfg, eng, eng._paged_fwd)
                 require(counts == want, f"{run_name} beside {n}: launches {counts} do not "
                         f"match the passes {want}")
+                progs = check_programs(eng, f"{run_name} beside {n}")
                 if not eng.pool.paged:  # no attention kernel reads a ring or a state
                     require(not any(counts[k] for k in ATTENTION_KERNELS),
                             f"{run_name}: an attention kernel ran without paged leaves")
@@ -2564,7 +2836,8 @@ def variant_serve(torch, cfg, label, params, results, *, lanes, modes, prompts,
                     f"{counts} (= the "
                     f"passes), peak device memory {peak:.3f} GiB; device time "
                     f"{info[n]['device_s']:.3f} s (CUDA events); "
-                    f"{info[n]['seconds']:.1f} s")
+                    f"{info[n]['seconds']:.1f} s; {progs['programs']} programs, "
+                    f"{progs['replays']} replays, capture {progs['capture_s']:.2f} s")
                 del eng
             same = streams[0] == streams[neighbours]
             log(f"[{phase}] {run_name}: streams alone and beside {neighbours} "
@@ -2782,6 +3055,11 @@ def long_prefill_gathered(torch, results) -> dict:
                 results[name]["launches_by_mode"][f"variants/llama3-8b-long/{lane}"] = c
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             info[lane] = dict(peak_mem_gib=peak, seconds=time.perf_counter() - t0)
+            if lane == "gathered":
+                # its ("prefill", 4096) program ran the body twice on the
+                # card (the warm-up and the capture), once a step on the CPU
+                prog = eng._programs[("prefill", 4096)]
+                body_runs = prog.runs + prog.captures
             log(f"[variants] llama3-8b ({cfg.num_layers} layers) 3000-token exclusive "
                 f"prefill + 16 LLM42 tokens, {lane} lane: q-chunked calls so far "
                 f"{len(calls)}, launches {counts}, peak device memory {peak:.3f} GiB; "
@@ -2789,8 +3067,9 @@ def long_prefill_gathered(torch, results) -> dict:
             del eng
     finally:
         layers._chunked_attend = real
-    require(calls == [(1, 4096, cfg.num_heads, cfg.hd)] * cfg.num_layers,
-            f"the gathered prefill did not run q-chunked: {calls}")
+    require(calls == [(1, 4096, cfg.num_heads, cfg.hd)] * cfg.num_layers * body_runs,
+            f"the gathered prefill did not run q-chunked at each layer of its "
+            f"{body_runs} body runs: {calls}")
     same = streams["gathered"] == streams["paged"]
     log(f"[variants] gathered lane's q-chunked prefill commits the paged lane's "
         f"stream: {same}")
@@ -5588,7 +5867,7 @@ def main() -> int:
         timed("build", phase_build)
     if "kernels" in phases:
         timed("kernels", phase_kernels, torch, cfg, results)
-    if {"serve", "determinism", "profile", "online", "analysis"} & set(phases):
+    if {"serve", "programs", "determinism", "profile", "online", "analysis"} & set(phases):
         from repro_torch.models.base import init_params
 
         t0 = time.perf_counter()
@@ -5600,6 +5879,8 @@ def main() -> int:
         if "serve" in phases:
             timed("serve", phase_serve, torch, cfg, params, CAPACITY, results, summary)
             timed("reference", phase_reference, torch, cfg, params)
+        if "programs" in phases:
+            timed("programs", phase_programs, torch, cfg, params, results, summary)
         if "determinism" in phases:
             timed("determinism", phase_determinism, torch, cfg, params, results, summary)
         if "profile" in phases:

@@ -14,7 +14,10 @@ runs:
    which is how ``chip_smoke.py`` proves the attention class at
    Llama-3-8B's full width).
 2. Record its step bodies (``trace_utils.Recorder``) at several batch
-   compositions, each called as the engine calls it, under
+   compositions, each called as the engine's programs call it (their
+   inputs as tensors on the engine's device, the slot index checked on the
+   host), directly (``serving.programs.eager``: a captured program runs
+   no Python a recorder could see), under
    ``core.determinism.deterministic_torch``: the grouped verify body
    (``core.verifier.make_verify_body``; ``verify_recurrent`` from the state
    pool's anchor on a recurrent config), the prefill chunk
@@ -55,6 +58,7 @@ from repro_torch.core.determinism import (
 )
 from repro_torch.core.verifier import make_verify_body
 from repro_torch.models.base import ModelConfig, init_params
+from repro_torch.serving import programs
 from repro_torch.serving.engine import Engine
 
 BATCHES = (13, 17, 19)
@@ -122,17 +126,23 @@ def _engine_context(tf32: bool = False) -> Iterator[None]:
             torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def _ints(engine: Engine, values, dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=engine.device)
+
+
 def _rows(engine: Engine, n: int):
-    """Per-row slots and block tables of ``n`` rows: row i in slot i, its
+    """Slot index and block tables of ``n`` rows: row i in slot i, its
     first two blocks allocated (2i, 2i + 1), the rest of its table empty."""
     blocks = [[2 * i, 2 * i + 1] for i in range(n)] if engine.pool.paged else [[] for _ in range(n)]
-    return list(range(n)), engine.pool.table_array(blocks)
+    return (engine._slot_index(list(range(n))).to(engine.device),
+            engine.pool.table_array(blocks).to(engine.device))
 
 
-def _sampling(n: int):
+def _sampling(engine: Engine, n: int):
     """Every row seeded (temperature 0.7, top-k 4), so the sampler's noise,
     its top-k sort and its greedy argmax are all in the program."""
-    return [100 + i for i in range(n)], [0.7] * n, [4] * n
+    return (_ints(engine, [100 + i for i in range(n)], torch.int64),
+            _ints(engine, [0.7] * n, torch.float32), _ints(engine, [4] * n, torch.int64))
 
 
 def verify_call(engine: Engine, G: int):
@@ -142,10 +152,10 @@ def verify_call(engine: Engine, G: int):
     slots, tables = _rows(engine, G)
     inputs = [[(7 * i + j) % cfg.vocab_size for j in range(W)] for i in range(G)]
     cands = [row[1:] for row in inputs]
-    seeds, temps, tks = _sampling(G)
-    args = [slots, tables, engine._ints([START] * G), engine._ints(inputs),
-            engine._ints(cands), engine._ints([W - 1] * G), seeds, temps,
-            [START + 1] * G, tks]
+    seeds, temps, tks = _sampling(engine, G)
+    args = [slots, tables, _ints(engine, [START] * G), _ints(engine, inputs),
+            _ints(engine, cands), _ints(engine, [W - 1] * G), seeds, temps,
+            _ints(engine, [START + 1] * G, torch.int64), tks]
     head = [engine.params, engine.pool.data]
     if engine.has_recurrent_state:
         head.append(engine.statepool.anchor)
@@ -158,12 +168,13 @@ def prefill_chunk_call(engine: Engine, C: int):
     body = engine._prefill_chunk_body(C)
     _, tables = _rows(engine, 1)
     if engine.pool.paged:
-        tables = engine.pool.table_array([list(range(engine.pool.blocks_per_table))])
+        tables = engine.pool.table_array(
+            [list(range(engine.pool.blocks_per_table))]).to(engine.device)
     tokens = torch.tensor([[(5 * j) % cfg.vocab_size for j in range(C)]],
                           dtype=torch.long, device=engine.device)
     embeds = engine.params["embed"][tokens]
-    args = [engine.params, engine.pool.data, 0, tables[0], embeds,
-            engine._ints(0), engine._ints(C - 1)]
+    args = [engine.params, engine.pool.data, _rows(engine, 1)[0], tables[0], embeds,
+            _ints(engine, 0), _ints(engine, C - 1)]
     return body, args
 
 
@@ -172,17 +183,18 @@ def decode_call(engine: Engine, B: int, schedule):
     cfg = engine.cfg
     body = engine._decode_body(B, schedule)
     slots, tables = _rows(engine, B)
-    seeds, temps, tks = _sampling(B)
+    seeds, temps, tks = _sampling(engine, B)
     args = [engine.params, engine.pool.data, slots, tables,
-            engine._ints([(3 * i) % cfg.vocab_size for i in range(B)]),
-            engine._ints([START] * B), seeds, temps, [START + 1] * B, tks]
+            _ints(engine, [(3 * i) % cfg.vocab_size for i in range(B)]),
+            _ints(engine, [START] * B), seeds, temps,
+            _ints(engine, [START + 1] * B, torch.int64), tks]
     return body, args
 
 
 def run_call(call, *, recorded: bool = True, tf32: bool = False) -> Optional[Log]:
     """Run one (body, args) as the engine does; its live recorded program."""
     body, args = call
-    with _engine_context(tf32):
+    with programs.eager(), _engine_context(tf32):
         if not recorded:
             body(*args)
             return None

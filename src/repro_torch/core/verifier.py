@@ -91,10 +91,14 @@ def make_verify_body(
     commit_tok, v_tokens, margins)``: ``tables`` (G, nblk), ``start_pos``
     (G,), ``inputs`` (G, W), ``cand`` (G, W-1) with -1 pads and
     ``cand_len`` (G,) are device tensors; ``seeds``, ``temps``, ``out_base``
-    and ``top_ks`` are host sequences (each window position samples with
-    its own counter).  ``slots`` names each row's slot (pad rows: the
-    scratch slot): slot leaves (sliding rings) are row-packed by it and
-    scattered back, paged leaves are repaired through ``tables``.
+    and ``top_ks`` are host sequences or (G,) device tensors (each window
+    position samples with its own counter).  ``slots`` names each row's
+    slot (pad rows: the scratch slot), as a sequence or as the index tensor
+    an engine program's host prep checked (``kv_cache.slot_index``): slot
+    leaves (sliding rings) are row-packed by it and scattered back, paged
+    leaves are repaired through ``tables``.  The engine runs this body as
+    its ``("verify", G, W)`` program (``serving.programs``), the
+    counterpart of the reference's ``make_verify_fn``.
     ``margins`` (G, W) is the audit log's top-1/top-2 margin per position,
     computed unconditionally so the device program does not depend on
     auditing.
@@ -158,7 +162,7 @@ def _verify_recurrent_body(cfg: ModelConfig, W: int, layout: Layout, paged: bool
         live_rows = statepool.rows_from_cache(cache)
         # the replay starts from the anchor: the state after everything
         # preceding the window, minus its conditioning token (consumed first)
-        cache = statepool.merge_rows(cache, statepool.gather_rows(anchor, slots))
+        cache = statepool.merge_rows(cache, statepool.gather_rows(anchor, idx))
         logits, cache, per_pos = forward(
             params, cfg, inputs, cache=cache, start_pos=start_pos,
             schedule=VERIFY_SCHEDULE, collect_states=True,
@@ -169,7 +173,7 @@ def _verify_recurrent_body(cfg: ModelConfig, W: int, layout: Layout, paged: bool
         # per_pos[j] = state after consuming inputs[j]
         commit_rows = statepool.select_index(per_pos, n_match)
         resume_rows = statepool.select_index(per_pos, (cand_len - 1).clamp_min(0))
-        anchor = statepool.scatter_rows(anchor, slots, resume_rows)
+        anchor = statepool.scatter_rows(anchor, idx, resume_rows)
         # KV repair reaches the live pool; recurrent state does not: the
         # fast path may be speculating past this window right now
         cache = statepool.merge_rows(cache, live_rows)

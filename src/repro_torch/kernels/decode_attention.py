@@ -93,4 +93,4 @@ def decode_attention(
     return out
 
 
-decode_attention.launches = 0
+recording.counted(decode_attention)

@@ -134,5 +134,5 @@ def paged_attention_fast(
     return out
 
 
-paged_attention.launches = 0
-paged_attention_fast.launches = 0
+recording.counted(paged_attention)
+recording.counted(paged_attention_fast)

@@ -12,9 +12,42 @@ card trace of one step hold the same nodes.  The card's launches go through
 trace.  No ``torch.library`` op is registered: a dispatcher hop per launch
 would cost the serving path.  ``steps`` marks a model's per-position loop
 for the recorder (one read of ``active`` a loop).
+
+Each kernel wrapper's ``launches`` attribute counts the launches its
+Python body makes.  A captured program (``serving.programs``) runs no
+Python when it replays, so it reads the counts its capture made
+(``launch_counts``), takes them back out (the capture launched nothing on
+the card) and adds them again at every replay (``add_launches``): the
+counters keep meaning launches on the card.  ``counted`` registers a
+wrapper.
 """
 
+from typing import Callable, Dict, List
+
 active = None
+
+#: every kernel wrapper that counts its launches (``counted``)
+COUNTED: List[Callable] = []
+
+
+def counted(fn: Callable) -> Callable:
+    """Register a kernel wrapper whose ``launches`` attribute counts its
+    launches, starting at zero."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
+
+
+def launch_counts() -> Dict[Callable, int]:
+    """``{wrapper: launches}`` of every registered wrapper."""
+    return {fn: fn.launches for fn in COUNTED}
+
+
+def add_launches(counts: Dict[Callable, int]) -> None:
+    """Add ``counts`` (``{wrapper: n}``, n may be negative) to the wrappers'
+    counters."""
+    for fn, n in counts.items():
+        fn.launches += n
 
 
 def steps(n: int):

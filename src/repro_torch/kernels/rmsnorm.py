@@ -65,4 +65,4 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-rmsnorm.launches = 0
+recording.counted(rmsnorm)

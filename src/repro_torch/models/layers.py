@@ -66,13 +66,20 @@ def q_scale(hd: int, dtype: torch.dtype) -> float:
     return torch.tensor(hd ** -0.5, dtype=dtype).item()
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_rate(theta: float, half: int) -> float:
+    """``log(theta) / half`` in f32 (the reference's ``jnp.log(theta) /
+    half``), as a Python float: a constant of the forward, never a tensor
+    copied to the device in every pass (which no captured program may do)."""
+    return float(torch.log(torch.tensor(theta, dtype=F32)) / half)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Apply rotary embedding.  x: (..., T, H, D); positions: (..., T)."""
     d = x.shape[-1]
     half = d // 2
-    log_theta = torch.log(torch.tensor(theta, dtype=F32, device=x.device))
     freqs = torch.exp(-torch.arange(0, half, dtype=F32, device=x.device)
-                      * (log_theta / half))
+                      * _rope_rate(theta, half))
     ang = positions[..., None].to(F32) * freqs  # (..., T, half)
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]

@@ -223,10 +223,13 @@ def forward(
     reads and writes them in place through ``tables``.  With neither,
     ``cache`` holds dense per-row views ``(layers, B, C, ...)``, updated in
     place; a full-attention pass must end inside the view (no wrap), which the
-    W == 1 length mask relies on.  A sliding config's ``cache`` holds per-row
-    rings in either case, which wrap by design, and an rwkv config's per-row
-    state.  An encoder-decoder config's ``cache`` also holds ``cross``
-    (``cache_spec``; ``build_cross_cache`` makes it), read, never written.
+    W == 1 length mask relies on: the caller checks that on the host, where
+    the start positions are Python ints (``serving.kv_cache.check_view``),
+    since a captured program cannot read a device value.  A sliding
+    config's ``cache`` holds per-row rings in either case, which wrap by
+    design, and an rwkv config's per-row state.  An encoder-decoder
+    config's ``cache`` also holds ``cross`` (``cache_spec``;
+    ``build_cross_cache`` makes it), read, never written.
     ``inputs_embeds`` (B, W, D) replaces the token embeddings (prefix
     embeddings, prefill chunks).  Returns ``(logits (B, W, V) f32, cache,
     per_pos)``, the JAX signature's ``(logits, new_cache, per_pos)``: with
@@ -241,13 +244,6 @@ def forward(
     fkd = cfg.first_k_dense
     period = stack_period(cfg)
     heads = cache.get("head_layers", {})
-    if paged is None and cfg.attn_kind != "sliding" and x.device.type != "meta":
-        # skipped on meta (launch.dryrun): start_pos holds no values to read
-        for leaves in list(cache["blocks"].values()) + list(heads.values()):
-            if "k" in leaves:
-                C = leaves["k"].shape[2]
-                assert int(start_pos.max()) + x.shape[1] <= C, (
-                    f"a pass ending past the view capacity {C} would wrap")
     per_head = {}
     for i in range(fkd):
         x, pp = _apply_layer(cfg, i, params["head_layers"][str(i)], x,

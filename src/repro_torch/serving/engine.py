@@ -30,14 +30,28 @@ forward on it (``models.layers.attention_cached``) and scatters it back
 equal between the lanes.  Greedy and seeded sampling
 (``serving.sampler``).
 
-What differs: the JAX engine jits one function per shape class and threads
-an immutable pool through it; here every step runs eagerly and the pool is
-updated in place, so the "fused" step is the prefill-chunk, decode and
-verify bodies called one after the other on the shared pool.  Device work
-runs under ``core.determinism.deterministic_torch`` (pad rows write the
-scratch block through duplicate indices).  On the card every GEMM runs in
-the two hand-written GEMMs and single-token attention in the paged kernels
-(paged lane) or the dense-cache decode kernel (gathered lane).
+Every device step runs as one program per shape class
+(``serving.programs``), keyed as the JAX engine's ``_fns`` are:
+``("decode", B, schedule)``, ``("prefill", P)``, ``("prefill_chunk", C)``
+(``"prefill_chunk_rec"`` on a recurrent config), ``("cross", Se)`` and
+``("fused", C, B, schedule, n_groups)``, plus ``("verify", G, W)``, the
+counterpart of ``make_verify_fn``.  On the card a program is a CUDA graph,
+captured at its key's first step and replayed after that; on the CPU it
+runs its body on the same input buffers; under ``programs.eager()`` it
+calls its body directly.  The host prepares each step's inputs as host
+tensors (slots, tables, tokens, positions, sampling parameters), checked
+on the host, and the program copies them into its buffers.  What differs:
+the JAX engine threads an immutable pool through its programs; here the
+pool, the state pool's buffers and the cross caches are updated in place
+and keep their addresses, which a replayed graph needs.  An iteration of
+more than one sub-pass runs the ``fused`` program, the prefill-chunk,
+decode and verify bodies one after the other on the shared pool; a single
+sub-pass runs its own lane's program, as in the reference's dispatch.
+Device work runs under ``core.determinism.deterministic_torch`` (pad rows
+write the scratch block through duplicate indices).  On the card every
+GEMM runs in the two hand-written GEMMs and single-token attention in the
+paged kernels (paged lane) or the dense-cache decode kernel (gathered
+lane).
 
 Served families: dense and MoE (``first_k_dense`` head layers included),
 with full or sliding-window attention, the recurrent ssm family (rwkv6),
@@ -99,11 +113,28 @@ from repro_torch.models.base import ModelConfig, check_ported
 from repro_torch.models.transformer import RING_SLACK, build_cross_cache
 from repro_torch.obs import Observability, TokenProvenance
 from repro_torch.serving import (
-    blockpool, costmodel, kv_cache, prefixcache, statepool, streams,
+    blockpool, costmodel, kv_cache, prefixcache, programs, statepool, streams,
 )
 from repro_torch.serving import scheduler as sched
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.sampler import sample_batch, sample_token, top2_margin
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _host(values, dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """A program input built on the host (the program copies it to its
+    device buffer)."""
+    return torch.tensor(values, dtype=dtype)
+
+
+def _sampling_inputs(params) -> tuple:
+    """(seeds int64 mod 2**32, temperatures f32, top_ks int64) host tensors
+    of the rows' ``SamplingParams``."""
+    return (_host([p.seed & _M32 for p in params], torch.int64),
+            _host([p.temperature for p in params], torch.float32),
+            _host([p.top_k for p in params], torch.int64))
 
 
 def _bucket(n: int) -> int:
@@ -228,6 +259,9 @@ class Engine:
         self._paged_fwd = self.pool.paged and bool(paged_attention)
         self._verify_body = make_verify_body(
             cfg, group, window, self.pool.layout, paged=self._paged_fwd)
+        # one program per shape class (serving.programs), the reference's
+        # _fns cache plus its verify program
+        self._programs: Dict[Any, programs.Program] = {}
         self._pad_row: Optional[torch.Tensor] = None
         self._now = 0  # logical iteration counter
         self.num_preemptions = 0
@@ -488,11 +522,31 @@ class Engine:
             ))
 
     # ------------------------------------------------------------------
-    # device steps (eager; the pool is updated in place)
+    # device steps: one program per shape class (the pool is updated in
+    # place)
     # ------------------------------------------------------------------
 
-    def _ints(self, values) -> torch.Tensor:
-        return torch.tensor(values, dtype=torch.int32, device=self.device)
+    def _program(self, key: Any, fn: Callable[..., Any]) -> programs.Program:
+        """The program of ``key``, made at the key's first step: ``fn(engine,
+        *inputs)`` is its body.  The program reaches the engine through a
+        weak reference, so that the engine holds no reference cycle through
+        its own programs (a dropped engine frees its pool at once)."""
+        prog = self._programs.get(key)
+        if prog is None:
+            ref = weakref.ref(self)
+            prog = programs.Program(key, lambda *args: fn(ref(), *args), self.device)
+            self._programs[key] = prog
+        return prog
+
+    def _slot_index(self, slots: List[int]) -> torch.Tensor:
+        """A pass's slot index, checked on the host (``check_slots``)."""
+        return kv_cache.slot_index(self.pool.data, self.pool.layout, slots,
+                                   torch.device("cpu"))
+
+    def _check_view(self, starts: List[int], width: int) -> None:
+        """The gathered lane's view-capacity check, on the host."""
+        if not self._paged_fwd and self.cfg.attn_kind != "sliding":
+            kv_cache.check_view(self.pool.layout, starts, width)
 
     def _sync(self) -> None:
         """Wait for the device, so a wall time covers the device work."""
@@ -512,7 +566,9 @@ class Engine:
         return last.reshape(1) if self.has_recurrent_state else None
 
     def _decode_body(self, batch_size: int, schedule: Schedule):
-        """One-token decode over the pool through the block tables."""
+        """One-token decode over the pool through the block tables.  The
+        slots and sampling parameters are host sequences or (B,) tensors
+        (the program's inputs)."""
 
         def step(params, pool, slots, tables, tokens, pos, seeds, temps, out_pos,
                  top_ks):
@@ -525,44 +581,125 @@ class Engine:
         return step
 
     # det: commit-path
-    def _prefill_pass(self, slot: int, table: torch.Tensor, last: torch.Tensor,
-                      **inputs):
+    def _prefill_pass(self, idx: torch.Tensor, table: torch.Tensor,
+                      last: torch.Tensor, **inputs):
         """Exclusive whole-prompt pass at the prompt's bucket (after the
         prefix embeds, if any), verify-grade schedule in every mode; the
         prompt comes as ``tokens`` or ``inputs_embeds``.  The JAX engine
         gathers a per-row view and runs the dense attention on it (the
         gathered lane here too); the paged forward computes the same masked
-        softmax over the same view, reading through the table.  ``last``:
-        the prompt's last position (a recurrent config's state is kept
-        there)."""
+        softmax over the same view, reading through the table.  ``idx``:
+        the slot index (1,); ``last``: the prompt's last position (a
+        recurrent config's state is kept there)."""
         schedule = (
             INVARIANT_SCHEDULE if self.mode == Mode.BATCH_INVARIANT
             else VERIFY_SCHEDULE
         )
-        logits, self.pool.data = self._forward(
-            self.params, self.pool.data, [slot], table[None], self._ints([0]),
+        start = torch.zeros(1, dtype=torch.int32, device=table.device)
+        logits, _ = self._forward(
+            self.params, self.pool.data, idx, table[None], start,
             schedule=schedule, state_at=self._state_at(last), **inputs)
         return logits
+
+    def _prefill_fn(self, P: int) -> programs.Program:
+        """The ``("prefill", P)`` program: the exclusive pass at bucket P
+        and T0's sample at the prompt's last position, on the device (the
+        reference's ``_prefill_fn``).  Inputs: the slot index, the table,
+        the prompt (``(1, P)`` tokens, or ``(1, prefix + P, D)`` embeds for
+        a prefix-embeds config), the last position and the sampling
+        parameters (1,); outputs ``(tok, margin)``, each (1,)."""
+        embeds = bool(self.cfg.num_prefix_embeds)
+
+        def step(eng, idx, table, x, last, seed, temp, top_k):
+            inputs = {"inputs_embeds": x} if embeds else {"tokens": x}
+            logits = eng._prefill_pass(idx, table, last, **inputs)
+            row = logits[0].index_select(0, last.reshape(1).long())
+            zero = torch.zeros(1, dtype=torch.int64, device=row.device)
+            return sample_batch(row, seed, zero, temp, top_k), top2_margin(row)
+
+        return self._program(("prefill", P), step)
 
     # det: commit-path
     def _prefill_chunk_body(self, C: int):
         """Fixed-shape C-token prefill chunk, verify-grade schedule.  A
         recurrent config keeps the state after ``last``, the chunk's final
         real position, so final-chunk pads never advance it: the chunk
-        schedule stays size-invariant."""
+        schedule stays size-invariant.  ``idx`` is the slot index (1,)."""
         schedule = (
             INVARIANT_SCHEDULE if self.mode == Mode.BATCH_INVARIANT
             else VERIFY_SCHEDULE
         )
 
-        def chunk(params, pool, slot, table, embeds, start, last):
-            logits, pool = self._forward(params, pool, [slot], table[None],
+        def chunk(params, pool, idx, table, embeds, start, last):
+            logits, pool = self._forward(params, pool, idx, table[None],
                                          start[None], schedule=schedule,
                                          inputs_embeds=embeds,
                                          state_at=self._state_at(last))
             return pool, logits
 
         return chunk
+
+    def _prefill_chunk_fn(self, C: int) -> programs.Program:
+        """The ``("prefill_chunk", C)`` program (``"prefill_chunk_rec"`` on
+        a recurrent config, as in the reference): the chunk's logits."""
+        rec = self.has_recurrent_state
+        key = ("prefill_chunk_rec" if rec else "prefill_chunk", C)
+        return self._program(key, lambda eng, *args: eng._prefill_chunk_body(C)(
+            eng.params, eng.pool.data, *args)[1])
+
+    def _decode_fn(self, B: int, schedule: Schedule) -> programs.Program:
+        """The ``("decode", B, schedule)`` program: ``(tokens, margins)``."""
+        return self._program(("decode", B, schedule), lambda eng, *args: eng._decode_body(
+            B, schedule)(eng.params, eng.pool.data, *args)[1:])
+
+    def _verify_outs(self, args):
+        """One grouped verify body on the pool: ``(n_match, commit_tok,
+        margins, commit_rows)``.  A recurrent config's replay starts from
+        the state pool's anchor and advances it in place; its
+        ``commit_rows`` (each row's commit-index state) go to the ring,
+        else None."""
+        if self.has_recurrent_state:
+            (_, _, commit_rows, n_match, commit_tok, _v, margins) = self._verify_body(
+                self.params, self.pool.data, self.statepool.anchor, *args)
+        else:
+            _, n_match, commit_tok, _v, margins = self._verify_body(
+                self.params, self.pool.data, *args)
+            commit_rows = None
+        return n_match, commit_tok, margins, commit_rows
+
+    def _verify_fn(self) -> programs.Program:
+        """The ``("verify", G, W)`` program, the counterpart of the
+        reference's ``make_verify_fn``."""
+        return self._program(("verify", self.group, self.window),
+                             lambda eng, *args: eng._verify_outs(args))
+
+    def _cross_fn(self, Se: int) -> programs.Program:
+        """The ``("cross", Se)`` program: the encoder and every decoder
+        layer's cross K/V at B = 1 under ``VERIFY_SCHEDULE``."""
+        return self._program(("cross", Se), lambda eng, enc: build_cross_cache(
+            eng.params, eng.cfg, enc, schedule=VERIFY_SCHEDULE))
+
+    def _fused_fn(self, C: Optional[int], B: int, schedule: Schedule,
+                  n_groups: int) -> programs.Program:
+        """ONE program for the iteration's whole mixed batch (the
+        reference's ``_fused_fn``): the current prefill chunk (``C`` tokens,
+        or None), the decode batch (``B`` rows, or 0) and ``n_groups`` due
+        verify groups as sequential sub-passes on the shared pool (and the
+        state pool's anchor), each its standalone body under its own
+        schedule, so fusing moves no committed token.  Returns
+        ``(logits_p, nxt, dmarg, vouts)``."""
+
+        def fused(eng, pargs, dargs, vargs_list):
+            logits_p = nxt = dmarg = None
+            if C is not None:
+                _, logits_p = eng._prefill_chunk_body(C)(eng.params, eng.pool.data, *pargs)
+            if B:
+                _, nxt, dmarg = eng._decode_body(B, schedule)(
+                    eng.params, eng.pool.data, *dargs)
+            vouts = [eng._verify_outs(vargs) for vargs in vargs_list]
+            return logits_p, nxt, dmarg, vouts
+
+        return self._program(("fused", C, B, schedule, n_groups), fused)
 
     # ------------------------------------------------------------------
     # scheduling
@@ -948,8 +1085,8 @@ class Engine:
         cfg = self.cfg
         enc = req.enc_embeds.to(device=self.device, dtype=getattr(torch, cfg.dtype))
         with deterministic_torch():
-            cross = build_cross_cache(self.params, cfg, enc, schedule=VERIFY_SCHEDULE)
-            self.pool.data = blockpool.write_cross(self.pool.data, req.slot, cross)
+            cross = self._cross_fn(enc.shape[1])(enc)
+            blockpool.write_cross(self.pool.data, req.slot, cross)
         self.num_cross_builds += 1
 
     def _prefix_source(self, req: Request) -> torch.Tensor:
@@ -1032,8 +1169,10 @@ class Engine:
         if real < C:
             pad = self._pad_embed().expand(1, C - real, emb.shape[2])
             emb = torch.cat([emb, pad], dim=1)
+        self._check_view([s], C)
         table = self.pool.table_array([req.blocks])[0]
-        args = (req.slot, table, emb, self._ints(s), self._ints(max(real - 1, 0)))
+        args = (self._slot_index([req.slot]), table, emb, _host(s),
+                _host(max(real - 1, 0)))
         return args, s, real
 
     def _prefill_chunk_post(self, req: Request, C: int, s: int, real: int,
@@ -1059,8 +1198,7 @@ class Engine:
         args, s, real = self._prefill_chunk_prep(req, C)
         t0 = time.perf_counter()
         with deterministic_torch():
-            self.pool.data, logits = self._prefill_chunk_body(C)(
-                self.params, self.pool.data, *args)
+            logits = self._prefill_chunk_fn(C)(*args)
         self._sync()
         wall = time.perf_counter() - t0
         return self._prefill_chunk_post(req, C, s, real, logits, wall)
@@ -1079,24 +1217,24 @@ class Engine:
         if prefix:
             emb = self._chunk_embeds(req, 0, L)
             pad = self._pad_embed().expand(1, P - req.prompt_len, emb.shape[2])
-            inputs = {"inputs_embeds": torch.cat([emb, pad], dim=1)}
+            x = torch.cat([emb, pad], dim=1)
         else:
-            inputs = {"tokens": self._ints([req.prompt + [0] * (P - req.prompt_len)])}
+            x = _host([req.prompt + [0] * (P - req.prompt_len)])
         req.prefill_pos, req._prefix_src = L, None
+        self._check_view([0], prefix + P)
         table = self.pool.table_array([req.blocks])[0]
+        args = (self._slot_index([req.slot]), table, x, _host(L - 1),
+                *_sampling_inputs([req.sampling]))
         t0 = time.perf_counter()
         with deterministic_torch():
-            logits = self._prefill_pass(req.slot, table, self._ints(L - 1), **inputs)
-            last = logits[0, L - 1]
-            tok = int(sample_token(last, req.sampling.seed, 0,
-                                   req.sampling.temperature, req.sampling.top_k))
-            marg = top2_margin(last)
+            tok, marg = self._prefill_fn(P)(*args)
+        tok = int(tok[0])
         wall = time.perf_counter() - t0
         req.last_sched = self._now
         # commit point == post-prompt state: the first verify replay anchor
         self.statepool.set_commit_point(self.pool.data, req.slot)
         req.committed.append(tok)  # T0: deterministic by construction
-        self._note_t0(req, float(marg) if self.obs.audit.enabled else None)
+        self._note_t0(req, float(marg[0]) if self.obs.audit.enabled else None)
         req.prefill_time = self._now
         self._insert_prompt_blocks(req)
         ev = {
@@ -1143,21 +1281,20 @@ class Engine:
         return sched_
 
     def _decode_prep(self, batch: List[Request]):
-        """Device arguments for one decode pass over ``batch``."""
+        """The decode program's inputs for one pass over ``batch`` (host
+        tensors)."""
         tables = self.pool.table_array([r.blocks for r in batch])
-        slots = [r.slot for r in batch]
-        last_tok, pos, out_pos, seeds, temps, top_ks = [], [], [], [], [], []
+        last_tok, pos, out_pos = [], [], []
         for r in batch:
             seq = r.committed + r.speculation
             last_tok.append(seq[-1])
             pos.append(self.cfg.num_prefix_embeds + r.prompt_len + len(seq) - 1)
             out_pos.append(len(seq))
-            seeds.append(r.sampling.seed)
-            temps.append(r.sampling.temperature)
-            top_ks.append(r.sampling.top_k)
             r.last_sched = self._now
-        args = (slots, tables, self._ints(last_tok), self._ints(pos), seeds, temps,
-                out_pos, top_ks)
+        self._check_view(pos, 1)
+        seeds, temps, top_ks = _sampling_inputs([r.sampling for r in batch])
+        args = (self._slot_index([r.slot for r in batch]), tables, _host(last_tok),
+                _host(pos), seeds, temps, _host(out_pos, torch.int64), top_ks)
         return args, pos
 
     def _decode_post(self, batch: List[Request], schedule: Schedule,
@@ -1195,8 +1332,7 @@ class Engine:
         args, pos = self._decode_prep(batch)
         t0 = time.perf_counter()
         with deterministic_torch():
-            self.pool.data, nxt, margins = self._decode_body(B, schedule)(
-                self.params, self.pool.data, *args)
+            nxt, margins = self._decode_fn(B, schedule)(*args)
         self._sync()
         wall = time.perf_counter() - t0
         return self._decode_post(batch, schedule, pos, nxt, wall, margins)
@@ -1220,11 +1356,14 @@ class Engine:
 
     def _verify_args(self, inputs, cands, cand_lens, starts, bases, slots,
                      seeds, temps, tks, table_rows):
-        """Device tensors (and host sampling lists) of one verify pass."""
+        """The verify program's inputs for one pass (host tensors)."""
+        self._check_view(starts, self.window)
         return (
-            slots, self.pool.table_array(table_rows), self._ints(starts),
-            self._ints(inputs), self._ints(cands), self._ints(cand_lens),
-            seeds, temps, bases, tks,
+            self._slot_index(slots), self.pool.table_array(table_rows),
+            _host(starts), _host(inputs), _host(cands), _host(cand_lens),
+            _host([x & _M32 for x in seeds], torch.int64),
+            _host(temps, torch.float32), _host(bases, torch.int64),
+            _host(tks, torch.int64),
         )
 
     def _verify_prelaunch(self, rows: List[Request]):
@@ -1336,22 +1475,11 @@ class Engine:
         return groups
 
     def _run_verify(self, args):
-        """One grouped verify pass on the pool; returns ``(n_match,
-        commit_tok, margins, commit_rows)``.  A recurrent config's pass
-        replays from the state pool's anchor and advances it; its
-        ``commit_rows`` (each row's commit-index state) go to the ring,
-        else None."""
-        commit_rows = None
+        """One grouped verify pass on the pool through the verify program;
+        returns ``(n_match, commit_tok, margins, commit_rows)``
+        (``_verify_outs``)."""
         with deterministic_torch():
-            if self.has_recurrent_state:
-                (pool, self.statepool.anchor, commit_rows, n_match, commit_tok,
-                 _v, margins) = self._verify_body(
-                    self.params, self.pool.data, self.statepool.anchor, *args)
-            else:
-                pool, n_match, commit_tok, _v, margins = self._verify_body(
-                    self.params, self.pool.data, *args)
-        self.pool.data = pool
-        return n_match, commit_tok, margins, commit_rows
+            return self._verify_fn()(*args)
 
     def _verify_step(self, group: List[Request], *, defer: bool = False,
                      n_decodable: int = 0) -> Dict[str, Any]:
@@ -1452,8 +1580,9 @@ class Engine:
 
     def _fused_step(self, plan: sched.Plan, view: sched.SchedulerView):
         """The iteration's whole device side: the current prefill chunk, the
-        decode batch and EVERY due verify group, run one after the other on
-        the shared pool (the JAX engine fuses them under one jit).
+        decode batch and EVERY due verify group, as ONE program
+        (``_fused_fn``) when there is more than one sub-pass, else the one
+        lane's own program, as the reference dispatches.
 
         Host order: all preps first (prefill args, decode args, verify
         pre-launches in layer order), the device work, then prefill post,
@@ -1481,17 +1610,20 @@ class Engine:
         n_decodable = len(sched.decodable(view))
 
         t0 = time.perf_counter()
-        logits_p = nxt = dmarg = None
-        vouts = []
         with deterministic_torch():
-            if preq is not None:
-                self.pool.data, logits_p = self._prefill_chunk_body(C)(
-                    self.params, self.pool.data, *pargs)
-            if batch:
-                self.pool.data, nxt, dmarg = self._decode_body(B, schedule)(
-                    self.params, self.pool.data, *dargs)
-        for rows, args, *_ in vstates:
-            vouts.append(self._run_verify(args))
+            if n_subs > 1:
+                logits_p, nxt, dmarg, vouts = self._fused_fn(
+                    C if preq is not None else None, B, schedule, len(groups))(
+                    pargs or (), dargs or (), tuple(args for _, args, *_ in vstates))
+            elif preq is not None:
+                logits_p, nxt, dmarg, vouts = (
+                    self._prefill_chunk_fn(C)(*pargs), None, None, [])
+            elif batch:
+                logits_p, vouts = None, []
+                nxt, dmarg = self._decode_fn(B, schedule)(*dargs)
+            else:
+                logits_p = nxt = dmarg = None
+                vouts = [self._verify_fn()(*vstates[0][1])]
         self._sync()
         wall = time.perf_counter() - t0
         share = wall / n_subs

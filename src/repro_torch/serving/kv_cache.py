@@ -43,14 +43,32 @@ gather_mixed = blockpool.gather_mixed
 scatter_mixed = blockpool.scatter_mixed
 
 
-def slot_index(pool: Any, lay: Layout, slots: Sequence[int],
+def slot_index(pool: Any, lay: Layout, slots: Any,
                device: torch.device) -> torch.Tensor:
-    """``slots`` as a device index, after ``blockpool.check_slots``: no
-    real slot may take two rows of one pass's scatter."""
+    """``slots`` as an index on ``device``, after ``blockpool.check_slots``:
+    no real slot may take two rows of one pass's scatter.  An engine
+    program's host prep builds the index (checked there, on the host) and
+    the program's body receives it as a tensor, which passes through."""
+    if torch.is_tensor(slots):
+        return slots
     scratch = blockpool.scratch_slot(pool, lay)
     if scratch is not None:
         blockpool.check_slots(slots, scratch)
     return torch.as_tensor(list(slots), dtype=torch.long, device=device)
+
+
+def check_view(lay: Layout, starts: Sequence[int], width: int) -> None:
+    """Raise unless a gathered-lane pass of ``width`` positions from each of
+    ``starts`` ends inside the per-row view (``lay.view_capacity``), which
+    the W == 1 length mask relies on (no wrap).  A host check on Python
+    ints, made before the program runs: a captured body cannot read a
+    device value (the reference's jitted one cannot either).  A pool
+    without paged leaves gathers no full-attention view."""
+    if not lay.has_paged:
+        return
+    C = lay.view_capacity
+    assert max(starts) + width <= C, (
+        f"a pass ending past the view capacity {C} would wrap")
 
 
 def pool_views(pool: Any, lay: Layout, idx: torch.Tensor, tables: torch.Tensor,
@@ -178,12 +196,13 @@ class CachePool:
             self.alloc_blocks.release(bid)
 
     def table_array(self, blocks_list: Sequence[Sequence[int]]) -> torch.Tensor:
-        """(B, blocks_per_table) int32 tables on the pool's device, ``-1``-padded;
+        """(B, blocks_per_table) int32 tables in host memory, ``-1``-padded;
         zero-width for a pool without paged leaves, which addresses nothing
-        through them."""
+        through them.  An engine program copies them into its table buffer
+        from pinned memory without blocking (``serving.programs.Program``)."""
         nblk = self.layout.blocks_per_table if self.paged else 0
         rows = []
         for blocks in blocks_list:
             assert len(blocks) <= nblk, "block table exceeds view capacity"
             rows.append(list(blocks) + [-1] * (nblk - len(blocks)))
-        return torch.tensor(rows, dtype=torch.int32, device=self.device)
+        return torch.tensor(rows, dtype=torch.int32)

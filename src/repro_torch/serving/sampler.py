@@ -43,6 +43,8 @@ F32 = torch.float32
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _TINY = torch.finfo(F32).tiny
+#: ``1 - tiny`` in f32 (which is 1.0), a host constant
+_SPAN = float(torch.tensor(1.0, dtype=F32) - torch.tensor(_TINY, dtype=F32))
 
 
 def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -85,9 +87,7 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     """JAX's f32 uniform in ``[tiny, 1)`` from 32 random bits (int64)."""
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(F32) - 1.0
-    tiny = torch.tensor(_TINY, dtype=F32, device=bits.device)
-    span = torch.tensor(1.0, dtype=F32, device=bits.device) - tiny
-    return torch.maximum(tiny, floats * span + tiny)
+    return torch.clamp_min(floats * _SPAN + _TINY, _TINY)
 
 
 def _gumbel_for(seeds: Sequence[int], positions: Sequence[int], vocab: int,
@@ -193,7 +193,14 @@ def sample_batch(
     temperatures: Sequence[float],
     top_ks: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
-    """(B,) int32 tokens, one per row."""
+    """(B,) int32 tokens, one per row.  ``seeds``, ``positions`` and
+    ``temperatures`` are host sequences, or (B,) tensors (``top_ks`` then a
+    tensor or None), which no value leaves for the host: the form an
+    engine program takes."""
+    if torch.is_tensor(seeds):
+        ks = (torch.zeros(logits.shape[0], dtype=torch.int64, device=logits.device)
+              if top_ks is None else top_ks)
+        return _sample_rows_tensor(logits, seeds, positions, temperatures, ks)
     if top_ks is None:
         top_ks = [0] * logits.shape[0]
     return _sample_rows(logits, seeds, positions, temperatures, top_ks)

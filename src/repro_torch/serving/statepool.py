@@ -131,21 +131,28 @@ def init_state(cfg: ModelConfig, batch: int,
     return make(state_spec(cfg, batch))
 
 
-def _index(leaf: torch.Tensor, slots: Sequence[int]) -> torch.Tensor:
+def _index(leaf: torch.Tensor, slots: Any) -> torch.Tensor:
+    if torch.is_tensor(slots):
+        return slots
     return torch.as_tensor(list(slots), dtype=torch.long, device=leaf.device)
 
 
-def gather_rows(state: Dict[str, Any], slots: Sequence[int]) -> Dict[str, Any]:
-    """Batched rows (slot axis -> len(slots)), copies."""
+def gather_rows(state: Dict[str, Any], slots: Any) -> Dict[str, Any]:
+    """Batched rows (slot axis -> len(slots)), copies.  ``slots`` is a
+    sequence of slots or an index tensor on the state's device."""
     return _map_state(lambda a: a.index_select(1, _index(a, slots)), state)
 
 
-def scatter_rows(state: Dict[str, Any], slots: Sequence[int],
+def scatter_rows(state: Dict[str, Any], slots: Any,
                  rows: Dict[str, Any]) -> Dict[str, Any]:
-    """Write batched rows into a slot-indexed tree in place; returns it."""
+    """Write batched rows into a slot-indexed tree in place; returns it.
+    ``slots`` is a sequence of slots, checked here, or an index tensor that
+    an engine program's host prep built and checked
+    (``serving.kv_cache.slot_index``)."""
 
     def put(a, u):
-        check_slots(slots, a.shape[1] - 1)
+        if not torch.is_tensor(slots):
+            check_slots(slots, a.shape[1] - 1)
         a[:, _index(a, slots)] = u.to(a.dtype)
         return a
 
