@@ -45,13 +45,14 @@ the main path) and the gathered lane (``paged_attention=False``):
            logits on the card against the CPU, on each lane;
 3a. programs every serving step as a replay of a program captured once per
            shape class (``serving/programs.py``) against ``eager()`` (each
-           body called directly), at 16 of Llama-3-8B's 32 layers, both
+           body called directly), at 12 of Llama-3-8B's 32 layers, both
            lanes, all three modes, chunked prefill and two verify windows
            in flight: streams bitwise equal, launches per kernel equal,
            the programs exactly the events' keys; traffic B after traffic
            A on one engine equal to ``eager()``'s and to a fresh engine's
            deterministic streams; host wall, captures and their seconds,
-           peak and reserved memory of both;
+           peak memory of both; reserved memory back within 1 GiB of its
+           level before each run once the run's engine went;
 4. determinism  the divergence demo's experiment on each lane (16 of the
            serve model's 32 layers), with greedy and seeded deterministic
            requests: LLM42 and
@@ -218,19 +219,24 @@ the main path) and the gathered lane (``paged_attention=False``):
            autograd at tinyllama's projection shapes and LM head, at M =
            2048 and 1003, dX's rows bitwise across M, each product timed
            beside ``torch.matmul`` and its bound; then 4 AdamW steps of
-           tinyllama (22 layers, full width) at 4 x 512 tokens with remat:
-           launches per step held to the forward, recompute and backward
-           GEMMs (no split-K), a second run bitwise equal, the loss lower
-           on the first batch, remat=False gradients bitwise equal, two
-           microbatches within 4 bf16 ulps, a checkpoint after step 2
-           resumed bitwise into step 4; step time (CUDA events), tok/s and
-           peak memory; one more step split at its gradients and its update
+           tinyllama (22 layers, full width) at 4 x 512 tokens with remat,
+           each a replay of a training program captured once
+           (``training.train.make_train_program``): launches per step held
+           to the forward, recompute and backward GEMMs (no split-K), the
+           same steps under ``programs.eager()`` bitwise, a second program
+           bitwise, the loss lower on the first batch, remat off bitwise, two
+           microbatches within 4 bf16 ulps, a checkpoint of the program's
+           trees after step 2 restored into a new program bitwise into step
+           4; replayed and eager step times (CUDA events), capture seconds,
+           busy share of a replay and of an eager step, peak and reserved
+           memory; one eager step split at its gradients and its update
            (device memory held and peak in each half), and one under
            ``torch.profiler`` (device time by kernel, busy share); then 4
            AdamW steps of jamba-smoke (the hybrid family: attention and
-           mamba layers, MoE) at 4 x 64 tokens, with remat twice and
-           without it once, bitwise equal, launches per step held to the
-           step's GEMMs, step time and peak memory; the same for one mamba
+           mamba layers, MoE) at 4 x 64 tokens on programs the same way
+           (under ``eager()``, twice with remat and once without, bitwise
+           equal), launches per step held to the step's GEMMs, step times
+           and peak memory; eagerly, the same for one mamba
            layer at jamba-1.5-large's published widths (bf16, autograd
            through its per-position loop, AdamW on its leaves);
 16. timings each kernel against its plain version and one PyTorch call,
@@ -1540,9 +1546,13 @@ def check_programs(eng, run):
                 capture_s=sum(p.capture_s for p in progs))
 
 
-#: the programs phase's depth: the serve phase's first 16 of llama3-8b's 32
-#: layers at full width (its weights, as views)
-PROGRAMS_DEPTH = 16
+#: the programs phase's depth: the serve phase's first 12 of llama3-8b's 32
+#: layers at full width (its weights, as views), which leaves the default
+#: run room for the training phase's programs inside its time limit
+PROGRAMS_DEPTH = 12
+#: GiB of reserved memory a run on programs may leave once its engine went
+#: (its graph pool goes back to the card with it)
+RESERVE_SLACK_GIB = 1.0
 #: its engines: chunked prefill and two verify windows in flight, so that
 #: the runs take every key kind the LLM42 engine has (exclusive prefill of
 #: the shorter prompts, prefill chunks, decode, verify, fused iterations)
@@ -1580,7 +1590,9 @@ def phase_programs(torch, cfg, params, results, summary) -> None:
     ``eager()`` (no stale input or output buffer) and a fresh engine's
     deterministic streams of B (its non-deterministic ones follow the
     batches, which an engine's history may change: printed).  Prints host
-    wall, captures, capture seconds and peak device memory of both."""
+    wall, captures, capture seconds and peak device memory of both.  Once
+    each engine on programs went, reserved memory is back within
+    RESERVE_SLACK_GIB of its level before the run (both printed)."""
     import contextlib
 
     from repro_torch.core.determinism import Mode
@@ -1612,15 +1624,34 @@ def phase_programs(torch, cfg, params, results, summary) -> None:
         return ({r.rid: list(r.committed) for r in done}, launch_counts(fns), wall,
                 torch.cuda.max_memory_allocated() / 2 ** 30)
 
+    def reserved():
+        gc.collect()
+        sync(torch)
+        return torch.cuda.memory_reserved() / 2 ** 30
+
+    def returned(name, before):
+        """Reserved memory once a run's engine on programs went: back within
+        RESERVE_SLACK_GIB of its level before the run (the engine's graph
+        pool returned to the card with it)."""
+        after = reserved()
+        log(f"[programs] {name}: {before:.3f} GiB reserved before the run, {after:.3f} "
+            f"GiB after its engine went")
+        require(after <= before + RESERVE_SLACK_GIB,
+                f"{name}: reserved memory {before:.3f} -> {after:.3f} GiB once the engine "
+                f"went (more than {RESERVE_SLACK_GIB} GiB kept)")
+        return after
+
     seen = {}
     for lane, paged in LANES.items():
         for mode in (Mode.LLM42, Mode.BATCH_INVARIANT, Mode.NONDET):
             name = f"programs/{lane}/{mode.value}"
+            before = reserved()
             eng = engine(mode, paged)
             got, counts, wall, peak = run(eng, programs_traffic(cfg, 0))
             progs = check_programs(eng, name)
             want = expected_launches(cfg, eng, paged)
             del eng
+            after = returned(name, before)
             with programs.eager():
                 eng = engine(mode, paged)
                 ref, ref_counts, ref_wall, ref_peak = run(eng, programs_traffic(cfg, 0))
@@ -1632,29 +1663,32 @@ def phase_programs(torch, cfg, params, results, summary) -> None:
             record_launches(results, name, counts)
             seen[f"{lane}/{mode.value}"] = dict(
                 **progs, wall_s=wall, eager_wall_s=ref_wall, peak_gib=peak,
-                eager_peak_gib=ref_peak, eager_body_calls=direct)
-            reserved = torch.cuda.memory_reserved() / 2 ** 30
-            seen[f"{lane}/{mode.value}"]["reserved_gib"] = reserved
+                eager_peak_gib=ref_peak, eager_body_calls=direct,
+                reserved_before_gib=before, reserved_after_gib=after)
             log(f"[programs] {lane}/{mode.value}: streams bitwise eager()'s "
                 f"({sum(map(len, got.values()))} tokens), launches equal {counts}; "
                 f"{progs['programs']} programs ({progs['captures']} captures in "
                 f"{progs['capture_s']:.3f} s, {progs['replays']} replays) vs "
                 f"{direct} direct body calls; host wall {wall:.3f} s vs {ref_wall:.3f} s "
-                f"eager; peak memory {peak:.3f} GiB vs {ref_peak:.3f} GiB eager; "
-                f"{reserved:.3f} GiB reserved after both")
+                f"eager; peak memory {peak:.3f} GiB vs {ref_peak:.3f} GiB eager")
     for lane, paged in LANES.items():
         b_after_a = {}
         for ctx in (contextlib.nullcontext, programs.eager):
+            level = reserved()
             with ctx():
                 eng = engine(Mode.LLM42, paged)
                 run(eng, programs_traffic(cfg, 1))
-                before = {k: p.replays + p.runs for k, p in eng._programs.items()}
+                calls = {k: p.replays + p.runs for k, p in eng._programs.items()}
                 b_after_a[ctx], _, _, _ = run(eng, programs_traffic(cfg, 2))
                 reused = sum(eng._programs[k].replays + eng._programs[k].runs - n
-                             for k, n in before.items())
+                             for k, n in calls.items())
                 del eng
             require(reused > 0, f"{lane}: traffic B called none of A's programs")
+            if ctx is contextlib.nullcontext:
+                returned(f"programs/{lane}/a_then_b", level)
+        level = reserved()
         fresh, _, _, _ = run(engine(Mode.LLM42, paged), programs_traffic(cfg, 2))
+        returned(f"programs/{lane}/fresh_b", level)
         det = [r.rid for r in programs_traffic(cfg, 2) if r.sampling.is_deterministic]
         got = b_after_a[contextlib.nullcontext]
         require(got == b_after_a[programs.eager], f"{lane}: traffic B after A differs "
@@ -5020,6 +5054,125 @@ def check_backward_products(torch, cfg, results) -> None:
         f"{GRAD_ULPS} bf16 ulps), dX rows bitwise across M {GRAD_MS}")
 
 
+def train_run(torch, cfg, opt_cfg, batches, label, results, params, *, first=0, remat=True,
+              microbatches=1, eager=False, resume=None, save_at=None, ckpt=None,
+              against=None, keep=False, grads_of_step=None, profile_replay=False):
+    """Steps ``first`` .. of ``batches`` through a training program
+    (``training.train.make_train_program``) loaded from ``params`` (a fresh
+    optimizer state, or the archive ``resume``, whose step must be
+    ``first``): on the card, one capture of the batch shape's program ahead
+    of the steps (warm-up and capture, its seconds, the reserved memory
+    before and after it and its peak allocated memory), then every step a
+    replay; under ``eager`` (``programs.eager()``) every step the body run
+    directly.  Each step's launches are held to ``train_gemm_launches`` (a
+    replay adds its capture's counts) and timed with CUDA events; each key
+    is captured once and replayed once a step.  ``against`` (state leaves,
+    or the parameters' alone, and metrics by step) is compared bitwise
+    with this run's; ``keep`` clones the final state; ``grads_of_step``
+    clones that step's gradients; ``profile_replay`` profiles one more
+    replay (device busy share).  The program goes, and its graph pool with
+    it, when this returns."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import programs
+    from repro_torch.training import checkpoint
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train import make_train_program
+
+    gib = 2 ** 30
+    want = commit_only(microbatches * train_gemm_launches(cfg, remat))
+    out = dict(times=[], hist=[])
+    with programs.eager() if eager else contextlib.nullcontext():
+        prog = make_train_program(cfg, opt_cfg, num_microbatches=microbatches, remat=remat,
+                                  device=DEV)
+        prog.load(params)
+        if resume is not None:
+            step = checkpoint.restore_into(str(resume), prog.params, prog.opt_state)
+            require(step == first == int(prog.opt_state.step),
+                    f"training {label}: restored step {step}, not {first}")
+        gc.collect()
+        sync(torch)
+        out["reserved_before_gib"] = torch.cuda.memory_reserved() / gib
+        if not eager:
+            torch.cuda.reset_peak_memory_stats()
+            fns = reset_launches()
+            prog.capture(batches[first])
+            sync(torch)
+            counts = launch_counts(fns)
+            require(counts == want, f"training {label}: the warm-up launched {counts}, "
+                    f"the step implies {want}")
+            record_launches(results, f"training/{cfg.name} {label} warm-up", counts)
+            out.update(capture_s=sum(p.capture_s for p in prog.programs.values()),
+                       capture_peak_gib=torch.cuda.max_memory_allocated() / gib,
+                       reserved_after_capture_gib=torch.cuda.memory_reserved() / gib)
+        torch.cuda.reset_peak_memory_stats()
+        total = dict.fromkeys(KERNELS, 0)
+        for i in range(first, len(batches)):
+            fns = reset_launches()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            m = prog.step(batches[i])
+            b.record()
+            b.synchronize()
+            counts = launch_counts(fns)
+            require(counts == want, f"training {cfg.name} {label} step {i + 1}: launches "
+                    f"{counts}, the step implies {want}")
+            for k, c in counts.items():
+                total[k] += c
+            out["times"].append(a.elapsed_time(b))
+            out["hist"].append({k: v.clone() for k, v in m.items()})
+            if grads_of_step == i:
+                out["grads"] = [g.clone() for g in tree_leaves(prog.grads)]
+            log(f"[training] {cfg.name} {label} step {i + 1}: loss {float(m['loss']):.6f} "
+                f"gnorm {float(m['grad_norm']):.6f} lr {float(m['lr']):.3e}; "
+                f"{out['times'][-1]:.1f} ms (CUDA events); launches {counts} (= the step's)")
+            if save_at == i + 1:
+                t0 = time.perf_counter()
+                checkpoint.save(str(ckpt), prog.params, prog.opt_state, step=i + 1)
+                log(f"[training] {label}: saved the program's trees after step {i + 1}: "
+                    f"{ckpt.stat().st_size / 2 ** 30:.2f} GiB in "
+                    f"{time.perf_counter() - t0:.1f} s")
+        record_launches(results, f"training/{cfg.name} {label}", total)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / gib
+        out["reserved_after_gib"] = torch.cuda.memory_reserved() / gib
+        if not eager:
+            steps = len(batches) - first
+            for key, p in prog.programs.items():
+                require(p.captures == 1 and p.runs == 1 and p.replays == steps,
+                        f"training {label}: program {key} captured {p.captures} times, its "
+                        f"body run {p.runs} times outside a capture, {p.replays} replays "
+                        f"for {steps} steps")
+        state = (tree_leaves(prog.params) + tree_leaves(prog.opt_state.mu)
+                 + tree_leaves(prog.opt_state.nu) + [prog.opt_state.step])
+        require(all(bool(torch.isfinite(v).all()) for m in out["hist"] for v in m.values()),
+                f"training {cfg.name} {label}: non-finite metrics")
+        if against is not None:
+            want_state, want_hist = against
+            require(all(torch.equal(x, y) for x, y in zip(state, want_state)),
+                    f"training {cfg.name} {label}: parameters or optimizer state differ")
+            require(all(torch.equal(ma[k], mb[k]) for ma, mb in zip(
+                out["hist"], want_hist[first:]) for k in ma),
+                f"training {cfg.name} {label}: metrics differ")
+        if keep:
+            out["state"] = [t.clone() for t in state]
+        if profile_replay:
+            sync(torch)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                prog.step(batches[first])
+                sync(torch)
+                wall = time.perf_counter() - t0
+            busy = sum(e.self_device_time_total for e in kernel_events(prof.key_averages()))
+            out.update(profiled_wall_ms=wall * 1e3, profiled_busy_ms=busy / 1e3)
+            require(busy > 0, f"training {label}: the profiled replay shows no device time")
+        if not eager:
+            out["programs"] = len(prog.programs)
+        del prog, state
+    return out
+
+
 def train_step_parts(torch, cfg, params, batch, opt_cfg, results, summary) -> None:
     """Where a training step's time and memory go: one more step (from
     ``params`` and a fresh optimizer state) run as ``train_step`` runs it,
@@ -5122,17 +5275,19 @@ def train_hybrid(torch, results, summary) -> None:
     """jamba-smoke (4 layers: attention and mamba in a block period of 2,
     MoE on every other layer; f32; random weights from seed 0):
     HYBRID_TRAIN_STEPS AdamW steps at HYBRID_TRAIN_B x HYBRID_TRAIN_S with
-    remat, each step's launches held to ``train_gemm_launches``; a second
-    run and a run with remat off bitwise equal in parameters, optimizer
-    state and metrics; the loss finite; step time (CUDA events) and peak
-    memory."""
+    remat as a training program (``train_run``: captured once, every step
+    a replay, each step's launches held to ``train_gemm_launches``); the
+    same steps under ``programs.eager()``, a second program run and a
+    program with remat off bitwise equal in parameters, optimizer state and
+    metrics; the loss finite; step times (CUDA events), capture seconds and
+    peak memory."""
     from repro_torch import configs
     from repro_torch.core.determinism import deterministic_torch
     from repro_torch.launch.train_launch import batch_on
     from repro_torch.models.base import init_params
     from repro_torch.training.data import SyntheticTextStream
-    from repro_torch.training.optimizer import AdamWConfig, init_opt_state, tree_leaves
-    from repro_torch.training.train import make_train_step, train_params
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train import train_params
 
     cfg = configs.get_smoke_config(HYBRID_ARCH)
     B, S, steps = HYBRID_TRAIN_B, HYBRID_TRAIN_S, HYBRID_TRAIN_STEPS
@@ -5142,54 +5297,25 @@ def train_hybrid(torch, results, summary) -> None:
     batches = [batch_on(cfg, next(stream), i, torch.device(DEV)) for i in range(steps)]
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=steps)
 
-    def run(remat, label):
-        step_fn = make_train_step(cfg, opt_cfg, remat=remat)
-        want = commit_only(train_gemm_launches(cfg, remat))
-        params, opt_state = params0, init_opt_state(params0)
-        sync(torch)
-        torch.cuda.reset_peak_memory_stats()
-        hist, times = [], []
-        total = dict.fromkeys(KERNELS, 0)
-        for i in range(steps):
-            fns = reset_launches()
-            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            a.record()
-            params, opt_state, m = step_fn(params, opt_state, batches[i])
-            b.record()
-            b.synchronize()
-            counts = launch_counts(fns)
-            require(counts == want, f"training {cfg.name} {label} step {i + 1}: "
-                    f"launches {counts}, the step implies {want}")
-            for k, c in counts.items():
-                total[k] += c
-            times.append(a.elapsed_time(b))
-            hist.append({k: v.clone() for k, v in m.items()})
-            log(f"[training] {cfg.name} {label} step {i + 1}: loss "
-                f"{float(m['loss']):.6f} gnorm {float(m['grad_norm']):.6f}; "
-                f"{times[-1]:.1f} ms (CUDA events); launches {counts} (= the step's)")
-        record_launches(results, f"training/{cfg.name} {label}", total)
-        leaves = tree_leaves(params) + tree_leaves(opt_state.mu) + tree_leaves(opt_state.nu)
-        return leaves, hist, times, torch.cuda.max_memory_allocated() / 2 ** 30
+    def go(label, **kw):
+        return train_run(torch, cfg, opt_cfg, batches, label, results, params0, **kw)
 
     with deterministic_torch():
-        la, ha, ta, peak = run(True, "run 1")
-        lb, hb, _, _ = run(True, "run 2")
-        lc, hc, tc, _ = run(False, "remat off")
-    for other, hist, label in ((lb, hb, "a second run"), (lc, hc, "remat off")):
-        require(all(torch.equal(a, b) for a, b in zip(la, other)),
-                f"training {cfg.name}: {label}'s parameters or optimizer state differ")
-        require(all(torch.equal(ma[k], mb[k]) for ma, mb in zip(ha, hist) for k in ma),
-                f"training {cfg.name}: {label}'s metrics differ")
-    require(all(math.isfinite(float(m["loss"])) for m in ha),
-            f"training {cfg.name}: a non-finite loss")
-    median = sorted(ta)[len(ta) // 2]
-    log(f"[training] {cfg.name}: run 2 and remat off bitwise run 1 (parameters, "
-        f"optimizer state, metrics); step time median {median:.1f} ms with remat, "
-        f"{sorted(tc)[len(tc) // 2]:.1f} ms without (CUDA events) -> "
-        f"{B * S / median * 1e3:.0f} tok/s; peak device memory {peak:.3f} GiB")
+        ra = go("run 1", keep=True)
+        against = (ra["state"], ra["hist"])
+        r_e = go("eager", eager=True, against=against)
+        go("run 2", against=against)
+        rc = go("remat off", remat=False, against=against)
+    med, med_e, med_c = (sorted(r["times"])[len(r["times"]) // 2] for r in (ra, r_e, rc))
+    log(f"[training] {cfg.name}: the steps under eager(), run 2 and remat off bitwise "
+        f"run 1 (parameters, optimizer state, metrics); step time median {med:.1f} ms "
+        f"replayed, {med_e:.1f} ms eager, {med_c:.1f} ms replayed without remat (CUDA "
+        f"events) -> {B * S / med * 1e3:.0f} tok/s; capture {ra['capture_s']:.2f} s; "
+        f"peak device memory {ra['peak_gib']:.3f} GiB")
     summary["training"]["hybrid"] = dict(
-        arch=cfg.name, step_ms=ta, step_ms_no_remat=tc, peak_mem_gib=peak,
-        loss=[float(m["loss"]) for m in ha],
+        arch=cfg.name, step_ms=ra["times"], step_ms_eager=r_e["times"],
+        step_ms_no_remat=rc["times"], capture_s=ra["capture_s"], peak_mem_gib=ra["peak_gib"],
+        loss=[float(m["loss"]) for m in ra["hist"]],
         launches_per_step=train_gemm_launches(cfg, True))
 
 
@@ -5297,30 +5423,35 @@ def phase_training(torch, results, summary) -> None:
     """``training.train`` on the card: the backward products
     (``check_backward_products``), then TRAIN_STEPS AdamW steps of
     tinyllama (22 layers, full width, random weights from seed 0) at
-    TRAIN_B x TRAIN_S with remat, each step's launches held to
-    ``train_gemm_launches`` (no split-K, no attention kernel), timed with
-    CUDA events; a second run bitwise equal in parameters and metrics; the
-    loss finite and lower on the first batch after the steps; remat=False
-    gradients bitwise equal to remat's; two microbatches within MICRO_ULPS;
-    saved after TRAIN_SAVE_AT steps and resumed, bitwise the uninterrupted
-    run; then ``train_step_parts``; then the hybrid family's
-    ``train_hybrid`` and ``train_mamba_full_width``.  Every step under ``deterministic_torch``; every
-    pass's measured launches go into the kernels line."""
+    TRAIN_B x TRAIN_S with remat as a training program (``train_run``:
+    the batch shape's program captured once, every step a replay, each
+    step's launches held to ``train_gemm_launches``, no split-K, no
+    attention kernel), saved after TRAIN_SAVE_AT steps from the program's
+    trees; the same steps under ``programs.eager()`` bitwise (parameters,
+    optimizer state, metrics); a second program run bitwise, then one more
+    replay under ``torch.profiler``; a program restored from the archive
+    continuing bitwise; the loss finite and lower on the first batch after
+    the steps; remat off (its own program) bitwise in parameters and
+    metrics; two microbatches (their own program) within MICRO_ULPS of one
+    pass's gradients; then ``train_step_parts`` (an eager step split and
+    profiled); then the hybrid family's ``train_hybrid`` and
+    ``train_mamba_full_width``.  Prints capture seconds, replayed and
+    eager step times (CUDA events), busy shares and memory beside the
+    card's name and power limit.  Every pass's measured launches go into
+    the kernels line."""
     from repro_torch import configs
     from repro_torch.core.determinism import deterministic_torch
     from repro_torch.launch.train_launch import batch_on
     from repro_torch.models.base import init_params
-    from repro_torch.training import checkpoint
     from repro_torch.training.data import SyntheticTextStream
-    from repro_torch.training.optimizer import AdamWConfig, init_opt_state, tree_leaves
-    from repro_torch.training.train import (
-        batch_grads, lm_loss, loss_and_grads, make_train_step, train_params,
-    )
+    from repro_torch.training.optimizer import AdamWConfig, tree_leaves, tree_map
+    from repro_torch.training.train import lm_loss, train_params
 
     cfg = configs.get_config(TRAIN_ARCH)
+    card = card_line()
     log(f"[training] {TRAIN_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.param_count() / 1e9:.3f} B params, {cfg.dtype}; {TRAIN_STEPS} steps of "
-        f"{TRAIN_B} x {TRAIN_S} tokens, AdamW lr {TRAIN_LR}, remat")
+        f"{TRAIN_B} x {TRAIN_S} tokens, AdamW lr {TRAIN_LR}, remat; on {card}")
     summary["training"] = {}
     with deterministic_torch():
         check_backward_products(torch, cfg, results)
@@ -5330,79 +5461,41 @@ def phase_training(torch, results, summary) -> None:
         batches = [batch_on(cfg, next(stream), i, torch.device(DEV))
                    for i in range(TRAIN_STEPS)]
         opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
-        step_fn = make_train_step(cfg, opt_cfg)
         fwd = sum(forward_gemms(cfg))
         want = commit_only(train_gemm_launches(cfg, remat=True))
         ckpt = ROOT / "build" / "chip_smoke_train.npz"
 
-        def run(params, opt_state, first, label, save_at=None):
-            sync(torch)
-            torch.cuda.reset_peak_memory_stats()
-            hist, times = [], []
-            total = dict.fromkeys(KERNELS, 0)
-            for i in range(first, TRAIN_STEPS):
-                fns = reset_launches()
-                a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                a.record()
-                params, opt_state, m = step_fn(params, opt_state, batches[i])
-                b.record()
-                b.synchronize()
-                counts = launch_counts(fns)
-                require(counts == want, f"training {label} step {i + 1}: launches "
-                        f"{counts}, the step implies {want}")
-                for k, c in counts.items():
-                    total[k] += c
-                ms = a.elapsed_time(b)
-                times.append(ms)
-                hist.append({k: v.clone() for k, v in m.items()})
-                log(f"[training] {label} step {i + 1}: loss {float(m['loss']):.6f} gnorm "
-                    f"{float(m['grad_norm']):.6f} lr {float(m['lr']):.3e}; {ms:.1f} ms "
-                    f"(CUDA events) -> {TRAIN_B * TRAIN_S / ms * 1e3:.0f} tok/s; "
-                    f"launches {counts} (= the step's)")
-                if save_at == i + 1:
-                    t0 = time.perf_counter()
-                    checkpoint.save(str(ckpt), params, opt_state, step=i + 1)
-                    log(f"[training] saved after step {i + 1}: "
-                        f"{ckpt.stat().st_size / 2 ** 30:.2f} GiB in "
-                        f"{time.perf_counter() - t0:.1f} s")
-            record_launches(results, f"training/{label}", total)
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            return params, opt_state, hist, times, peak
+        def go(label, **kw):
+            return train_run(torch, cfg, opt_cfg, batches, label, results, params0, **kw)
 
-        t0 = time.perf_counter()
-        pa, oa, ha, ta, peak = run(params0, init_opt_state(params0), 0, "run 1",
-                                   save_at=TRAIN_SAVE_AT)
-        log(f"[training] run 1: {time.perf_counter() - t0:.1f} s host; peak device "
-            f"memory {peak:.3f} GiB")
-        for i, m in enumerate(ha):
-            require(all(bool(torch.isfinite(v).all()) for v in m.values()),
-                    f"training step {i + 1}: non-finite metrics")
-        pb, ob, hb, tb, _ = run(params0, init_opt_state(params0), 0, "run 2")
-        require(all(torch.equal(a, b) for a, b in zip(tree_leaves(pa), tree_leaves(pb))),
-                "training: a second run's parameters differ")
-        require(all(torch.equal(a, b) for a, b in zip(
-            tree_leaves(oa.mu) + tree_leaves(oa.nu), tree_leaves(ob.mu) + tree_leaves(ob.nu))),
-            "training: a second run's optimizer state differs")
-        require(all(torch.equal(ma[k], mb[k]) for ma, mb in zip(ha, hb) for k in ma),
-                "training: a second run's metrics differ")
-        log("[training] run 2: parameters, optimizer state and metrics bitwise run 1's")
-        del pb, ob
-        rp, ro, rstep = checkpoint.restore(str(ckpt), params0, init_opt_state(params0))
-        require(rstep == TRAIN_SAVE_AT, f"training: restored step {rstep}")
-        pr, orr, hr, _, _ = run(rp, ro, TRAIN_SAVE_AT, "resumed")
-        require(all(torch.equal(a, b) for a, b in zip(tree_leaves(pa), tree_leaves(pr))),
-                "training: the resumed run's parameters differ from the uninterrupted run's")
-        require(all(torch.equal(ma[k], mb[k]) for ma, mb in zip(ha[TRAIN_SAVE_AT:], hr)
-                    for k in ma), "training: the resumed run's metrics differ")
-        log(f"[training] saved after step {TRAIN_SAVE_AT} and resumed: step "
-            f"{TRAIN_STEPS} bitwise the uninterrupted run's")
-        del rp, ro, pr, orr
+        r1 = go("run 1", save_at=TRAIN_SAVE_AT, ckpt=ckpt, keep=True, grads_of_step=0)
+        log(f"[training] run 1 on a program: captured in {r1['capture_s']:.2f} s (warm-up "
+            f"and capture), reserved {r1['reserved_before_gib']:.3f} GiB before it and "
+            f"{r1['reserved_after_capture_gib']:.3f} GiB after it, peak "
+            f"{r1['capture_peak_gib']:.3f} GiB over it; peak over the replays "
+            f"{r1['peak_gib']:.3f} GiB, {r1['reserved_after_gib']:.3f} GiB reserved")
+        against = (r1["state"], r1["hist"])
+        r_e = go("eager", eager=True, against=against)
+        log("[training] the same steps under programs.eager(): parameters, optimizer "
+            "state and metrics bitwise the program's")
+        r2 = go("run 2", against=against, profile_replay=True)
+        log("[training] run 2 on a program of its own: parameters, optimizer state and "
+            "metrics bitwise run 1's")
+        go("resumed", first=TRAIN_SAVE_AT, resume=ckpt, against=against)
+        log(f"[training] a program restored from the archive saved after step "
+            f"{TRAIN_SAVE_AT}: step {TRAIN_STEPS} bitwise the uninterrupted run's")
         ckpt.unlink()
+        n_params = len(tree_leaves(params0))
+        params_a = r1["state"][:n_params]
+        del r1["state"], against
+        gc.collect()
         fns = reset_launches()
         with torch.no_grad():
             b0 = batches[0]
+            it = iter(params_a)
+            after_tree = tree_map(lambda _: next(it), params0)
             before, _ = lm_loss(params0, cfg, b0["tokens"], b0["targets"], b0["loss_mask"])
-            after, _ = lm_loss(pa, cfg, b0["tokens"], b0["targets"], b0["loss_mask"])
+            after, _ = lm_loss(after_tree, cfg, b0["tokens"], b0["targets"], b0["loss_mask"])
         counts = launch_counts(fns)
         require(counts == commit_only(2 * fwd), f"training: two loss passes launched {counts}")
         record_launches(results, "training/loss", counts)
@@ -5410,48 +5503,55 @@ def phase_training(torch, results, summary) -> None:
                 f"training: the first batch's loss {float(before):.6f} -> {float(after):.6f}")
         log(f"[training] first batch's loss {float(before):.6f} -> {float(after):.6f} "
             f"after {TRAIN_STEPS} steps")
-        del pa, oa
-        fns = reset_launches()
-        g_remat, _ = loss_and_grads(params0, cfg, batches[0], remat=True)
-        g_plain, _ = loss_and_grads(params0, cfg, batches[0], remat=False)
-        counts = launch_counts(fns)
-        require(counts == commit_only(train_gemm_launches(cfg, True)
-                                      + train_gemm_launches(cfg, False)),
-                f"training: remat and plain gradient passes launched {counts}")
-        record_launches(results, "training/gradients remat + plain", counts)
-        require(all(torch.equal(a, b) for a, b in zip(tree_leaves(g_remat),
-                                                      tree_leaves(g_plain))),
-                "training: remat=False gradients differ from remat's")
-        log("[training] remat=False gradients bitwise remat's")
-        del g_plain
-        fns = reset_launches()
-        g_micro, _ = batch_grads(params0, cfg, batches[0], num_microbatches=2)
-        counts = launch_counts(fns)
-        require(counts == commit_only(2 * train_gemm_launches(cfg, True)),
-                f"training: two microbatches launched {counts}")
-        record_launches(results, "training/microbatches 2", counts)
+        del after_tree
+        go("remat off", remat=False, against=(params_a, r1["hist"]))
+        log("[training] remat off on a program of its own: parameters and metrics "
+            "bitwise remat's")
+        del params_a
+        gc.collect()
+        micro = train_run(torch, cfg, opt_cfg, batches[:1], "microbatches 2", results,
+                          params0, microbatches=2, grads_of_step=0)
         worst = 0.0
-        for a, b in zip(tree_leaves(g_micro), tree_leaves(g_remat)):
+        for a, b in zip(micro["grads"], r1["grads"]):
             ulps = ((a.float() - b.float()).abs().max().item()
                     / ulp_of(b.float().abs().max().item(), 7))
             worst = max(worst, ulps)
         require(worst <= MICRO_ULPS, f"training: 2 microbatches' gradients {worst:.2f} "
                 f"bf16 ulps from one pass's (limit {MICRO_ULPS})")
-        log(f"[training] 2 microbatches: gradients within {worst:.3f} bf16 ulps of each "
-            f"leaf's max |g| of one pass's (limit {MICRO_ULPS})")
-        del g_micro, g_remat
+        log(f"[training] 2 microbatches on a program of their own: gradients within "
+            f"{worst:.3f} bf16 ulps of each leaf's max |g| of one pass's (limit {MICRO_ULPS})")
+        del micro, r1["grads"]
         gc.collect()
         train_step_parts(torch, cfg, params0, batches[0], opt_cfg, results, summary)
     per_step = want["gemm_batch_invariant"]
-    median_ms = sorted(ta)[len(ta) // 2]
-    summary["training"].update(
-        step_ms=ta, step_ms_run2=tb, median_step_ms=median_ms,
-        tok_per_s=TRAIN_B * TRAIN_S / median_ms * 1e3, peak_mem_gib=peak,
-        launches_per_step=per_step, micro_worst_ulps=worst,
-        loss=[float(m["loss"]) for m in ha])
-    log(f"[training] step time median {median_ms:.1f} ms (CUDA events) -> "
-        f"{TRAIN_B * TRAIN_S / median_ms * 1e3:.0f} tok/s, peak device memory {peak:.3f} GiB, "
-        f"{per_step} commit-GEMM launches a step (counted)")
+    med = sorted(r1["times"])[len(r1["times"]) // 2]
+    med_e = sorted(r_e["times"])[len(r_e["times"]) // 2]
+    t = summary["training"]
+    share, share_e = (r2["profiled_busy_ms"] / r2["profiled_wall_ms"],
+                      t["profiled_busy_ms"] / t["profiled_wall_ms"])
+    t.update(
+        card=card, step_ms=r1["times"], step_ms_eager=r_e["times"], step_ms_run2=r2["times"],
+        median_step_ms=med, median_step_ms_eager=med_e,
+        tok_per_s=TRAIN_B * TRAIN_S / med * 1e3, peak_mem_gib=r1["peak_gib"],
+        eager_peak_mem_gib=r_e["peak_gib"], capture_s=r1["capture_s"],
+        reserved_before_capture_gib=r1["reserved_before_gib"],
+        reserved_after_capture_gib=r1["reserved_after_capture_gib"],
+        capture_peak_gib=r1["capture_peak_gib"],
+        replay_profiled_wall_ms=r2["profiled_wall_ms"],
+        replay_profiled_busy_ms=r2["profiled_busy_ms"], replay_busy_share=share,
+        eager_busy_share=share_e, launches_per_step=per_step, micro_worst_ulps=worst,
+        loss=[float(m["loss"]) for m in r1["hist"]])
+    log(f"[training] {card}: step time median {med:.1f} ms replayed vs {med_e:.1f} ms "
+        f"eager (CUDA events, steps {[round(x, 1) for x in r1['times']]} vs "
+        f"{[round(x, 1) for x in r_e['times']]}) -> {TRAIN_B * TRAIN_S / med * 1e3:.0f} vs "
+        f"{TRAIN_B * TRAIN_S / med_e * 1e3:.0f} tok/s; capture {r1['capture_s']:.2f} s; "
+        f"device busy {100 * share:.1f}% of a replayed step ({r2['profiled_busy_ms']:.1f} of "
+        f"{r2['profiled_wall_ms']:.1f} ms) vs {100 * share_e:.1f}% of an eager step "
+        f"({t['profiled_busy_ms']:.1f} of {t['profiled_wall_ms']:.1f} ms), both under "
+        f"torch.profiler; peak {r1['peak_gib']:.3f} GiB replayed vs {r_e['peak_gib']:.3f} "
+        f"GiB eager; reserved {r1['reserved_before_gib']:.3f} -> "
+        f"{r1['reserved_after_capture_gib']:.3f} GiB over the capture; {per_step} "
+        f"commit-GEMM launches a step (counted)")
     del params0
     gc.collect()
     torch.cuda.empty_cache()

@@ -14,11 +14,18 @@ the card (``kernels.ops.GemmGrad``), and the whole step under
 bit.  An encoder-decoder config's batches carry stub audio frames
 (``models.multimodal.audio_frames``, seeded by the step).
 
+It trains through ``training.train.make_train_program``, as the
+reference's driver trains through ``jax.jit(make_train_step(...))``: one
+captured program per batch shape on the card, over parameters and
+optimizer state the program holds (under ``serving.programs.eager()`` the
+step runs directly, with the same bits).
+
 ``--resume`` restores params, optimizer state and step from an archive
-that either package wrote (``training.checkpoint``) and skips the batches
-those steps consumed, so a resumed run continues the uninterrupted one
-(the reference's driver restarts its stream instead); ``--ckpt`` saves at
-the end.
+that either package wrote into the program's trees
+(``training.checkpoint.restore_into``) and skips the batches those steps
+consumed, so a resumed run continues the uninterrupted one (the
+reference's driver restarts its stream instead); ``--ckpt`` saves the
+program's trees at the end.
 
   python -m repro_torch.launch.train_launch --smoke --device cpu --steps 5
   python -m repro_torch.launch.train_launch --steps 20 --batch 4 --seq 512   # on a GPU
@@ -34,13 +41,12 @@ import torch
 
 from repro_torch import configs as config_registry
 from repro_torch import resolve_device
-from repro_torch.core.determinism import deterministic_torch
 from repro_torch.models.base import init_params
 from repro_torch.models.multimodal import audio_frames
-from repro_torch.training.checkpoint import restore, save
+from repro_torch.training.checkpoint import restore_into, save
 from repro_torch.training.data import SyntheticTextStream
-from repro_torch.training.optimizer import AdamWConfig, init_opt_state
-from repro_torch.training.train import make_train_step, train_params
+from repro_torch.training.optimizer import AdamWConfig
+from repro_torch.training.train import make_train_program, train_params
 
 
 def batch_on(cfg, b, step: int, device: torch.device) -> dict:
@@ -94,8 +100,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def main() -> None:
-    args = parse_args()
+def main(argv=None) -> None:
+    args = parse_args(argv)
 
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     device = resolve_device(args.device)
@@ -103,34 +109,32 @@ def main() -> None:
            else config_registry.get_config(args.arch))
     print(f"training {cfg.name}: {cfg.param_count() / 1e6:.1f}M params on {device}")
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = train_params(cfg, init_params(cfg, gen, device))
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                           total_steps=args.steps)
-    opt_state = init_opt_state(params)
+    prog = make_train_program(cfg, opt_cfg, num_microbatches=args.microbatches,
+                              device=device)
+    prog.load(train_params(cfg, init_params(cfg, gen, device)))
     start_step = 0
     if args.resume:
-        params, opt_state, start_step = restore(args.resume, params, opt_state)
+        start_step = restore_into(args.resume, prog.params, prog.opt_state)
         print(f"resumed from {args.resume} at step {start_step}")
 
-    step_fn = make_train_step(cfg, opt_cfg, num_microbatches=args.microbatches)
     stream = iter(SyntheticTextStream(cfg.vocab_size, args.seq, args.batch))
     for _ in range(start_step):
         next(stream)
 
     t0 = time.perf_counter()
-    with deterministic_torch():
-        for i in range(start_step, args.steps):
-            batch = batch_on(cfg, next(stream), i, device)
-            params, opt_state, m = step_fn(params, opt_state, batch)
-            if (i + 1) % args.log_every == 0 or i == start_step:
-                loss = float(m["loss"])  # waits for the step
-                tps = (i + 1 - start_step) * args.batch * args.seq / (
-                    time.perf_counter() - t0)
-                print(f"step {i + 1:5d}  loss {loss:.4f}  "
-                      f"gnorm {float(m['grad_norm']):.2f}  lr {float(m['lr']):.2e}  "
-                      f"{tps:.0f} tok/s")
+    for i in range(start_step, args.steps):
+        m = prog.step(batch_on(cfg, next(stream), i, device))
+        if (i + 1) % args.log_every == 0 or i == start_step:
+            loss = float(m["loss"])  # waits for the step
+            tps = (i + 1 - start_step) * args.batch * args.seq / (
+                time.perf_counter() - t0)
+            print(f"step {i + 1:5d}  loss {loss:.4f}  "
+                  f"gnorm {float(m['grad_norm']):.2f}  lr {float(m['lr']):.2e}  "
+                  f"{tps:.0f} tok/s")
     if args.ckpt:
-        save(args.ckpt, params, opt_state, step=args.steps)
+        save(args.ckpt, prog.params, prog.opt_state, step=args.steps)
         print(f"saved checkpoint to {args.ckpt}")
 
 

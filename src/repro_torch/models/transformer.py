@@ -362,7 +362,9 @@ def forward_train(
     must be longer than one token (a single-token cross pass runs the
     forward-only ``decode_attention`` kernel).  ``remat`` recomputes each
     block in the backward pass (``torch.utils.checkpoint``, not
-    reentrant), as ``jax.checkpoint`` of the block body does.  The
+    reentrant), as ``jax.checkpoint`` of the block body does; the forward
+    draws no random numbers, so the checkpoint keeps no generator state
+    (reading the CUDA generator's state is what a graph capture refuses).  The
     reference's ``unroll`` has no meaning for a Python loop and is dropped.
     ``params`` is the JAX tree (``training.train.train_params``) or a
     serving tree with the derived ``unembed``."""
@@ -388,7 +390,8 @@ def forward_train(
         block = functools.partial(_train_block, cfg, fkd + b * period, period)
         if remat:
             x, aux = torch.utils.checkpoint.checkpoint(
-                block, bp, x, cross_kv, schedule, use_reentrant=False)
+                block, bp, x, cross_kv, schedule, use_reentrant=False,
+                preserve_rng_state=False)
         else:
             x, aux = block(bp, x, cross_kv, schedule)
         auxs.append(aux)

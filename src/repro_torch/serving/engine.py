@@ -260,8 +260,10 @@ class Engine:
         self._verify_body = make_verify_body(
             cfg, group, window, self.pool.layout, paged=self._paged_fwd)
         # one program per shape class (serving.programs), the reference's
-        # _fns cache plus its verify program
+        # _fns cache plus its verify program, their graphs in one pool that
+        # goes back to the card with the engine
         self._programs: Dict[Any, programs.Program] = {}
+        self._graph_pool = programs.Pool()
         self._pad_row: Optional[torch.Tensor] = None
         self._now = 0  # logical iteration counter
         self.num_preemptions = 0
@@ -534,7 +536,8 @@ class Engine:
         prog = self._programs.get(key)
         if prog is None:
             ref = weakref.ref(self)
-            prog = programs.Program(key, lambda *args: fn(ref(), *args), self.device)
+            prog = programs.Program(key, lambda *args: fn(ref(), *args), self.device,
+                                    pool=self._graph_pool)
             self._programs[key] = prog
         return prog
 

@@ -15,11 +15,12 @@ the host), then:
   and this call's real work: the state it updates is updated once), then
   captures the body into a CUDA graph on that stream; every later call
   replays the graph and returns its static outputs.  Every warm-up and
-  capture of the process runs on one side stream a device, and the graphs
-  alive at once share one memory pool (``torch.cuda.graph_pool_handle``):
-  the caching allocator reuses a block only on the stream it was made on
-  and within its pool, so captures on streams or in pools of their own
-  would each keep their own memory; a pool is freed with its last graph;
+  capture of the process runs on one side stream a device: the caching
+  allocator reuses a block only on the stream it was made on, so captures
+  on streams of their own would each keep their own memory.  The graphs
+  of one owner (an engine, a training program) share that owner's
+  :class:`Pool`; when its last graph goes, the pool is given up and its
+  memory returned to the card at once;
 * on the CPU, every call runs the body on the same buffers.
 
 Outputs of a replay are the graph's own tensors: the next replay of any
@@ -30,6 +31,13 @@ falls back to running the body eagerly.  ``eager()`` is the counterpart of
 its arguments (moved to the device), as the port ran before it had
 programs; the determinism checker records bodies and ``chip_smoke.py``
 compares streams under it.
+
+A body may also update state it closes over rather than takes as input (a
+training program's parameters and optimizer state).  Such a program is made
+with ``warm_up``, a run of the body that leaves the state as it found it:
+the card's first call runs ``warm_up`` on the side stream and captures
+``fn``, so every call, the first included, is a replay; ``capture`` does
+the warm-up and the capture ahead of the first call.
 
 Each program counts its captures, its replays and the runs of its body
 outside a capture (``runs``: the card's one warm-up, every call on the CPU
@@ -92,37 +100,73 @@ def _unflatten(spec: Any, leaves: Iterator[torch.Tensor]) -> Any:
     return kind(_unflatten(x, leaves) for x in items)
 
 
-#: per device: [the side stream, the graph pool handle (None until the
-#: next capture), the captured programs alive]
+#: per device: the side stream every warm-up and capture runs on
 _sides: dict = {}
+#: captures running now, and graphs given up meanwhile (released after it)
+_capturing = 0
+_deferred: list = []
 
 
-def _side(device: torch.device) -> list:
-    """``device``'s entry of ``_sides``, with a pool handle.  The pool
-    lives while a graph captured into it does: when the last one goes,
-    the caching allocator frees the pool, and its handle must not be used
-    again (``_released``), so the next capture starts a new one."""
+def _side(device: torch.device) -> torch.cuda.Stream:
     idx = device.index if device.index is not None else torch.cuda.current_device()
-    side = _sides.setdefault(idx, [torch.cuda.Stream(idx), None, 0])
-    if side[1] is None:
-        side[1] = torch.cuda.graph_pool_handle()
-    return side
+    if idx not in _sides:
+        _sides[idx] = torch.cuda.Stream(idx)
+    return _sides[idx]
 
 
-def _released(side: list) -> None:
-    side[2] -= 1
-    if side[2] == 0:
-        side[1] = None
+class Pool:
+    """The graph memory pool of one owner's programs (an engine's, a
+    training program's).  It lives while a graph captured into it does:
+    when the last one goes, the caching allocator gives the pool up, its
+    handle must not be used again (the next capture starts a new one), and
+    the pool's memory goes back to the card (``torch.cuda.empty_cache``,
+    which frees every cached block no tensor holds; the allocator itself
+    frees a given-up pool only when an allocation fails)."""
+
+    def __init__(self) -> None:
+        self.handle: Any = None
+        self.graphs = 0
+
+    def take(self) -> Any:
+        """The handle a capture starts with: read just before it, since a
+        collection in between may have given the pool up."""
+        if self.handle is None:
+            self.handle = torch.cuda.graph_pool_handle()
+        return self.handle
+
+
+def _release(pool: Pool, graph: torch.cuda.CUDAGraph, *held: list) -> None:
+    """A captured program is going (its finalizer runs before its
+    attributes are dropped): reset its graph, which gives up its share of
+    the pool, empty its lists of buffers and outputs (``held``), and
+    return the pool's memory if that was the pool's last graph.  Deferred
+    to the end of a capture that is running: nothing may be freed to the
+    card inside one."""
+    if _capturing:
+        _deferred.append((pool, graph) + held)
+        return
+    graph.reset()
+    for tensors in held:
+        tensors.clear()
+    pool.graphs -= 1
+    if pool.graphs == 0:
+        pool.handle = None
+        torch.cuda.empty_cache()
 
 
 class Program:
     """One engine body under one shape-class key (see the module
-    docstring).  ``fn`` takes and returns trees of tensors."""
+    docstring).  ``fn`` takes and returns trees of tensors; ``pool`` is
+    the owner's (a pool of the program's own when None); ``warm_up``, when
+    given, is ``fn`` without its effects on closed-over state."""
 
-    def __init__(self, key: Hashable, fn: Callable, device: torch.device):
+    def __init__(self, key: Hashable, fn: Callable, device: torch.device, *,
+                 pool: Optional[Pool] = None, warm_up: Optional[Callable] = None):
         self.key = key
         self.fn = fn
+        self.warm_up = warm_up
         self.device = torch.device(device)
+        self.pool = pool if pool is not None else Pool()
         self.captures = 0
         self.replays = 0
         self.runs = 0  # body runs outside a capture
@@ -144,15 +188,29 @@ class Program:
             return self.fn(*_unflatten(spec, iter(
                 [t.to(self.device) for t in leaves])))
         self._fill(args)
-        if self._graph is not None:
-            self._graph.replay()
-            self.replays += 1
-            recording.add_launches(self._launches)
-            return _unflatten(self._out_spec, iter(self._outputs))
         if self.device.type != "cuda":
             self.runs += 1
-            return self._run()
-        return self._warm_up_and_capture()
+            return self._run(self.fn)
+        if self._graph is None:
+            out = self._warm_up_and_capture()
+            if self.warm_up is None:
+                return out  # the warm-up was this call's work
+        self._graph.replay()
+        self.replays += 1
+        recording.add_launches(self._launches)
+        return _unflatten(self._out_spec, iter(self._outputs))
+
+    def capture(self, *args: Any) -> None:
+        """Take ``args`` as the first call's inputs and, on the card, warm
+        up and capture without running a step (a program with ``warm_up``
+        only); nothing to do on the CPU, under ``eager()`` or once
+        captured."""
+        assert self.warm_up is not None, f"program {self.key!r} has no warm-up"
+        if _eager_depth:
+            return
+        self._fill(args)
+        if self.device.type == "cuda" and self._graph is None:
+            self._warm_up_and_capture()
 
     # -- inputs ----------------------------------------------------------
 
@@ -186,35 +244,46 @@ class Program:
         if self._staged is not None:
             self._staged.record()
 
-    def _run(self) -> Any:
-        return self.fn(*_unflatten(self._spec, iter(self._inputs)))
+    def _run(self, fn: Callable) -> Any:
+        return fn(*_unflatten(self._spec, iter(self._inputs)))
 
     # -- the card ----------------------------------------------------------
 
     def _warm_up_and_capture(self) -> Any:
+        global _capturing
         t0 = time.perf_counter()
         cur = torch.cuda.current_stream(self.device)
-        entry = _side(self.device)
-        side = entry[0]
+        side = _side(self.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            out = self._run()  # this call's work; lazy one-time setup runs here
+            # lazy one-time setup runs here; without ``warm_up`` this is
+            # the call's work, and the state it updates is updated once
+            out = self._run(self.warm_up or self.fn)
         self.runs += 1
         cur.wait_stream(side)
+        if self.warm_up is not None:
+            out = None
+            # the warm-up's transients leave the side stream's cache, so
+            # that the capture's pool does not stand beside them
+            side.synchronize()
+            torch.cuda.empty_cache()
         before = recording.launch_counts()
         graph = torch.cuda.CUDAGraph()
+        _capturing += 1
         try:
             with torch.cuda.stream(side):
-                # the handle read just before the capture takes the pool:
-                # a collection in between could have given it up
-                graph.capture_begin(pool=_side(self.device)[1])
+                graph.capture_begin(pool=self.pool.take())
                 try:
-                    outs = self._run()
+                    outs = self._run(self.fn)
                 finally:
                     graph.capture_end()
         except Exception as exc:
             raise RuntimeError(
                 f"capture of program {self.key!r} failed: {exc}") from exc
+        finally:
+            _capturing -= 1
+            while _deferred and not _capturing:
+                _release(*_deferred.pop())
         cur.wait_stream(side)
         after = recording.launch_counts()
         # the capture launched nothing: its counts move to the replays
@@ -225,9 +294,9 @@ class Program:
         self._out_spec = _flatten(outs, leaves)
         self._outputs = leaves
         self._graph = graph
-        entry[2] += 1
-        weakref.finalize(self, _released, entry)
+        self.pool.graphs += 1
+        weakref.finalize(self, _release, self.pool, graph, self._outputs, self._inputs,
+                         self._staging).atexit = False
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
         return out
-

@@ -9,7 +9,8 @@ optimizer state (``jax.tree_util`` prints a NamedTuple field as
 numpy writes one: two raw bytes an element (numpy dtype ``V2``), which
 ``restore`` reads back into a bf16 template bitwise (the reference itself
 cannot restore a bf16 archive without ``ml_dtypes``).  Writes are atomic:
-the archive is written to ``path + ".tmp"`` and renamed.
+the archive is written to ``path + ".tmp"`` and renamed.  ``restore``
+builds new trees from templates; ``restore_into`` writes into given ones.
 """
 
 from __future__ import annotations
@@ -97,6 +98,25 @@ def restore(path: str, params_template: Any,
     if opt_template is not None:
         opt_state = _unflatten_into(opt_template, _strip(flat, "opt"))
     return params, opt_state, step
+
+
+def restore_into(path: str, params: Any, opt_state: Any = None) -> int:
+    """Restore ``path`` into the tensors of ``params`` (and ``opt_state``)
+    in place, each leaf cast to its own dtype and device, as ``restore``
+    would build them; returns the archive's step.  A training program's
+    held trees keep their addresses (``training.train.TrainProgram``)."""
+    with np.load(path, allow_pickle=False) as z:
+        flat = {k: z[k] for k in z.files}
+    step = int(flat.pop("__step__", 0))
+    trees = [(params, _strip(flat, "params"))]
+    if opt_state is not None:
+        trees.append((opt_state, _strip(flat, "opt")))
+    for tree, arrays in trees:
+        for key, t in _flatten(tree).items():
+            arr = arrays[key]
+            assert arr.shape == tuple(t.shape), (key, arr.shape, t.shape)
+            t.copy_(_from_numpy(arr, t))
+    return step
 
 
 def _strip(flat: Dict[str, np.ndarray], head: str) -> Dict[str, np.ndarray]:

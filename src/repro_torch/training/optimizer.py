@@ -52,6 +52,15 @@ def tree_leaves(tree: Any) -> List[torch.Tensor]:
     return [tree]
 
 
+def tree_copy_(dst: Any, src: Any) -> None:
+    """Copy each leaf of ``src`` into the leaf of ``dst`` at its path (same
+    shapes and dtypes): how a held tree takes a step's results, no value
+    rounded."""
+    for d, s in zip(tree_leaves(dst), tree_leaves(src), strict=True):
+        assert d.shape == s.shape and d.dtype == s.dtype, (d.shape, s.shape, d.dtype, s.dtype)
+        d.copy_(s)
+
+
 def init_opt_state(params: Any) -> OptState:
     dev = tree_leaves(params)[0].device
     return OptState(

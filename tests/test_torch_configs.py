@@ -46,6 +46,9 @@ from repro_torch.serving.engine import Engine
 from repro_torch.serving.request import Request, SamplingParams
 
 ROOT = Path(__file__).resolve().parents[1]
+#: the serve CLI's process runs with one intra-op thread, as this module's
+#: own tests do: several test workers share the cores
+ONE_THREAD = {"OMP_NUM_THREADS": "1"}
 DENSE = list(configs.DASHED)
 NEW = ["tinyllama-1.1b", "phi3-mini-3.8b", "internlm2-20b", "command-r-35b",
        "llama4-scout-17b-a16e"]
@@ -212,7 +215,7 @@ def test_serve_cli_costed_clock_and_outputs(tmp_path):
          "--metrics-out", str(tmp_path / "metrics.json"),
          "--audit-out", str(tmp_path / "audit.jsonl")],
         capture_output=True, text=True, timeout=300,
-        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", **ONE_THREAD},
     )
     assert out.returncode == 0, out.stderr
     assert "arch=tinyllama-smoke" in out.stdout and "workload=sharegpt" in out.stdout

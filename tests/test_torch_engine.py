@@ -34,6 +34,9 @@ from repro_torch.serving.scheduler import (
 )
 
 ROOT = Path(__file__).resolve().parents[1]
+#: the serve CLI's process runs with one intra-op thread, as this module's
+#: own tests do: several test workers share the cores
+ONE_THREAD = {"OMP_NUM_THREADS": "1"}
 CFG = llama3_8b.smoke_config()
 #: the divergence demo's aggressive fast path: rollbacks actually happen
 DEMO_POLICY = ReductionPolicy(thresholds=((2, 16), (4, 8), (8, 4)),
@@ -119,8 +122,15 @@ def _run(params, mode, *, policy=DEMO_POLICY, neighbours=0, scheduler=None,
 
 
 @pytest.fixture(scope="module")
-def reference_stream(port_params):
-    return _run(port_params, Mode.LLM42).committed
+def reference_request(port_params):
+    """The LLM42 request alone under the demo policy (the streams' reference
+    and the rollback test's run)."""
+    return _run(port_params, Mode.LLM42)
+
+
+@pytest.fixture(scope="module")
+def reference_stream(reference_request):
+    return reference_request.committed
 
 
 @pytest.mark.parametrize("policy", ["pause", "overlap", "adaptive"])
@@ -145,20 +155,25 @@ def test_llm42_chunked_prefill_matches_exclusive(port_params, reference_stream):
                 prefill_chunk=4).committed == reference_stream
 
 
-def test_llm42_rolls_back_under_demo_policy(port_params):
+def test_llm42_rolls_back_under_demo_policy(reference_request):
     """Alone (B = 1, 16 splits) the fast path flips tokens that the verifier
     rejects, so the reference stream above went through rollbacks."""
-    r = _run(port_params, Mode.LLM42)
+    r = reference_request
     assert r.num_rollbacks > 0 and r.num_recomputed_tokens > 0
 
 
+@pytest.fixture(scope="module")
+def batch_invariant_alone(port_params):
+    return _run(port_params, Mode.BATCH_INVARIANT, max_new=16).committed
+
+
 @pytest.mark.parametrize("neighbours", [3, 6])
-def test_batch_invariant_streams_identical_across_traffic(port_params, neighbours):
+def test_batch_invariant_streams_identical_across_traffic(port_params, batch_invariant_alone,
+                                                          neighbours):
     """BATCH_INVARIANT runs every pass under the commit schedule, so the
     stream cannot depend on the decode batch's size."""
-    alone = _run(port_params, Mode.BATCH_INVARIANT, max_new=16).committed
     assert _run(port_params, Mode.BATCH_INVARIANT, neighbours=neighbours,
-                max_new=16).committed == alone
+                max_new=16).committed == batch_invariant_alone
 
 
 def test_nondet_diverges_across_traffic(port_params):
@@ -214,7 +229,7 @@ def test_serve_cli_on_cpu():
         [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
          "--device", "cpu", "--requests", "3", "--max-new", "6"],
         capture_output=True, text=True, timeout=300,
-        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", **ONE_THREAD},
     )
     assert out.returncode == 0, out.stderr
     assert "finished 3 requests, 18 tokens committed" in out.stdout

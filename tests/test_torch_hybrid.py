@@ -353,38 +353,59 @@ def test_engine_matches_jax_engine(shared):
     print(f"near-ties that ended a comparison: {near_ties}")
 
 
+@pytest.fixture(scope="module")
+def alone_runs(shared):
+    """The deterministic requests 0 and 2 alone, per (mode, lane), each run
+    once: a lane's run is also the other lane's comparison."""
+    runs = {}
+
+    def get(mode, paged):
+        if (mode, paged) not in runs:
+            runs[mode, paged] = _run(shared[2], rids=(0, 2), mode=mode, paged_attention=paged)
+        return runs[mode, paged]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def overlap_run(shared):
+    """Overlap at spec_depth 2 with a 20 ms verify latency: the spec-depth
+    test's run and the preemption test's reference."""
+    return _run(shared[2], scheduler=OverlapPolicy(), spec_depth=2, verify_latency_ms=20.0)
+
+
 @pytest.mark.parametrize("paged", [True, False], ids=["paged", "gathered"])
 @pytest.mark.parametrize("mode", [Mode.LLM42, Mode.BATCH_INVARIANT], ids=lambda m: m.value)
-def test_streams_alone_and_beside_neighbours(shared, mode, paged):
+def test_streams_alone_and_beside_neighbours(shared, alone_runs, mode, paged):
     """The greedy (0) and seeded (2) deterministic requests commit the same
     stream alone and beside 3 neighbours, and the lanes agree."""
     _, _, tp = shared
-    alone, _ = _run(tp, rids=(0, 2), mode=mode, paged_attention=paged)
+    alone, _ = alone_runs(mode, paged)
     crowd, eng = _run(tp, rids=(0, 1, 2, 3, 4), mode=mode, paged_attention=paged)
     assert eng.pool.paged
     for rid in (0, 2):
         assert len(alone[rid]) == 10
         assert alone[rid] == crowd[rid], rid
     if mode == Mode.LLM42:
-        other, _ = _run(tp, rids=(0, 2), mode=mode, paged_attention=not paged)
+        other, _ = alone_runs(mode, not paged)
         assert other[0] == alone[0] and other[2] == alone[2]
 
 
-def test_spec_depth_two_overlap_equals_pause(shared):
+def test_spec_depth_two_overlap_equals_pause(shared, overlap_run):
     _, _, tp = shared
     base, _ = _run(tp, scheduler=PauseDecodePolicy())
-    got, eng = _run(tp, scheduler=OverlapPolicy(), spec_depth=2, verify_latency_ms=20.0)
+    got, eng = overlap_run
     for rid in (0, 2):
         assert got[rid] == base[rid], rid
     assert eng.statepool.peak_depth >= 2
 
 
-def test_preempt_and_restore_keep_the_stream(shared):
+def test_preempt_and_restore_keep_the_stream(shared, overlap_run):
     """A request evicted mid-run (its slot's mamba state wiped, its KV
     blocks freed) is restored by recompute and commits the stream of the
     run without the eviction."""
     _, _, tp = shared
-    base, _ = _run(tp, scheduler=OverlapPolicy(), spec_depth=2, verify_latency_ms=20.0)
+    base, _ = overlap_run
     got, eng = _run(tp, scheduler=OverlapPolicy(), spec_depth=2, verify_latency_ms=20.0,
                     preempt_at=6)
     assert eng.num_preemptions == 1 and eng.num_restores == 1

@@ -46,6 +46,9 @@ from repro_torch.serving.request import Request, SamplingParams
 from repro_torch.serving.scheduler import PauseDecodePolicy
 
 ROOT = Path(__file__).resolve().parents[1]
+#: the serve CLI's process runs with one intra-op thread, as this module's
+#: own tests do: several test workers share the cores
+ONE_THREAD = {"OMP_NUM_THREADS": "1"}
 ARCH = "llava-next-mistral-7b"
 CFG = configs.get_smoke_config(ARCH)
 P = CFG.num_prefix_embeds
@@ -341,7 +344,7 @@ def test_serve_cli_on_cpu():
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH, "--smoke",
          "--device", "cpu", "--requests", "3", "--max-new", "5"],
         capture_output=True, text=True, timeout=300,
-        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", **ONE_THREAD},
     )
     assert out.returncode == 0, out.stderr
     assert "finished 3 requests, 15 tokens committed" in out.stdout

@@ -9,6 +9,9 @@
   under ``programs.eager()`` in all three modes on both lanes, for rwkv6 and
   seamless too; an engine that serves traffic A and then traffic B gives
   B's streams of a fresh engine.
+* A drained engine's schedule: traffic B after other traffic is scheduled
+  pass by pass as the reference engine schedules it, which differs from a
+  fresh engine's through the logical clock and the slot free list.
 * The ``Program`` itself: one input buffer per input, reused at every
   call; inputs of another shape refused, naming the key; ``eager()`` calls
   the body on its arguments; ``kernels.recording.add_launches``.
@@ -66,23 +69,32 @@ def _norm(key):
     return tuple(tuple(x) if isinstance(x, tuple) else x for x in key)
 
 
-def test_program_keys_equal_reference_fns():
+@pytest.fixture(scope="module")
+def shared():
+    """(the JAX smoke config, its params, the same params in the port) for
+    the tests that run the reference engine."""
     jax = pytest.importorskip("jax")
     from repro.configs import get_smoke_config as jax_smoke
-    from repro.core.determinism import Mode as JMode
     from repro.models import init_params as jax_init
+
+    from repro_torch.models.convert import params_from_numpy
+
+    jcfg = jax_smoke("llama3-8b")
+    jax_params = jax_init(jcfg, jax.random.key(0))
+    return jcfg, jax_params, params_from_numpy(
+        CFG, jax.tree_util.tree_map(np.asarray, jax_params), "cpu")
+
+
+def test_program_keys_equal_reference_fns(shared):
+    from repro.core.determinism import Mode as JMode
     from repro.serving.engine import Engine as JEngine
     from repro.serving.request import Request as JRequest, SamplingParams as JSampling
     from repro.serving.scheduler import OverlapPolicy as JOverlap
 
-    from repro_torch.models.convert import params_from_numpy
-
-    jax_params = jax_init(jax_smoke("llama3-8b"), jax.random.key(0))
-    port_params = params_from_numpy(
-        CFG, jax.tree_util.tree_map(np.asarray, jax_params), "cpu")
+    jcfg, jax_params, port_params = shared
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, CFG.vocab_size, n).tolist() for n in PARITY_LENS]
-    jeng = JEngine(jax_smoke("llama3-8b"), jax_params, mode=JMode.LLM42,
+    jeng = JEngine(jcfg, jax_params, mode=JMode.LLM42,
                    scheduler=JOverlap(), **PARITY_KW)
     teng = Engine(CFG, port_params, mode=Mode.LLM42, scheduler=OverlapPolicy(),
                   **PARITY_KW)
@@ -179,6 +191,86 @@ def test_stale_buffers_a_then_b(params):
     det = [r.rid for r in _requests(CFG, 4, seed=6, lens=lens_b)
            if r.sampling.is_deterministic]
     assert det and all(got[False][r] == fresh[r] for r in det)
+
+
+#: the drained-engine trace: traffic A, then traffic B on the same engine;
+#: requests of one new token (T0), so that every pass is a prefill chunk,
+#: picked by ``scheduler.pick_prefill``, and the reference compiles one
+#: program
+DRAIN_KW = dict(window=4, group=2, max_batch=3, capacity=64, prefill_chunk=8,
+                spec_depth=2, paged_attention=False)
+
+
+def _drain_traffic(request, sampling, seed):
+    rng = np.random.default_rng(seed)
+    return [request(rid=i, prompt=rng.integers(0, CFG.vocab_size, int(rng.integers(9, 24)))
+                    .tolist(), sampling=sampling(max_new_tokens=1, is_deterministic=i % 2 == 0,
+                                                 seed=10 * seed + i))
+            for i in range(4)]
+
+
+def _schedule(eng, reqs):
+    """Each step's passes (kind, rids) and its running requests' slots and
+    positions (prompt and committed tokens)."""
+    for r in reqs:
+        eng.submit(r)
+    steps, seen = [], len(eng.events)
+    while eng.queue or eng.running:
+        eng.step()
+        passes = [(e["kind"], tuple(e.get("rids", [e.get("rid")])))
+                  for e in eng.events[seen:]]
+        seen = len(eng.events)
+        steps.append((passes, sorted((r.rid, r.slot, len(r.prompt) + len(r.committed))
+                                     for r in eng.running)))
+    return steps
+
+
+def _slots(steps):
+    return [[(rid, slot) for rid, slot, _ in running] for _, running in steps]
+
+
+def test_drained_engine_schedule_follows_the_reference(shared):
+    """A drained engine schedules traffic pass by pass as the reference
+    engine does on the same trace (traffic B on a fresh engine, then A,
+    then B again; NONDET, whose schedule no token value moves), and
+    otherwise than a fresh engine.  For A then B, two states carry over:
+    the logical clock ``_now``, whose phase ``scheduler.pick_prefill``
+    reads (``now % 4``), and the slot free list, which hands B the slots
+    in the order A's requests finished.  With both reset after A, B's
+    schedule is a fresh engine's.  (B run again also meets its own prompts
+    in the prefix cache.)"""
+    from repro.core.determinism import Mode as JMode
+    from repro.serving.engine import Engine as JEngine
+    from repro.serving.request import Request as JRequest, SamplingParams as JSampling
+    from repro.serving.scheduler import OverlapPolicy as JOverlap
+
+    jcfg, jax_params, port_params = shared
+
+    def port():
+        return Engine(CFG, port_params, mode=Mode.NONDET, scheduler=OverlapPolicy(),
+                      **DRAIN_KW)
+
+    def traffic(seed):
+        return _drain_traffic(Request, SamplingParams, seed)
+
+    eng = port()
+    got = {"port": [_schedule(eng, traffic(seed)) for seed in (2, 1, 2)]}
+    jeng = JEngine(jcfg, jax_params, mode=JMode.NONDET, scheduler=JOverlap(), **DRAIN_KW)
+    got["ref"] = [_schedule(jeng, _drain_traffic(JRequest, JSampling, seed))
+                  for seed in (2, 1, 2)]
+    assert got["port"] == got["ref"]
+    fresh = got["port"][0]
+    assert got["ref"][2] != fresh  # the reference's drained engine differs too
+    eng = port()
+    _schedule(eng, traffic(1))
+    after = _schedule(eng, traffic(2))
+    assert [p for p, _ in after] != [p for p, _ in fresh]  # the passes differ
+    assert _slots(after) != _slots(fresh)  # and the slots
+    eng = port()
+    _schedule(eng, traffic(1))
+    eng._now = 0
+    eng.pool._free.sort()
+    assert _schedule(eng, traffic(2)) == fresh
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "seamless-m4t-medium"])

@@ -378,10 +378,18 @@ def _pause_run():
     return _BASE["b"]
 
 
+def _overlap_run(depth, latency):
+    """``_run`` under the overlap scheduler, once per (depth, latency):
+    the spec-depth and the preemption tests read the same run."""
+    if (depth, latency) not in _BASE:
+        _BASE[depth, latency] = _run(OverlapPolicy(), depth=depth, verify_latency_ms=latency)
+    return _BASE[depth, latency]
+
+
 @pytest.mark.parametrize("depth,latency,min_depth", [(2, 20.0, 2), (4, 50.0, 3)])
 def test_spec_depth_commits_the_pause_streams(depth, latency, min_depth):
     base = _pause_run()
-    got, eng = _run(OverlapPolicy(), depth=depth, verify_latency_ms=latency)
+    got, eng = _overlap_run(depth, latency)
     for rid in (0, 2):
         assert got[rid].committed == base[rid].committed, rid
     assert eng.statepool.peak_depth >= min_depth
@@ -402,7 +410,7 @@ def test_preempt_and_restore_keep_the_stream():
     """A request evicted mid-run (its slot's live state wiped for the
     replay) is restored by recompute: it commits the stream of the run
     without the eviction."""
-    base, _ = _run(OverlapPolicy(), depth=2, verify_latency_ms=20.0)
+    base, _ = _overlap_run(2, 20.0)
     got, eng = _run(OverlapPolicy(), depth=2, verify_latency_ms=20.0, preempt_at=6)
     assert eng.num_preemptions == 1 and eng.num_restores == 1
     assert eng.statepool.num_preempts == 1

@@ -39,6 +39,9 @@ from repro_torch.serving.request import Request, SamplingParams
 from repro_torch.serving.scheduler import AdaptivePolicy, OverlapPolicy, PauseDecodePolicy
 
 ROOT = Path(__file__).resolve().parents[1]
+#: the serve CLI's process runs with one intra-op thread, as this module's
+#: own tests do: several test workers share the cores
+ONE_THREAD = {"OMP_NUM_THREADS": "1"}
 CFG = configs.get_smoke_config("llama3-8b")
 #: f32 combine: the two frameworks' f32 partials differ by summation order
 TP_TOL = 1e-5
@@ -215,7 +218,7 @@ def test_serve_cli_tp(tp, ok):
         [sys.executable, "-m", "repro_torch.launch.serve", "--smoke", "--device", "cpu",
          "--requests", "3", "--max-new", "6", "--tp", str(tp)],
         capture_output=True, text=True, timeout=300,
-        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", **ONE_THREAD})
     if ok:
         assert out.returncode == 0, out.stderr[-2000:]
         assert f"tp={tp}" in out.stdout and "finished 3 requests" in out.stdout

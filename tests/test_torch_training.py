@@ -7,7 +7,8 @@
   through ``params_from_numpy``) at the f32 smoke ``tinyllama-1.1b``:
   ``forward_train``'s logits within ``FWD_TOL``; ``lm_loss`` and every
   gradient leaf against ``jax.value_and_grad`` within ``GRAD_REL`` of the
-  leaf's max |g|; one ``train_step``'s parameters (within ``STEP_TOL``: at
+  leaf's max |g|; one ``train_step``'s parameters, and the training
+  program's first step's (within ``STEP_TOL``: at
   step 1 AdamW moves each weight by about lr * sign(g), so a gradient near
   zero whose sign differs across frameworks moves it by up to 2 lr) and
   metrics; ``forward_train`` with its ``aux_loss`` at the smoke
@@ -371,30 +372,38 @@ def _jax_setup(arch, tree):
 
 
 @pytest.fixture(scope="module")
-def jax_grads(setup):
-    """JAX's (total, metrics, grads) of ``lm_loss`` at the shared weights."""
-    _, tree, nb = setup
-    jax, jnp, jcfg, jp = _jax_setup(ARCH, tree)
-    from repro.training.train import lm_loss as jlm_loss
-
-    def loss_fn(p):
-        return jlm_loss(p, jcfg, jnp.asarray(nb["tokens"]), jnp.asarray(nb["targets"]),
-                        jnp.asarray(nb["loss_mask"]))
-
-    (total, metrics), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(jp)
-    return total, metrics, grads
-
-
-@pytest.fixture(scope="module")
-def jax_step(setup):
-    """One JAX ``train_step`` at the shared weights: (params, state, metrics)."""
+def jax_reference(setup):
+    """The JAX package at the shared weights, in one ``jax.jit`` (one
+    compilation for both): ``(total, metrics, grads)`` of
+    ``jax.value_and_grad`` of ``lm_loss``, and one ``train_step``'s
+    ``(params, state, metrics)``."""
     _, tree, nb = setup
     jax, jnp, jcfg, jp = _jax_setup(ARCH, tree)
     from repro.training.optimizer import AdamWConfig as JAdamW, init_opt_state as jinit
-    from repro.training.train import make_train_step as jmake
+    from repro.training.train import lm_loss as jlm_loss, make_train_step as jmake
 
-    step = jax.jit(jmake(jcfg, JAdamW(**dataclasses.asdict(OPT))))
-    return step(jp, jinit(jp), {k: jnp.asarray(v) for k, v in nb.items()})
+    step = jmake(jcfg, JAdamW(**dataclasses.asdict(OPT)))
+
+    def both(p, state, batch):
+        def loss_fn(q):
+            return jlm_loss(q, jcfg, batch["tokens"], batch["targets"], batch["loss_mask"])
+
+        (total, metrics), grads = jax.value_and_grad(loss_fn, has_aux=True)(p)
+        return (total, metrics, grads), step(p, state, batch)
+
+    return jax.jit(both)(jp, jinit(jp), {k: jnp.asarray(v) for k, v in nb.items()})
+
+
+@pytest.fixture(scope="module")
+def jax_grads(jax_reference):
+    """JAX's (total, metrics, grads) of ``lm_loss`` at the shared weights."""
+    return jax_reference[0]
+
+
+@pytest.fixture(scope="module")
+def jax_step(jax_reference):
+    """One JAX ``train_step`` at the shared weights: (params, state, metrics)."""
+    return jax_reference[1]
 
 
 def test_forward_train_logits_match_jax(setup):
@@ -432,6 +441,25 @@ def test_train_step_matches_jax(setup, jax_step):
     _assert_tree_close(state.mu, jstate.mu, rel=GRAD_REL)
     _assert_tree_close(state.nu, jstate.nu, rel=2 * GRAD_REL)
     assert int(state.step) == int(jstate.step) == 1
+    for k in ("loss", "grad_norm", "lr", "tokens"):
+        assert float(m[k]) == pytest.approx(float(jm[k]), rel=1e-5), k
+
+
+def test_train_program_step_matches_jax(setup, jax_step):
+    """The training program's first step (``make_train_program``, the
+    counterpart of the reference's jitted step) against that jitted step,
+    within the eager step's tolerances."""
+    from repro_torch.training.train import make_train_program
+
+    params, _, nb = setup
+    jnew, jstate, jm = jax_step
+    prog = make_train_program(CFG, OPT, device="cpu")
+    prog.load(params)
+    m = prog.step(torch_batch(nb))
+    _assert_tree_close(prog.params, jnew, atol=STEP_TOL)
+    _assert_tree_close(prog.opt_state.mu, jstate.mu, rel=GRAD_REL)
+    _assert_tree_close(prog.opt_state.nu, jstate.nu, rel=2 * GRAD_REL)
+    assert int(prog.opt_state.step) == int(jstate.step) == 1
     for k in ("loss", "grad_norm", "lr", "tokens"):
         assert float(m[k]) == pytest.approx(float(jm[k]), rel=1e-5), k
 
