@@ -6,7 +6,7 @@ of Llama-3-8B (``repro_torch/configs/llama3_8b.py::config``), random weights
 from a seed, on both memory lanes: the paged lane (``paged_attention=True``,
 the main path) and the gathered lane (``paged_attention=False``):
 
-1. build   compile the six Hopper kernels from ``src/repro_torch/kernels/
+1. build   compile the Hopper kernels from ``src/repro_torch/kernels/
            csrc`` (nvcc, in parallel), print ``ptxas -v``'s registers,
            shared memory and spills per kernel, and the card's name and
            power limit;
@@ -32,10 +32,16 @@ the main path) and the gathered lane (``paged_attention=False``):
            an ``rmsnorm`` call is one launch (by kernel name in a profiler
            trace);
 3. serve   serve requests through ``launch/serve.py``'s request builder in
-           LLM42, BATCH_INVARIANT and NONDET mode on each lane, each run
-           with every kernel's launch count reset just before it and read
-           just after; the counts must equal what the engine's passes
-           imply, and each run must reach exactly its kernels; ``rmsnorm``
+           LLM42, BATCH_INVARIANT and NONDET mode on each lane, each engine
+           twice: an untimed run that captures its keys (its captures and
+           capture seconds printed apart), then the same traffic timed on
+           the captured engine (tok/s, rollbacks, recomputed tokens,
+           iterations and device seconds of this run; its deterministic
+           streams equal to the untimed run's, asserted in LLM42 and
+           BATCH_INVARIANT, the rest printed), with every kernel's launch
+           count reset just before it and read just after; the counts must
+           equal what the run's passes imply, and each run must reach
+           exactly its kernels; ``rmsnorm``
            is on no serve path (its contract is not the model's norm), so
            its own path is its entry point ``kernels.ops.rmsnorm``, driven
            with counts reset the same way; every run's engine holds exactly
@@ -215,10 +221,14 @@ the main path) and the gathered lane (``paged_attention=False``):
            bound; the device memory allocated before the phase and after
            it, with everything it made dropped (at most 64 MiB more);
 15. training the GEMMs' backward (``kernels.ops.GemmGrad``: dX = dY W^T
-           and dW = X^T dY in the commit GEMM) against the plain version's
-           autograd at tinyllama's projection shapes and LM head, at M =
-           2048 and 1003, dX's rows bitwise across M, each product timed
-           beside ``torch.matmul`` and its bound; then 4 AdamW steps of
+           and dW = X^T dY in ``gemm_grad``, the transposed operands read in
+           place) against the plain version's autograd at tinyllama's
+           projection shapes and LM head, at M = 2048 and 1003, dX's rows
+           bitwise across M, whether they equal the old route's bits, no
+           copy, transpose or pad kernel in the M = 2048 backward's trace,
+           each product timed beside the old route, ``torch.matmul`` and its
+           bound, and the forward's commit GEMM at M = 2048 beside
+           ``torch.matmul``; then 4 AdamW steps of
            tinyllama (22 layers, full width) at 4 x 512 tokens with remat,
            each a replay of a training program captured once
            (``training.train.make_train_program``): launches per step held
@@ -260,8 +270,10 @@ run's, each config's and each variants, families and modalities run's, and
 the backward products' check and the distribution phases' runs, which are
 comparisons with the logical commit GEMM and so stay out of
 ``launches``; ``max_abs_err_by_config`` holds the configs, variants,
-families and modalities phases' errors, and the commit GEMM's ``backward``
-the backward products' error and times); the last line is
+families and modalities phases' errors, ``gemm_grad``'s ``backward`` the
+backward products' rows beside the old route's times and bits, and the
+commit GEMM's ``training_forward`` its times at training's M); the last
+line is
 ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the script exits non-zero without a result when no CUDA device
 is visible or when it runs outside a checkout of the repository.
@@ -356,6 +368,12 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/gemm_batch_invariant.cu",
         "replaces": "src/repro/kernels/gemm_batch_invariant.py:58",
     },
+    # the training GEMMs' backward products: no TPU kernel (the reference
+    # differentiates core.determinism.matmul through XLA)
+    "gemm_grad": {
+        "source": "src/repro_torch/kernels/csrc/gemm_grad.cu",
+        "replaces": "src/repro/core/determinism.py:247",
+    },
     "gemm_splitk": {
         "source": "src/repro_torch/kernels/csrc/gemm_splitk.cu",
         "replaces": "src/repro/kernels/gemm_splitk.py:63",
@@ -439,7 +457,12 @@ def phase_build() -> None:
     for stem, text in logs.items():
         kernel, spills = None, ""
         for line in text.splitlines():
-            if "Compiling entry function" in line:
+            if stem == "gemm_grad" and "Compiling entry function" in line:
+                # the backward products' tile: one instantiation a layout
+                found = re.search(r"grad_product_kernelILb([01])ELb([01])E", line)
+                kernel = found and (f"grad_product_kernel<A_MN={found.group(1)}, "
+                                    f"B_MN={found.group(2)}>")
+            elif "Compiling entry function" in line:
                 found = re.search(r"(wgmma|fmaf)_partial_kernel", line)
                 head = re.search(r"(?:bfloat16|merge_kernelI)Li4ELi(128|112)EE", line)
                 if found is None and head:
@@ -1022,18 +1045,29 @@ def trace_kernels(torch, fn, calls=1):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):  # a trace now and then holds no activity at all
+    # a short trace now and then holds no activity at all, at times several
+    # in a row, though the kernels ran: the window is padded with idle host
+    # time on both sides, and the retries also record the host's ops, the
+    # profiler's default
+    for attempt in range(5):
+        activities = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * (attempt > 0)
         sync(torch)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
+            time.sleep(0.02)
             for _ in range(calls):
                 fn()
             sync(torch)
+            time.sleep(0.05 * (attempt + 1))
         # the trace also holds the runtime's host calls (cudaLaunchKernelExC...)
-        names = {e.key: e.count for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA}
+        events = prof.key_averages()
+        names = {e.key: e.count for e in events if e.device_type == DeviceType.CUDA}
         if names:
+            if attempt:
+                log(f"[trace] {attempt} empty profiler traces before this one")
             return names
-    raise AssertionError("three profiler traces saw no activity on the card")
+        log(f"[trace] attempt {attempt + 1}: no card activity among {len(events)} "
+            f"event names ({sorted(e.key for e in events)[:8]})")
+    raise AssertionError("five profiler traces saw no activity on the card")
 
 
 def gemm_tiles_run(torch, fn, calls=1):
@@ -1246,11 +1280,13 @@ def check_rmsnorm(torch, cfg, results) -> None:
 
 def reset_launches():
     from repro_torch.kernels import (
-        decode_attention, gemm_batch_invariant, gemm_splitk, paged_attention, rmsnorm,
+        decode_attention, gemm_batch_invariant, gemm_grad, gemm_splitk, paged_attention,
+        rmsnorm,
     )
 
     fns = {
         "gemm_batch_invariant": gemm_batch_invariant.gemm_batch_invariant,
+        "gemm_grad": gemm_grad.gemm_grad,
         "gemm_splitk": gemm_splitk.gemm_splitk,
         "paged_attention": paged_attention.paged_attention,
         "paged_attention_fast": paged_attention.paged_attention_fast,
@@ -1277,6 +1313,18 @@ def record_launches(results, run, counts, main_path=True) -> None:
             results[k]["launches"] += c
 
 
+def drain_prefix_cache(eng, run) -> None:
+    """Returns every block of the drained engine's prefix cache to its pool,
+    as the engine's own allocator does under pressure, so that the timed run
+    prefills the untimed run's prompts again instead of matching them."""
+    cache = eng.prefix_cache
+    if cache is None:
+        return
+    while (bid := cache.evict_lru(eng.pool.alloc_blocks)) is not None:
+        eng.pool.free_blocks([bid])
+    require(cache.size == 0, f"{run}: {cache.size} prefix-cache blocks still held")
+
+
 def phase_serve(torch, cfg, params, capacity, results, summary) -> None:
     from repro_torch.core.determinism import Mode
     from repro_torch.launch.serve import build_requests, serve
@@ -1287,28 +1335,37 @@ def phase_serve(torch, cfg, params, capacity, results, summary) -> None:
         f"heads {cfg.num_heads}/{cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}, {cfg.dtype}; capacity {capacity}; {n_req} requests "
         f"x {max_new} new tokens, window 8, group 4, max_batch 8")
-    # a short warm-up run per lane first: the first run in a process pays
-    # lazy CUDA module loading and allocator growth, which the timed runs
-    # should not
-    for paged in LANES.values():
-        serve(Engine(cfg, params, mode=Mode.LLM42, capacity=capacity,
-                     paged_attention=paged),
-              build_requests(cfg, 2, det_ratio=1.0, max_out=8, seed=1))
+    # each engine serves the traffic twice: the untimed run pays its keys'
+    # warm-ups and captures (and the process's lazy module loading and
+    # allocator growth), the timed run replays them, as the reference's
+    # figures leave compile time out
     for lane, paged in LANES.items():
         for mode in (Mode.LLM42, Mode.BATCH_INVARIANT, Mode.NONDET):
             run = f"{lane}/{mode.value}"
             gc.collect()  # a guard: a dropped engine frees its pool at once
             eng = Engine(cfg, params, mode=mode, capacity=capacity,
                          paged_attention=paged)
-            reqs = build_requests(cfg, n_req, det_ratio=0.5, max_out=max_new, seed=0)
+
+            def traffic():
+                return build_requests(cfg, n_req, det_ratio=0.5, max_out=max_new, seed=0)
+
+            # the untimed run: every key's warm-up and capture
+            first = serve(eng, traffic())
+            warm = check_programs(eng, f"{run} (untimed)")
+            n_first, iters_first = len(first["done"]), first["iterations"]
+            # the engine's finished list grows over both runs: copy the
+            # untimed run's streams before the timed run adds its own
+            streams_first = {r.rid: list(r.committed) for r in first["done"]}
+            drain_prefix_cache(eng, run)
+            events_first = len(eng.events)
             sync(torch)
             torch.cuda.reset_peak_memory_stats()
             fns = reset_launches()
-            res = serve(eng, reqs)
+            res = serve(eng, traffic())
             counts = {name: fn.launches for name, fn in fns.items()}
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             progs = check_programs(eng, run)
-            want = expected_launches(cfg, eng, paged)
+            want = expected_launches(cfg, eng, paged, events=eng.events[events_first:])
             log(f"[serve] {run}: kernel launches {counts}; from the engine's "
                 f"passes {want}")
             require(counts == want, f"{run}: launches do not match the passes run")
@@ -1318,28 +1375,50 @@ def phase_serve(torch, cfg, params, capacity, results, summary) -> None:
             for name, n in counts.items():
                 results[name]["launches_by_mode"][run] = n
                 results[name]["launches"] += n
-            require(res["finished"] == n_req, f"{run}: {res['finished']} finished")
-            for r in res["done"]:
+            done = res["done"][n_first:]
+            require(len(done) == n_req, f"{run}: {len(done)} finished")
+            for r in done:
                 require(len(r.committed) == max_new, f"{run}: rid {r.rid} short")
                 require(all(0 <= t < cfg.vocab_size for t in r.committed),
                         f"{run}: token out of range")
-            tps = res["committed"] / res["device_s"]
+            streams = {r.rid: list(r.committed) for r in done}
+            det = sorted(r.rid for r in done if r.sampling.is_deterministic)
+            same = sorted(r for r in streams if streams[r] == streams_first[r])
+            if mode != Mode.NONDET:
+                require(all(streams[r] == streams_first[r] for r in det),
+                        f"{run}: deterministic streams of the timed run differ from the "
+                        f"untimed run's (rids {det})")
+            committed = sum(r.num_output for r in done)
+            tps = committed / res["device_s"]
             summary[run] = dict(
-                committed=res["committed"], rollbacks=res["rollbacks"],
-                recomputed=res["recomputed"], iterations=res["iterations"],
-                device_s=res["device_s"], committed_tok_per_s=tps,
-                peak_mem_gib=peak, launches=counts, programs=progs)
-            log(f"[serve] {run}: {res['committed']} tokens committed in "
-                f"{res['iterations']} iterations, rollbacks {res['rollbacks']}, "
-                f"recomputed {res['recomputed']}, device time {res['device_s']} s "
-                f"-> {tps} committed tok/s; peak device memory {peak:.3f} GiB; "
-                f"{progs['programs']} programs, each captured once after one "
-                f"warm-up run, {progs['replays']} replays, capture "
-                f"{progs['capture_s']:.3f} s")
+                committed=committed, rollbacks=sum(r.num_rollbacks for r in done),
+                recomputed=sum(r.num_recomputed_tokens for r in done),
+                iterations=res["iterations"] - iters_first, device_s=res["device_s"],
+                committed_tok_per_s=tps, peak_mem_gib=peak, launches=counts,
+                programs=progs, untimed=dict(
+                    device_s=first["device_s"], iterations=iters_first,
+                    committed=first["committed"], captures=warm["captures"],
+                    capture_s=warm["capture_s"],
+                    committed_tok_per_s=first["committed"] / first["device_s"]),
+                captures_timed=progs["captures"] - warm["captures"],
+                streams_equal_untimed=same)
+            t = summary[run]
+            log(f"[serve] {run}: untimed run {first['committed']} tokens in "
+                f"{iters_first} iterations, device time {first['device_s']} s "
+                f"({warm['captures']} captures in {warm['capture_s']:.3f} s: "
+                f"{t['untimed']['committed_tok_per_s']} tok/s with them); timed run on "
+                f"the captured engine: {committed} tokens committed in "
+                f"{t['iterations']} iterations, rollbacks {t['rollbacks']}, recomputed "
+                f"{t['recomputed']}, device time {res['device_s']} s -> {tps} committed "
+                f"tok/s; {t['captures_timed']} captures in the timed run; streams equal "
+                f"to the untimed run's: rids {same} (deterministic {det}); peak device "
+                f"memory {peak:.3f} GiB; {progs['programs']} programs, each captured "
+                f"once, {progs['replays']} replays")
             del eng
     run_rmsnorm_entry_point(torch, cfg, params, results)
     for name, r in results.items():
-        require(r["launches"] > 0, f"{name} was never launched on its path")
+        require(r["launches"] > 0 or name in TRAINING_KERNELS,
+                f"{name} was never launched on its path")
 
 
 def run_rmsnorm_entry_point(torch, cfg, params, results) -> None:
@@ -1376,6 +1455,8 @@ def run_rmsnorm_entry_point(torch, cfg, params, results) -> None:
 #: verify run the commit GEMM in every mode.  rmsnorm is on no serve path
 #: (``run_rmsnorm_entry_point`` drives it).
 _FAST = ("gemm_batch_invariant", "gemm_splitk")
+#: kernels on the training path alone (the training phase checks them)
+TRAINING_KERNELS = ("gemm_grad",)
 PATH_KERNELS = {
     ("paged", "llm42"): _FAST + ("paged_attention_fast",),
     ("paged", "batch_invariant"): ("gemm_batch_invariant", "paged_attention"),
@@ -1424,8 +1505,9 @@ def encoder_gemms(cfg):
     return 7 * cfg.num_encoder_layers + 2 * cfg.num_layers
 
 
-def expected_launches(cfg, eng, paged):
-    """Kernel launches implied by the passes the engine reports: every
+def expected_launches(cfg, eng, paged, events=None):
+    """Kernel launches implied by the passes the engine reports (``events``,
+    by default all of them): every
     forward runs ``forward_gemms``' launches, and every single-token forward
     (a decode pass, or a one-token prefill chunk) of a full-attention config
     one attention launch per layer: on the paged lane the fast paged kernel
@@ -1448,7 +1530,7 @@ def expected_launches(cfg, eng, paged):
     want = dict.fromkeys(KERNELS, 0)
     if n_cross:
         want["gemm_batch_invariant"] += eng.num_cross_builds * encoder_gemms(cfg)
-    for ev in engine_events(eng):
+    for ev in engine_events(eng, events):
         passes = 1
         if ev["kind"] == "prefill":
             passes = ev["padded"] // eng._ring_pass_cap(ev["padded"])
@@ -2059,9 +2141,10 @@ def kernel_events(averages):
             if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
 
 
-def engine_events(eng):
-    """Engine events with composite iterations unpacked into their parts."""
-    for ev in eng.events:
+def engine_events(eng, events=None):
+    """Engine events (``events``, by default all of the engine's) with
+    composite iterations unpacked into their parts."""
+    for ev in eng.events if events is None else events:
         if ev["kind"] == "overlap":
             for k in ("decode", "verify", "prefill"):
                 if k in ev:
@@ -4911,7 +4994,8 @@ TRAIN_ARCH = "tinyllama-1.1b"
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_SAVE_AT, TRAIN_LR = 4, 512, 4, 2, 3e-4
 
 #: M of the backward products' check: a step's token count and one that is
-#: no multiple of 64 (nor of 8: dW's contraction is padded)
+#: no multiple of 64 (nor of 8: dW's contraction ends inside a TMA box,
+#: which fills past it with zeros)
 GRAD_MS = (TRAIN_B * TRAIN_S, 1003)
 
 #: the backward products against the plain version's autograd, in bf16 ulps
@@ -4924,8 +5008,15 @@ GRAD_ULPS = 2
 LIBRARY_GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
 GEMM_NAMESPACE = "gemm_tile::"
 
+#: the backward products' kernel by name (``csrc/gemm_grad.cu``)
+GRAD_TILE = "grad_product_kernel"
+#: substrings (lower case) of the names of kernels that copy, transpose or
+#: pad a tensor (``direct_copy_kernel``, ``Memcpy``, ``constant_pad``, ``cat``)
+COPY_MARKS = ("copy", "transpose", "pad", "cat")
+
 #: (bucket, substrings of a kernel's name) for a training step's device time
 STEP_BUCKETS = (
+    ("backward GEMM (gemm_grad)", (GRAD_TILE,)),
     ("commit GEMM", ("wgmma_partial_kernel", "fmaf_partial_kernel", "tree_combine_kernel",
                      "ordered_fold_kernel")),
     ("fills", ("FillFunctor",)),
@@ -4941,43 +5032,73 @@ STEP_BUCKETS = (
 MICRO_ULPS = 4
 
 
-def train_gemm_launches(cfg, remat):
-    """Commit-GEMM launches of one training step (one microbatch) of a
-    config without head layers or an encoder: every forward GEMM
-    (``forward_gemms``: a dense layer's 7, a hybrid block's attention and
-    mamba layers' 4 and their FFNs' (3, or a MoE layer's router and 3 a
-    expert), and the unembedding), the block layers' again in the
-    recompute when ``remat`` (the unembedding is not rematerialized), and
-    two backward products (one chunk each) for every forward GEMM, since
-    every GEMM's input and weight need a gradient."""
+def train_gemm_launches(cfg, remat, microbatches=1):
+    """GEMM launches of a training step of ``microbatches`` microbatches of
+    a config without head layers or an encoder, as ``gemm_launches``: in
+    the commit GEMM every forward GEMM (``forward_gemms``: a dense layer's
+    7, a hybrid block's attention and mamba layers' 4 and their FFNs' (3,
+    or a MoE layer's router and 3 an expert), and the unembedding), and
+    the block layers' again in the recompute when ``remat`` (the
+    unembedding is not rematerialized); then two backward products for
+    every forward GEMM, since every GEMM's input and weight need a
+    gradient: bf16 ones in ``gemm_grad``, f32 ones (an f32 config's, the
+    MoE experts') in the commit GEMM with one chunk."""
     assert cfg.family in ("dense", "hybrid") and not cfg.first_k_dense
-    fwd = sum(forward_gemms(cfg))
-    return fwd + (fwd - 1 if remat else 0) + 2 * fwd
+    sched, experts = forward_gemms(cfg)
+    fwd = sched + experts
+    bf16 = sched if cfg.dtype == "bfloat16" else 0
+    commit = fwd + (fwd - 1 if remat else 0) + 2 * (fwd - bf16)
+    return gemm_launches(microbatches * commit, microbatches * 2 * bf16)
 
 
-def commit_only(n):
-    """Launch counts of a pass that runs the commit GEMM ``n`` times and no
-    other kernel."""
-    return {k: n if k == "gemm_batch_invariant" else 0 for k in KERNELS}
+def gemm_launches(commit, grad=0):
+    """Launch counts of a pass that runs the commit GEMM ``commit`` times,
+    ``gemm_grad`` ``grad`` times and no other kernel."""
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(gemm_batch_invariant=commit, gemm_grad=grad)
+    return want
+
+
+def old_grad_route(a, b):
+    """The backward products' route before ``gemm_grad`` (kept as the
+    yardstick of its times and bits): both operands materialized, the
+    contraction padded with zero columns to a multiple of 8, the commit GEMM
+    with one chunk (its f32 partial workspace and combine pass)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
+
+    pad = -a.shape[1] % 8
+    if pad:
+        a, b = F.pad(a, (0, pad)), F.pad(b, (0, 0, 0, pad))
+    return gemm_batch_invariant(a.contiguous(), b.contiguous(), chunks=1)
 
 
 def check_backward_products(torch, cfg, results) -> None:
     """``ops.matmul``'s backward (``GemmGrad``) at tinyllama's projection
     shapes and LM head: dX = dY W^T and dW = X^T dY against the plain
     version's autograd on the card within GRAD_ULPS, at M in GRAD_MS; dX's
-    rows bitwise across M; three commit-GEMM launches a call (the forward's
-    4 chunks, two products of one) and no split-K launch; a profiler trace
-    of one call holds the tensor-core tile and no library GEMM kernel; then
-    each product timed beside ``torch.matmul`` on the same operands and its
-    bound."""
+    rows bitwise across M; three launches a call (the forward's commit GEMM
+    with 4 chunks, the two products in ``gemm_grad``) and no split-K launch;
+    whether each product equals the old route's bits (``old_grad_route``,
+    printed); a profiler trace of one forward and backward holds no library
+    GEMM kernel, and one of a backward alone at M = 2048 the two products
+    and no copy, transpose or pad kernel.  Then, at M = 2048, each product
+    timed beside the old route (with its copies, and its GEMM alone on
+    materialized operands), ``torch.matmul`` on the same operands, the plain
+    version and its bound; and the forward's commit GEMM (4 chunks) at the
+    same shapes beside ``torch.matmul`` and its bound."""
     from repro_torch.core.determinism import VERIFY_SCHEDULE
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
 
     g = torch.Generator(device=DEV).manual_seed(30)
     bf = torch.bfloat16
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
-    rows, errs = [], []
+    flush = scratch.zero_
+    rows, fwd_rows, errs, old_bits = [], [], [], {}
     checked = dict.fromkeys(KERNELS, 0)
+    per_call = gemm_launches(1, 2)
     for K, N in projections(cfg):
         Mx = max(GRAD_MS)
         x_all = torch.randn((Mx, K), generator=g, device=DEV).to(bf)
@@ -4990,8 +5111,7 @@ def check_backward_products(torch, cfg, results) -> None:
             fns = reset_launches()
             ops.matmul(x, wk, VERIFY_SCHEDULE).backward(dy_all[:M])
             counts = launch_counts(fns)
-            require(counts == {k: 3 if k == "gemm_batch_invariant" else 0 for k in counts},
-                    f"GemmGrad ({M},{K})@({K},{N}): launches {counts}")
+            require(counts == per_call, f"GemmGrad ({M},{K})@({K},{N}): launches {counts}")
             for k, c in counts.items():
                 checked[k] += c
             xr = x_all[:M].clone().requires_grad_(True)
@@ -5003,6 +5123,10 @@ def check_backward_products(torch, cfg, results) -> None:
                 errs.append(err)
                 require(err <= tol, f"GemmGrad {name} M={M} ({K},{N}): max abs err "
                         f"{err:.3e} > {tol:.3e}")
+            dy = dy_all[:M]
+            old_bits[f"({M},{K},{N})"] = (
+                torch.equal(x.grad, old_grad_route(dy, w.t())),
+                torch.equal(wk.grad, old_grad_route(x_all[:M].t(), dy)))
             got[M] = x.grad
         m0, m1 = GRAD_MS
         require(torch.equal(got[m1], got[m0][:m1]),
@@ -5017,41 +5141,88 @@ def check_backward_products(torch, cfg, results) -> None:
                     f"GemmGrad's trace: library GEMMs {library} among {sorted(names)}")
             log(f"[training] one GemmGrad forward + backward at ({Mx},{K})@({K},{N}) "
                 f"launched {sorted(names)}: no library GEMM")
+            out = ops.matmul(x, wk, VERIFY_SCHEDULE)
+
+            def backward():
+                x.grad = wk.grad = None
+                out.backward(dy_all, retain_graph=True)
+
+            # three calls: a trace of one short backward came back empty
+            # five times in a row on the card
+            names = trace_kernels(torch, backward, calls=3)
+            copies = [n for n in names if any(m in n.lower() for m in COPY_MARKS)]
+            grads = sum(c for n, c in names.items() if GRAD_TILE in n)
+            require(grads == 2 * 3 and not copies,
+                    f"GemmGrad's backward at M={Mx}: {grads} products, copies {copies} "
+                    f"among {names}")
+            log(f"[training] GemmGrad's backward alone, three times, at ({Mx},{K})@({K},{N}) "
+                f"launched {names}: the two products each time, no copy, transpose or "
+                f"pad kernel")
+            del out
+            # the two layouts GemmGrad does not hand over (A K-major with B
+            # N-major, A M-major with B K-major): gemm_grad's other two
+            # instantiations, against the plain version
+            in_place = ops.grad_product(dy_all, w.t())
+            for a, b in ((dy_all, w.t().contiguous()), (dy_all.t().contiguous().t(), w.t())):
+                got_ab, want_ab = ops.grad_product(a, b), ref.gemm_grad(a, b)
+                err = (got_ab.float() - want_ab.float()).abs().max().item()
+                tol = GRAD_ULPS * ulp_of(want_ab.float().abs().max().item(), 7)
+                errs.append(err)
+                require(err <= tol, f"gemm_grad at strides {a.stride()} @ {b.stride()}: "
+                        f"max abs err {err:.3e} > {tol:.3e}")
+                log(f"[training] gemm_grad at strides {a.stride()} @ {b.stride()}: max abs "
+                    f"err {err:.3e} (tol {tol:.3e}); bitwise the in-place dX: "
+                    f"{torch.equal(got_ab, in_place)}")
         M = m0
         dy, x = dy_all[:M].contiguous(), x_all[:M].contiguous()
-        products = {
-            "dX": (lambda: ops.grad_product(dy, w.t()),
-                   lambda: ref.gemm_batch_invariant(dy, w.t().contiguous()),
-                   lambda: torch.matmul(dy, w.t()), gemm_bound(M, N, K), w.t().contiguous(),
-                   dy),
-            "dW": (lambda: ops.grad_product(x.t(), dy),
-                   lambda: ref.gemm_batch_invariant(x.t().contiguous(), dy),
-                   lambda: torch.matmul(x.t(), dy), gemm_bound(K, M, N), dy,
-                   x.t().contiguous()),
-        }
-        for name, (kern, plain, lib, (b_ms, b_by), b_op, a_op) in products.items():
-            flush = scratch.zero_
-            k1 = time_ms(torch, kern, flush=flush)
-            l1 = time_ms(torch, lib, flush=flush)
-            l2 = time_ms(torch, lib, flush=flush)
-            k2 = time_ms(torch, kern, flush=flush)
-            gemm_only = time_ms(torch, lambda: ops.gemm_batch_invariant(a_op, b_op, chunks=1),
-                                flush=flush)
-            plain_ms = time_ms(torch, plain, reps=10, flush=flush)
+        for name, a, b in (("dX", dy, w.t()), ("dW", x.t(), dy)):
+            b_ms, b_by = gemm_bound(a.shape[0], a.shape[1], b.shape[1])
+            ac, bc = a.contiguous(), b.contiguous()
+            k1 = time_ms(torch, lambda: ops.grad_product(a, b), flush=flush)
+            l1 = time_ms(torch, lambda: torch.matmul(a, b), flush=flush)
+            l2 = time_ms(torch, lambda: torch.matmul(a, b), flush=flush)
+            k2 = time_ms(torch, lambda: ops.grad_product(a, b), flush=flush)
+            old_ms = time_ms(torch, lambda: old_grad_route(a, b), flush=flush)
+            old_gemm = time_ms(torch, lambda: gemm_batch_invariant(ac, bc, chunks=1),
+                               flush=flush)
+            plain_ms = time_ms(torch, lambda: ref.gemm_grad(a, b), reps=10, flush=flush)
             ms, lib_ms = (k1 + k2) / 2, (l1 + l2) / 2
-            rows.append(dict(product=name, M=M, K=K, N=N, ms=ms, gemm_only_ms=gemm_only,
-                             library_ms=lib_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by))
-            log(f"[training] backward {name} of ({M},{K})@({K},{N}): {ms:.4f} ms "
-                f"(readings {k1:.4f}, {k2:.4f}; the commit GEMM alone on materialized "
-                f"operands {gemm_only:.4f}), torch.matmul {lib_ms:.4f} ms ({l1:.4f}, "
-                f"{l2:.4f}): {ms / lib_ms:.2f}x; plain {plain_ms:.4f} ms; bound "
-                f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.0f}% of it")
+            rows.append(dict(product=name, M=M, K=K, N=N, ms=ms, old_route_ms=old_ms,
+                             old_gemm_only_ms=old_gemm, library_ms=lib_ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+            log(f"[training] backward {name} of ({M},{K})@({K},{N}), "
+                f"({a.shape[0]},{a.shape[1]})@({b.shape[0]},{b.shape[1]}) read in place: "
+                f"{ms:.4f} ms (readings {k1:.4f}, {k2:.4f}); the old route {old_ms:.4f} "
+                f"ms with its copies, its commit GEMM alone on materialized operands "
+                f"{old_gemm:.4f} ({old_ms / ms:.2f}x this); torch.matmul {lib_ms:.4f} ms "
+                f"({l1:.4f}, {l2:.4f}): {ms / lib_ms:.2f}x; plain {plain_ms:.4f} ms; "
+                f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.0f}% of it")
+        # the forward's commit GEMM (4 chunks) at training's M: a reading
+        b_ms, b_by = gemm_bound(M, K, N)
+        f1 = time_ms(torch, lambda: gemm_batch_invariant(x, w, chunks=4), flush=flush)
+        l1 = time_ms(torch, lambda: torch.matmul(x, w), flush=flush)
+        l2 = time_ms(torch, lambda: torch.matmul(x, w), flush=flush)
+        f2 = time_ms(torch, lambda: gemm_batch_invariant(x, w, chunks=4), flush=flush)
+        ms, lib_ms = (f1 + f2) / 2, (l1 + l2) / 2
+        fwd_rows.append(dict(M=M, K=K, N=N, chunks=4, ms=ms, library_ms=lib_ms,
+                             bound_ms=b_ms, bound_by=b_by))
+        log(f"[training] forward commit GEMM (4 chunks) of ({M},{K})@({K},{N}): {ms:.4f} "
+            f"ms ({f1:.4f}, {f2:.4f}), torch.matmul {lib_ms:.4f} ms ({l1:.4f}, {l2:.4f}): "
+            f"{ms / lib_ms:.2f}x; bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.0f}% of it")
         del x_all, w, dy_all
     record_launches(results, "training/backward check", checked, main_path=False)
-    results["gemm_batch_invariant"]["backward"] = dict(max_abs_err=max(errs), rows=rows)
+    head = next(r for r in rows if r["product"] == "dX" and (r["K"], r["N"]) == (
+        cfg.d_model, cfg.d_ff))
+    r = results["gemm_grad"]
+    r.update(max_abs_err=max(errs), ms=head["ms"], plain_ms=head["plain_ms"],
+             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+             library_ms=head["library_ms"],
+             backward=dict(rows=rows, headline=f"dX of ({head['M']},{head['K']})@"
+                           f"({head['K']},{head['N']})", old_route_bits=old_bits))
+    results["gemm_batch_invariant"]["training_forward"] = fwd_rows
     log(f"[training] backward products: max abs err {max(errs):.3e} (within "
-        f"{GRAD_ULPS} bf16 ulps), dX rows bitwise across M {GRAD_MS}")
+        f"{GRAD_ULPS} bf16 ulps), dX rows bitwise across M {GRAD_MS}; equal to the old "
+        f"route's bits (dX, dW) at (M, K, N): {old_bits}")
 
 
 def train_run(torch, cfg, opt_cfg, batches, label, results, params, *, first=0, remat=True,
@@ -5082,7 +5253,7 @@ def train_run(torch, cfg, opt_cfg, batches, label, results, params, *, first=0, 
     from repro_torch.training.train import make_train_program
 
     gib = 2 ** 30
-    want = commit_only(microbatches * train_gemm_launches(cfg, remat))
+    want = train_gemm_launches(cfg, remat, microbatches)
     out = dict(times=[], hist=[])
     with programs.eager() if eager else contextlib.nullcontext():
         prog = make_train_program(cfg, opt_cfg, num_microbatches=microbatches, remat=remat,
@@ -5188,7 +5359,7 @@ def train_step_parts(torch, cfg, params, batch, opt_cfg, results, summary) -> No
     from repro_torch.training.train import batch_grads, make_train_step
 
     gib = 2 ** 30
-    want = commit_only(train_gemm_launches(cfg, True))
+    want = train_gemm_launches(cfg, True)
     n_params = sum(t.numel() for t in tree_leaves(params))
     p_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     opt_state = init_opt_state(params)
@@ -5330,8 +5501,8 @@ def train_mamba_full_width(torch, results, summary) -> None:
     HYBRID_TRAIN_S, with remat (``torch.utils.checkpoint``, not reentrant,
     as ``forward_train``'s) and without.  A repeat and the run without remat
     are bitwise the first in parameters, optimizer state and losses; every
-    step's launches are its GEMMs' (4 forward, 4 again under remat, 8
-    backward products); step time (CUDA events) and peak memory printed.
+    step's launches are its GEMMs' (4 forward and 4 again under remat in the
+    commit GEMM, 8 backward products in ``gemm_grad``); step time (CUDA events) and peak memory printed.
     The depth cut: one layer of the published 72 (the whole period does not
     fit one card)."""
     from repro_torch import configs
@@ -5359,7 +5530,7 @@ def train_mamba_full_width(torch, results, summary) -> None:
         return x + mamba.mamba_layer(p["mamba"], cfg, h, None, VERIFY_SCHEDULE)[0]
 
     def run(remat, label):
-        want = commit_only(16 if remat else 12)
+        want = gemm_launches(8 if remat else 4, 8)
         params, opt_state = params0, init_opt_state(params0)
         sync(torch)
         base = torch.cuda.memory_allocated()
@@ -5462,7 +5633,7 @@ def phase_training(torch, results, summary) -> None:
                    for i in range(TRAIN_STEPS)]
         opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
         fwd = sum(forward_gemms(cfg))
-        want = commit_only(train_gemm_launches(cfg, remat=True))
+        want = train_gemm_launches(cfg, remat=True)
         ckpt = ROOT / "build" / "chip_smoke_train.npz"
 
         def go(label, **kw):
@@ -5497,7 +5668,7 @@ def phase_training(torch, results, summary) -> None:
             before, _ = lm_loss(params0, cfg, b0["tokens"], b0["targets"], b0["loss_mask"])
             after, _ = lm_loss(after_tree, cfg, b0["tokens"], b0["targets"], b0["loss_mask"])
         counts = launch_counts(fns)
-        require(counts == commit_only(2 * fwd), f"training: two loss passes launched {counts}")
+        require(counts == gemm_launches(2 * fwd), f"training: two loss passes launched {counts}")
         record_launches(results, "training/loss", counts)
         require(math.isfinite(float(after)) and float(after) < float(before),
                 f"training: the first batch's loss {float(before):.6f} -> {float(after):.6f}")
@@ -5523,7 +5694,9 @@ def phase_training(torch, results, summary) -> None:
         del micro, r1["grads"]
         gc.collect()
         train_step_parts(torch, cfg, params0, batches[0], opt_cfg, results, summary)
-    per_step = want["gemm_batch_invariant"]
+    per_step = {k: n for k, n in want.items() if n}
+    for name in TRAINING_KERNELS:
+        require(results[name]["launches"] > 0, f"{name} was never launched on its path")
     med = sorted(r1["times"])[len(r1["times"]) // 2]
     med_e = sorted(r_e["times"])[len(r_e["times"]) // 2]
     t = summary["training"]
@@ -5550,8 +5723,14 @@ def phase_training(torch, results, summary) -> None:
         f"({t['profiled_busy_ms']:.1f} of {t['profiled_wall_ms']:.1f} ms), both under "
         f"torch.profiler; peak {r1['peak_gib']:.3f} GiB replayed vs {r_e['peak_gib']:.3f} "
         f"GiB eager; reserved {r1['reserved_before_gib']:.3f} -> "
-        f"{r1['reserved_after_capture_gib']:.3f} GiB over the capture; {per_step} "
-        f"commit-GEMM launches a step (counted)")
+        f"{r1['reserved_after_capture_gib']:.3f} GiB over the capture; GEMM launches a "
+        f"step {per_step} (counted)")
+    gemm_ms = sum(t["profiled_buckets"][b][0] for b in ("backward GEMM (gemm_grad)",
+                                                         "commit GEMM"))
+    log(f"[training] replayed median {med:.1f} ms; the eager step's GEMMs "
+        f"{gemm_ms:.2f} ms of {t['profiled_busy_ms']:.1f} ms busy ({100 * gemm_ms / t['profiled_busy_ms']:.1f}%: "
+        f"gemm_grad {t['profiled_buckets']['backward GEMM (gemm_grad)'][0]:.2f}, commit "
+        f"GEMM {t['profiled_buckets']['commit GEMM'][0]:.2f})")
     del params0
     gc.collect()
     torch.cuda.empty_cache()
@@ -6023,7 +6202,7 @@ def main() -> int:
                            "ms", "plain_ms",
                            "bound_ms", "bound_by", "library_ms", "ms_kv_splits_1",
                            "plain_ms_kv_splits_1", "ms_with_residual", "shapes", "backward",
-                           "tp_fold")
+                           "training_forward", "tp_fold")
          if k in r} for r in results.values()
     ]}))
     log(json.dumps({"ok": True, "device": {

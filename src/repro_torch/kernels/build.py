@@ -31,6 +31,10 @@ ENTRY_POINTS = {
         # x, w, part, out, M, N, K, chunks, dtype, stream
         "repro_gemm_batch_invariant": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
+    "gemm_grad": {
+        # a, b, out, M, N, K, a_mn, lda, b_mn, ldb, stream
+        "repro_gemm_grad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
     "gemm_splitk": {
         # x, w, part, out, M, N, K, tp, splits, pinned, combine, dtype, stream
         "repro_gemm_splitk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -1,4 +1,4 @@
-"""Schedule-aware dispatch onto the six kernels.
+"""Schedule-aware dispatch onto the kernels.
 
 * ``matmul(x, w, schedule)``: the pinned commit schedule (``tp_shards``
   chunks, balanced f32 tree, ``splits == 1``) goes to the batch-invariant
@@ -13,7 +13,8 @@
   drops to one split instead; the model path on the TPU never takes it.)
   When an operand requires grad, the launch runs inside ``GemmGrad``, whose
   backward computes the two products of JAX's autodiff of
-  ``core.determinism.matmul``, each in the commit GEMM with one chunk.
+  ``core.determinism.matmul``, each one f32 pass: ``gemm_grad`` (bf16) or
+  the commit GEMM with one chunk (f32).
 * ``paged_attention(..., schedule)``: ``kv_splits == 1`` selects the commit
   kernel; a split count that divides the table reach selects the fast
   kernel; one that does not falls back to the commit kernel, as
@@ -33,11 +34,11 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.determinism import Schedule
 from repro_torch.kernels.decode_attention import decode_attention as _decode_attention
 from repro_torch.kernels.gemm_batch_invariant import gemm_batch_invariant
+from repro_torch.kernels.gemm_grad import gemm_grad
 from repro_torch.kernels.gemm_splitk import gemm_splitk
 from repro_torch.kernels.paged_attention import (
     paged_attention as _paged_attention,
@@ -71,19 +72,13 @@ def _schedule_gemm(x2: torch.Tensor, w: torch.Tensor, schedule: Schedule) -> tor
                        tp_pinned=schedule.tp_pinned)
 
 
-#: the backward products' contraction is padded with zero columns to a
-#: multiple of this: a bf16 row of 16 bytes, as TMA reads it (the
-#: contraction of dW is M = B * S tokens, which may be any count)
-GRAD_ALIGN = 8
-
-
 def grad_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a (M, K) @ b (K, N) in one f32 pass, rounded to a.dtype: the commit
-    GEMM with one chunk.  Zero columns padded onto the contraction add
-    exact zeros to every f32 sum, so they change no bit."""
-    pad = -a.shape[1] % GRAD_ALIGN
-    if pad:
-        a, b = F.pad(a, (0, pad)), F.pad(b, (0, 0, 0, pad))
+    """a (M, K) @ b (K, N) in one f32 pass, rounded to a.dtype.  bf16
+    operands go to ``gemm_grad``, which reads transposed views in place;
+    f32 operands (the MoE experts' contractions, f32 configs) to the commit
+    GEMM with one chunk, whose CUDA-core tile reads row-major copies."""
+    if a.dtype == torch.bfloat16:
+        return gemm_grad(a, b)
     return gemm_batch_invariant(a.contiguous(), b.contiguous(), chunks=1)
 
 
@@ -95,9 +90,10 @@ class GemmGrad(torch.autograd.Function):
     pass rounded to x's and w's dtype, and the chunks' slices abut.  So
     whatever the forward's chunks or splits, ``dX = dY @ W^T`` and ``dW =
     X^T @ dY`` are each one f32-accumulated pass: ``grad_product``, the
-    commit GEMM, never a library GEMM.  Its rows are independent of M, so
-    dX's rows do not follow the token count.  The transposed operands are
-    materialized (``.t().contiguous()``)."""
+    commit GEMM's function, never a library GEMM.  Its rows are independent
+    of M, so dX's rows do not follow the token count.  The transposed
+    operands are handed over as views (``w.t()``, ``x2.t()``), which
+    ``gemm_grad`` reads in place."""
 
     @staticmethod
     def forward(ctx, x2, w, schedule):

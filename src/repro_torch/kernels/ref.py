@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the port's six Hopper kernels.
+"""Plain PyTorch versions of the port's Hopper kernels.
 
-One function per kernel, with the JAX kernel's arguments and layouts.  The
-wrappers (``gemm_batch_invariant.py``, ``gemm_splitk.py``,
+One function per kernel, with the JAX kernel's arguments and layouts (and
+``gemm_grad``, the backward products' GEMM, which replaces no TPU kernel).
+The wrappers (``gemm_batch_invariant.py``, ``gemm_grad.py``, ``gemm_splitk.py``,
 ``paged_attention.py``, ``decode_attention.py``, ``rmsnorm.py``) call these
 for tensors on the CPU; ``chip_smoke.py``
 holds each CUDA kernel against them on the card.  They are the numerical
@@ -30,6 +31,13 @@ def gemm_batch_invariant(x: torch.Tensor, w: torch.Tensor, *,
     ``repro.kernels.gemm_batch_invariant``; ``chunks=4`` the commit path
     under ``VERIFY_SCHEDULE``."""
     return tree_combine(gemm_partials(x, w, chunks=chunks)).to(x.dtype)
+
+
+def gemm_grad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The backward products' GEMM.  a (M, K), b (K, N) -> (M, N) in
+    a.dtype: the commit GEMM at one chunk on contiguous copies, so that a
+    transposed view gives the bits of its copy."""
+    return gemm_batch_invariant(a.contiguous(), b.contiguous(), chunks=1)
 
 
 def gemm_partials(x: torch.Tensor, w: torch.Tensor, *, chunks: int) -> list:

@@ -121,7 +121,7 @@ def _shared(arch):
 def test_smoke_forward_matches_jax(arch):
     """A 12-token prefill of two rows under VERIFY_SCHEDULE, then one decode
     token under the fast schedule of B = 2 (kv_splits 4 over 4 blocks)."""
-    pytest.importorskip("jax")
+    jax = pytest.importorskip("jax")
     import jax.numpy as jnp
     from repro.core.determinism import (
         REORDER_ONLY_POLICY as JR, VERIFY_SCHEDULE as JV,
@@ -144,9 +144,12 @@ def test_smoke_forward_matches_jax(arch):
             (rng.integers(0, cfg.vocab_size, (2, 1)), JR.schedule_for(2),
              REORDER_ONLY_POLICY.schedule_for(2))):
         toks = toks.astype(np.int32)
-        jl, jcache, _ = jforward(jp, jcfg, jnp.asarray(toks), cache=jcache,
-                                 start_pos=jnp.asarray(start), schedule=jsched,
-                                 tables=jnp.asarray(tables), paged=JPV(BS, nb, nb + 1))
+        # jitted, as the reference's engine runs it (op by op every
+        # primitive compiles on its own)
+        jl, jcache, _ = jax.jit(lambda p, x, c, st, tb, sch=jsched: jforward(
+            p, jcfg, x, cache=c, start_pos=st, schedule=sch, tables=tb,
+            paged=JPV(BS, nb, nb + 1)))(jp, jnp.asarray(toks), jcache, jnp.asarray(start),
+                                        jnp.asarray(tables))
         tl, _, _ = forward(tp, cfg, torch.from_numpy(toks), cache=tcache,
                            start_pos=torch.from_numpy(start), schedule=tsched,
                            tables=torch.from_numpy(tables), paged=PagedView(BS, nb, nb + 1))

@@ -230,6 +230,7 @@ def test_forward_with_states_matches_jax(shared):
     """A 7-token prefill then a 1-token decode from its cache (B = 2) with
     ``collect_states``: logits, the attention K/V of the period's attention
     layers, the mamba states and the per-position states."""
+    import jax
     import jax.numpy as jnp
     from repro import configs as jconfigs
     from repro.core.determinism import VERIFY_SCHEDULE as JV
@@ -242,11 +243,13 @@ def test_forward_with_states_matches_jax(shared):
     tc = {"blocks": {p: {k: (torch.full(s, -1, dtype=d) if d == torch.int32
                              else torch.zeros(s, dtype=d)) for k, (s, d) in leaves.items()}
                      for p, leaves in transformer.cache_spec(CFG, 2, 16)["blocks"].items()}}
+    # jitted, as the reference's engine runs it (op by op every primitive
+    # compiles on its own)
+    fwd = jax.jit(lambda p, x, c, st: jt.forward(p, jcfg, x, cache=c, start_pos=st,
+                                                 schedule=JV, collect_states=True))
     for s, e in ((0, 7), (7, 8)):
         start = np.full(2, s, np.int32)
-        jl, jc, jpp = jt.forward(jp, jcfg, jnp.asarray(toks[:, s:e]), cache=jc,
-                                 start_pos=jnp.asarray(start), schedule=JV,
-                                 collect_states=True)
+        jl, jc, jpp = fwd(jp, jnp.asarray(toks[:, s:e]), jc, jnp.asarray(start))
         tl, tc, tpp = transformer.forward(tp, CFG, torch.from_numpy(toks[:, s:e]),
                                           cache=tc, start_pos=torch.from_numpy(start),
                                           schedule=VERIFY_SCHEDULE, collect_states=True)
@@ -280,10 +283,11 @@ def test_bias_forward_matches_jax():
     tc = {"blocks": {"0": {k: (torch.full(s, -1, dtype=d) if d == torch.int32
                                else torch.zeros(s, dtype=d)) for k, (s, d) in
                            transformer.cache_spec(cfg, 2, 8)["blocks"]["0"].items()}}}
+    fwd = jax.jit(lambda p, x, c, st: jt.forward(p, jcfg, x, cache=c, start_pos=st,
+                                                 schedule=JV))
     for s, e in ((0, 5), (5, 6)):
         start = np.full(2, s, np.int32)
-        jl, jc, _ = jt.forward(jp, jcfg, jnp.asarray(toks[:, s:e]), cache=jc,
-                               start_pos=jnp.asarray(start), schedule=JV)
+        jl, jc, _ = fwd(jp, jnp.asarray(toks[:, s:e]), jc, jnp.asarray(start))
         tl, tc, _ = transformer.forward(tp, cfg, torch.from_numpy(toks[:, s:e]), cache=tc,
                                         start_pos=torch.from_numpy(start),
                                         schedule=VERIFY_SCHEDULE)

@@ -396,7 +396,7 @@ def test_every_c_entry_point_is_declared():
         assert set(_c_entry_points(stem)) - {"repro_error_string"} == set(fns), stem
 
 
-@pytest.mark.parametrize("source", _with_headers("gemm_batch_invariant.cu"))
+@pytest.mark.parametrize("source", _with_headers("gemm_batch_invariant.cu") + ["gemm_grad.cu"])
 def test_commit_gemm_sources_have_no_atomics(source):
     """The commit path's rules: no atomics anywhere in the commit GEMM or
     the headers it includes (comments aside)."""
@@ -433,6 +433,79 @@ def test_gemm_weight_maps_cached_x_maps_per_call():
     assert "encode_bf16(x, M, K, TC_BM, &xmap)" in launch
     assert "encode_bf16(w, K, N, TC_BK, &map)" in text
     assert "ptr == o.ptr && rows == o.rows && cols == o.cols" in text
+
+
+def test_gemm_grad_lint_is_clean():
+    """The backward products' source passes the determinism contract's
+    kernel lint with no finding, no allowlist entry and no fast-path
+    exemption; its tile, K step, ring, warpgroups and wgmma shape are
+    constexpr literals, the instruction in the source is the one they
+    describe (M = 64 rows a consumer warpgroup, N = the tile's 256
+    columns, K = 16), and M enters the launch only as a count of tiles."""
+    import re
+
+    from repro_torch.analysis import kernel_lint
+
+    rel = "src/repro_torch/kernels/csrc/gemm_grad.cu"
+    assert kernel_lint.lint_file(CSRC / "gemm_grad.cu", rel) == []
+    assert not [f for f in kernel_lint.run_pass(ROOT) if f.where.startswith(rel)]
+    allow = (PORT / "analysis" / "allowlist.toml").read_text()
+    raw = (CSRC / "gemm_grad.cu").read_text()
+    assert "gemm_grad" not in allow and "det: fastpath" not in raw
+    text = _strip_comments(raw)
+    consts = dict(re.findall(r"constexpr int (\w+) = (\w+);", text))
+    for name in ("GP_BM", "GP_BN", "GP_BK", "GP_MMA_K", "GP_STAGES", "GP_ATOM", "GP_WG"):
+        assert consts.get(name, "").isdigit(), (name, consts.get(name))
+    shapes = set(re.findall(r"wgmma\.mma_async\.sync\.aligned\.(m\d+n\d+k\d+)", text))
+    assert shapes == {f"m64n{consts['GP_BN']}k{consts['GP_MMA_K']}"}
+    assert int(consts["GP_BM"]) == 2 * 64  # two consumer warpgroups of 64 rows
+    launch = text[text.index("cudaError_t launch_grad("):]
+    assert "dim3 grid((M + GP_BM - 1) / GP_BM, (N + GP_BN - 1) / GP_BN);" in launch
+    # one launch a product: no workspace, no second kernel
+    assert launch[:launch.index('extern "C"')].count("<<<") == 1
+
+
+@pytest.mark.parametrize("shape,view,want", [
+    ((4, 16), lambda t: t, (0, 16)),
+    ((16, 8), lambda t: t.t(), (1, 8)),
+    ((4, 24), lambda t: t[:, :12], (0, 24)),          # a column slice keeps its stride
+    ((4, 20), lambda t: t, (-1, 0)),                  # a row stride of 40 bytes
+    ((4, 17), lambda t: t[:, 1:], (-1, 0)),           # base 2 bytes off
+    ((4, 16), lambda t: t[:, ::2], (-1, 0)),          # no unit stride
+], ids=["rows", "transposed", "slice", "unaligned-stride", "unaligned-base", "strided"])
+def test_gemm_grad_operand_layout(shape, view, want):
+    """Which views ``gemm_grad`` reads in place (TMA: a unit stride, a
+    leading stride of a multiple of 8 bf16, a 16-byte-aligned base), and
+    the aligned copy it makes of the others: row-major, its stride
+    rounded up to a multiple of 8, the same values."""
+    from repro_torch.kernels.gemm_grad import aligned_rows, operand_layout
+
+    t = view(torch.arange(shape[0] * shape[1], dtype=torch.float32)
+             .reshape(shape).bfloat16())
+    assert operand_layout(t) == want
+    if want[0] < 0:
+        c = aligned_rows(t)
+        assert torch.equal(c, t) and operand_layout(c)[0] == 0
+        assert c.stride(0) % 8 == 0 and c.stride(0) - t.shape[1] < 8
+
+
+def test_gemm_grad_meta_and_refusals():
+    """``gemm_grad`` on meta views (the dry run) gives a meta output of the
+    product's shape, counting no launch; bf16 only, one device, and never
+    the plain version off the CPU."""
+    from repro_torch.kernels.gemm_grad import gemm_grad
+
+    before = gemm_grad.launches
+    a = torch.empty((24, 13), dtype=torch.bfloat16, device="meta")
+    out = gemm_grad(a.t(), a)
+    assert out.device.type == "meta" and tuple(out.shape) == (13, 13)
+    assert out.dtype == torch.bfloat16 and gemm_grad.launches == before
+    with pytest.raises(TypeError, match="bf16"):
+        gemm_grad(a.float().t(), a.float())
+    with pytest.raises(ValueError, match="meta"):
+        gemm_grad(a.t(), torch.empty((24, 13), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="shapes"):
+        gemm_grad(a, a)
 
 
 # ---------------------------------------------------------------------------

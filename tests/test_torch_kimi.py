@@ -128,11 +128,14 @@ def _jax_logits(cfg, tree, toks, C):
                                    head_dim=cfg.head_dim)
         jp = jax.tree_util.tree_map(jnp.asarray, tree)
         jc = jt.init_cache(jcfg, toks.shape[0], C)
+        # jitted, as the reference's engine runs it: one compilation a pass
+        # shape, where op by op every primitive compiles on its own
+        fwd = jax.jit(lambda p, x, c, start: jt.forward(p, jcfg, x, cache=c,
+                                                        start_pos=start, schedule=JV))
         want = []
         for s, e in _STEPS:
             start = np.full(toks.shape[0], s, np.int32)
-            jl, jc, _ = jt.forward(jp, jcfg, jnp.asarray(toks[:, s:e]), cache=jc,
-                                   start_pos=jnp.asarray(start), schedule=JV)
+            jl, jc, _ = fwd(jp, jnp.asarray(toks[:, s:e]), jc, jnp.asarray(start))
             want.append(np.asarray(jl))
         _JAX_LOGITS[key] = want
     return _JAX_LOGITS[key]

@@ -65,15 +65,20 @@ def _pools():
 
 
 def _both(shared, jpool_data, tpool_data, tokens, start, tables, jsched, tsched):
+    import jax
     import jax.numpy as jnp
     from repro.models.layers import PagedView as JPV
     from repro.models.transformer import forward as jforward
 
     jp, tp = shared
     nb = 4 * (CAP // BS)  # the pools' null block; scratch follows it
-    jl, jc, _ = jforward(jp, _jcfg(), jnp.asarray(tokens), cache=jpool_data,
-                         start_pos=jnp.asarray(start), schedule=jsched,
-                         tables=jnp.asarray(tables), paged=JPV(BS, nb, nb + 1))
+    jcfg = _jcfg()
+    # jitted, as the reference's engine runs it (op by op every primitive
+    # compiles on its own)
+    jl, jc, _ = jax.jit(lambda p, x, c, st, tb: jforward(
+        p, jcfg, x, cache=c, start_pos=st, schedule=jsched, tables=tb,
+        paged=JPV(BS, nb, nb + 1)))(jp, jnp.asarray(tokens), jpool_data, jnp.asarray(start),
+                                    jnp.asarray(tables))
     tl, _, _ = forward(tp, CFG, torch.from_numpy(tokens), cache=tpool_data,
                        start_pos=torch.from_numpy(start), schedule=tsched,
                        tables=torch.from_numpy(tables), paged=PagedView(BS, nb, nb + 1))

@@ -355,7 +355,7 @@ def test_add_launches_moves_counts():
     recording.add_launches({fn: -5})
     assert fn.launches == before
     assert {f.__name__ for f in recording.COUNTED} == {
-        "gemm_batch_invariant", "gemm_splitk", "paged_attention",
+        "gemm_batch_invariant", "gemm_grad", "gemm_splitk", "paged_attention",
         "paged_attention_fast", "decode_attention", "rmsnorm"}
 
 

@@ -271,6 +271,19 @@ def test_train_cli_hybrid(monkeypatch, capsys):
 # ---------------------------------------------------------------------------
 
 
+def _record_products(monkeypatch):
+    """Calls of the two product entries ``ops`` routes to, as (entry, chunks
+    or None, a, b), each then run as it would be."""
+    calls = []
+    commit, grad = ops.gemm_batch_invariant, ops.gemm_grad
+    monkeypatch.setattr(ops, "gemm_batch_invariant",
+                        lambda a, b, chunks=1: calls.append(("commit", chunks, a, b))
+                        or commit(a, b, chunks=chunks))
+    monkeypatch.setattr(ops, "gemm_grad",
+                        lambda a, b: calls.append(("grad", None, a, b)) or grad(a, b))
+    return calls
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M", [24, 13])
 @pytest.mark.parametrize("schedule", [VERIFY_SCHEDULE,
@@ -279,22 +292,26 @@ def test_train_cli_hybrid(monkeypatch, capsys):
 def test_gemm_backward_matches_autograd(monkeypatch, dtype, M, schedule):
     """dX = dY W^T and dW = X^T dY: one f32 pass each, rounded to the
     operands' dtype, as autograd through ``x.float() @ w.float()`` gives;
-    both in the commit GEMM with one chunk (an M that is no multiple of 8
-    padded with zero columns), never the split-K GEMM."""
-    calls = []
-    real = ops.gemm_batch_invariant
-    monkeypatch.setattr(ops, "gemm_batch_invariant",
-                        lambda a, b, chunks=1: calls.append(("commit", chunks, a.shape))
-                        or real(a, b, chunks=chunks))
+    bf16 products in ``gemm_grad`` on the transposed views (no copy: an M
+    that is no multiple of 8 needs no padding either), f32 ones in the
+    commit GEMM with one chunk; never the split-K GEMM."""
+    calls = _record_products(monkeypatch)
     g = torch.Generator().manual_seed(M)
     K, N = 40, 48
     x = torch.randn(M, K, generator=g).to(dtype).requires_grad_(True)
     w = (torch.randn(K, N, generator=g) * K ** -0.5).to(dtype).requires_grad_(True)
     dy = torch.randn(M, N, generator=g).to(dtype)
     ops.matmul(x, w, schedule).backward(dy)
-    backward = [c for c in calls if c[1] == 1][-2:]
-    assert [c[:2] for c in backward] == [("commit", 1), ("commit", 1)]
-    assert backward[1][2][1] % ops.GRAD_ALIGN == 0  # dW's contraction, padded
+    if dtype == torch.bfloat16:
+        backward = calls[-2:]
+        assert [c[:2] for c in backward] == [("grad", None), ("grad", None)]
+        (_, _, dy_a, wt), (_, _, xt, dy_b) = backward
+        assert wt.data_ptr() == w.data_ptr() and wt.stride() == (1, N)  # w.t(), in place
+        assert xt.data_ptr() == x.data_ptr() and xt.stride() == (1, K)  # x.t(), in place
+        assert dy_a.shape == dy_b.shape == (M, N)
+    else:
+        backward = [c for c in calls if c[1] == 1][-2:]
+        assert [c[:2] for c in backward] == [("commit", 1), ("commit", 1)]
 
     xr, wr = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
     (xr.float() @ wr.float()).to(dtype).backward(dy)
@@ -304,6 +321,49 @@ def test_gemm_backward_matches_autograd(monkeypatch, dtype, M, schedule):
         diff = (got.float() - want.float()).abs().max().item()
         ulp = want.float().abs().max().item() * (2 ** -7 if dtype == torch.bfloat16 else 0)
         assert diff <= max(tol, ulp), diff
+
+
+def test_gemm_backward_hands_views_without_copies(monkeypatch):
+    """``GemmGrad``'s backward gives ``gemm_grad`` dY as autograd hands it
+    over and the saved operands' transposes as views of their storage:
+    no ``.contiguous()`` copy, no padded copy, for a token count (13) and a
+    contraction (21) that are no multiples of 8."""
+    calls = _record_products(monkeypatch)
+    g = torch.Generator().manual_seed(3)
+    M, K, N = 13, 21, 24
+    x = torch.randn(M, K, generator=g).bfloat16().requires_grad_(True)
+    w = torch.randn(K, N, generator=g).bfloat16().requires_grad_(True)
+    dy = torch.randn(M, N, generator=g).bfloat16()
+    ops.matmul(x, w, VERIFY_SCHEDULE).backward(dy)
+    (e1, _, a1, b1), (e2, _, a2, b2) = calls[-2:]
+    assert (e1, e2) == ("grad", "grad")
+    assert a1.data_ptr() == dy.data_ptr() and a1.is_contiguous()
+    assert b1.data_ptr() == w.data_ptr() and b1.shape == (N, K) and b1.stride() == (1, N)
+    assert a2.data_ptr() == x.data_ptr() and a2.shape == (K, M) and a2.stride() == (1, K)
+    assert b2.data_ptr() == dy.data_ptr()
+
+
+@pytest.mark.parametrize("M", [13, 24])
+@pytest.mark.parametrize("K", [21, 40])
+def test_grad_product_views_equal_contiguous_copies(M, K):
+    """``ops.grad_product`` on transposed views, and on a view whose base is
+    not 16-byte aligned (a column slice), gives bitwise the plain product
+    of contiguous copies (``ref.gemm_batch_invariant`` at one chunk), for
+    bf16 and f32 operands, at token counts and a contraction that are no
+    multiples of 8."""
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(M * 100 + K)
+    N = 24
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.from_numpy(rng.standard_normal((M, K + 1)).astype(np.float32)).to(dt)
+        w = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)).to(dt)
+        dy = torch.from_numpy(rng.standard_normal((M, N)).astype(np.float32)).to(dt)
+        xs = x[:, 1:]  # base one element off, row stride K + 1
+        for a, b in ((dy, w.t()), (xs.t(), dy), (xs, w), (dy.t().contiguous().t(), w.t())):
+            got = ops.grad_product(a, b)
+            want = ref.gemm_batch_invariant(a.contiguous(), b.contiguous(), chunks=1)
+            assert got.dtype == dt and torch.equal(got, want)
 
 
 def test_attention_train_chunked_equals_unchunked(monkeypatch):
@@ -328,11 +388,7 @@ def test_attention_train_chunked_equals_unchunked(monkeypatch):
 
 
 @pytest.mark.parametrize("remat", [True, False])
-def test_chip_smoke_counts_a_steps_gemm_launches(setup, monkeypatch, remat):
-    """``chip_smoke.train_gemm_launches``, which the training phase holds
-    each step's launches to on the card, is the number of commit-GEMM
-    calls a step makes (counted here on the plain versions), and a step
-    calls no split-K GEMM; the phases sit before ``timings``."""
+def _chip_smoke():
     import importlib.util
 
     root = Path(__file__).resolve().parents[1]
@@ -340,20 +396,47 @@ def test_chip_smoke_counts_a_steps_gemm_launches(setup, monkeypatch, remat):
                                                   root / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    return cs
+
+
+def _count_step_gemms(monkeypatch, cfg, params, nb, remat):
+    """Product-entry calls of one training step on the plain versions."""
+    calls = _record_products(monkeypatch)
+    splitk = []
+    monkeypatch.setattr(ops, "gemm_splitk", lambda *a, **k: splitk.append(1))
+    make_train_step(cfg, OPT, remat=remat)(params, init_opt_state(params), torch_batch(nb))
+    return {"gemm_batch_invariant": sum(c[0] == "commit" for c in calls),
+            "gemm_grad": sum(c[0] == "grad" for c in calls), "gemm_splitk": len(splitk)}
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_chip_smoke_counts_a_steps_gemm_launches(setup, monkeypatch, remat):
+    """``chip_smoke.train_gemm_launches``, which the training phase holds
+    each step's launches to on the card, is the number of commit-GEMM and
+    ``gemm_grad`` calls a step makes (counted here on the plain versions;
+    at this f32 config every product is a commit GEMM), and a step calls
+    no split-K GEMM; the phases sit before ``timings``."""
+    cs = _chip_smoke()
     assert cs.PHASES.index("cluster") < cs.PHASES.index("training") < cs.PHASES.index(
         "timings")
-    calls = {"commit": 0, "splitk": 0}
-    real = ops.gemm_batch_invariant
-
-    def commit(a, b, chunks=1):
-        calls["commit"] += 1
-        return real(a, b, chunks=chunks)
-
-    monkeypatch.setattr(ops, "gemm_batch_invariant", commit)
-    monkeypatch.setattr(ops, "gemm_splitk", lambda *a, **k: calls.update(splitk=1))
     params, _, nb = setup
-    make_train_step(CFG, OPT, remat=remat)(params, init_opt_state(params), torch_batch(nb))
-    assert calls == {"commit": cs.train_gemm_launches(CFG, remat), "splitk": 0}
+    want = cs.train_gemm_launches(CFG, remat)
+    got = _count_step_gemms(monkeypatch, CFG, params, nb, remat)
+    assert got == {k: want[k] for k in got} and want["gemm_grad"] == 0
+    assert not any(n for k, n in want.items() if k not in got)
+
+
+def test_chip_smoke_counts_a_bf16_steps_gemm_launches(monkeypatch):
+    """At a bf16 config the step's backward products go to ``gemm_grad``
+    (two for every forward GEMM), the forward and its recompute to the
+    commit GEMM, as ``chip_smoke.train_gemm_launches`` counts them."""
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(CFG, dtype="bfloat16")
+    params = train_params(cfg, params_from_numpy(cfg, np_params(cfg, 3), "cpu"))
+    want = cs.train_gemm_launches(cfg, True)
+    got = _count_step_gemms(monkeypatch, cfg, params, np_batch(cfg), True)
+    fwd = sum(cs.forward_gemms(cfg))
+    assert got == {k: want[k] for k in got} and want["gemm_grad"] == 2 * fwd > 0
 
 
 # ---------------------------------------------------------------------------
@@ -464,9 +547,35 @@ def test_train_program_step_matches_jax(setup, jax_step):
         assert float(m[k]) == pytest.approx(float(jm[k]), rel=1e-5), k
 
 
+HYBRID = "jamba-1.5-large-398b"
+
+
+@pytest.fixture(scope="module")
+def jax_hybrid():
+    """The JAX package's smoke ``jamba-1.5-large-398b`` in one ``jax.jit``
+    for both hybrid tests below (their weights and batches share shapes, so
+    it compiles once): ``forward_train``'s ``(logits, aux)`` and
+    ``jax.value_and_grad`` of ``lm_loss``'s ``((total, metrics), grads)``."""
+    jax = pytest.importorskip("jax")
+    from repro import configs as jconfigs
+    from repro.models.transformer import forward_train as jforward_train
+    from repro.training.train import lm_loss as jlm_loss
+
+    jcfg = jconfigs.get_smoke_config(HYBRID)
+
+    def both(p, batch):
+        def loss_fn(q):
+            return jlm_loss(q, jcfg, batch["tokens"], batch["targets"], batch["loss_mask"])
+
+        return (jforward_train(p, jcfg, batch["tokens"]),
+                jax.value_and_grad(loss_fn, has_aux=True)(p))
+
+    return jax.jit(both)
+
+
 @pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "seamless-m4t-medium",
-                                  "rwkv6-3b", "jamba-1.5-large-398b"])
-def test_forward_train_families_match_jax(arch):
+                                  "rwkv6-3b", HYBRID])
+def test_forward_train_families_match_jax(arch, jax_hybrid):
     """MoE: the logits, ``aux_loss`` and ``dropped_frac`` summed over the
     layers; encoder-decoder: the logits with ``enc_embeds`` (the encoder and
     every layer's cross K/V under an all-true mask); rwkv: the logits from
@@ -483,8 +592,11 @@ def test_forward_train_families_match_jax(arch):
         enc = (np.random.default_rng(0).standard_normal(
             (2, cfg.encoder_seq_len, cfg.d_model)) * 0.02).astype(np.float32)
         kw, jkw = {"enc_embeds": torch.from_numpy(enc)}, {"enc_embeds": jnp.asarray(enc)}
-    want, jaux = jax.jit(lambda p, t, kw: jforward_train(p, jcfg, t, **kw))(
-        jp, jnp.asarray(nb["tokens"]), jkw)
+    if arch == HYBRID:
+        (want, jaux), _ = jax_hybrid(jp, {k: jnp.asarray(v) for k, v in nb.items()})
+    else:
+        want, jaux = jax.jit(lambda p, t, kw: jforward_train(p, jcfg, t, **kw))(
+            jp, jnp.asarray(nb["tokens"]), jkw)
     got, aux = forward_train(train_params(cfg, params_from_numpy(cfg, tree, "cpu")), cfg,
                              torch.from_numpy(nb["tokens"]), remat=True, **kw)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=FWD_TOL, rtol=0)
@@ -494,21 +606,17 @@ def test_forward_train_families_match_jax(arch):
         assert float(aux["aux_loss"]) > 0
 
 
-def test_hybrid_loss_and_every_gradient_match_jax():
+def test_hybrid_loss_and_every_gradient_match_jax(jax_hybrid):
     """``lm_loss`` and every gradient leaf at the smoke ``jamba-1.5-large-398b``
     (2 x 16 tokens; attention, mamba, dense and MoE layers) against
     ``jax.value_and_grad`` of the JAX ``lm_loss``, within ``GRAD_REL`` of
     each leaf's max |g|."""
-    arch = "jamba-1.5-large-398b"
-    cfg = configs.get_smoke_config(arch)
+    cfg = configs.get_smoke_config(HYBRID)
     tree = np_params(cfg, 5)
-    jax, jnp, jcfg, jp = _jax_setup(arch, tree)
-    from repro.training.train import lm_loss as jlm_loss
+    jax, jnp, jcfg, jp = _jax_setup(HYBRID, tree)
 
     nb = np_batch(cfg, seq=16, batch=2, seed=3)
-    (total, metrics), grads = jax.jit(jax.value_and_grad(
-        lambda p: jlm_loss(p, jcfg, jnp.asarray(nb["tokens"]), jnp.asarray(nb["targets"]),
-                           jnp.asarray(nb["loss_mask"])), has_aux=True))(jp)
+    _, ((total, metrics), grads) = jax_hybrid(jp, {k: jnp.asarray(v) for k, v in nb.items()})
     p = tree_map(lambda t: t.detach().requires_grad_(True),
                  train_params(cfg, params_from_numpy(cfg, tree, "cpu")))
     b = torch_batch(nb)
